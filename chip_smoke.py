@@ -1,0 +1,391 @@
+#!/usr/bin/env python3
+"""Chip smoke test of jepsen_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the root of a checkout. It builds the port's WGL kernel
+(jepsen_tpu_torch/ops/csrc/wgl_vec.cu) with nvcc, holds it bit for bit
+against its plain PyTorch version on the card, then drives the port's
+main path — `independent.checker(linearizable(CASRegister(),
+algorithm="gpu_vec"))` — over keyed register histories at the sizes the
+reference workload checks, and checks the verdicts. Every phase prints
+one JSON line; the last lines are the kernel table, the card's name and
+power limit (nvidia-smi), and {"ok": true, "device": ...}. Any failed
+check raises, so the exit code is not 0. Without CUDA, or outside a
+checkout, it exits 2 and prints no result. It imports nothing of jax
+or jepsen_tpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# Peak rates of one H100 SXM (NVIDIA data sheet / Hopper white paper):
+# HBM3 bandwidth, and int32 ALU throughput (64 INT32 lanes per SM x 132
+# SMs x 1.98 GHz boost clock).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# int32 operations one search step does besides the memo key compare
+# (decode the entry, step the model, hash, relink four list words,
+# push or pop, bookkeeping) — counted from wgl_vec.cu's step body
+STEP_OPS = 64
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn):
+    """Milliseconds of fn() on the current stream (CUDA events around
+    the whole call), and fn()'s result."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def kernel_ms(wv, fn, reps: int = 5):
+    """Median milliseconds of the kernel alone over `reps` launches (the
+    wrapper's own events, recorded right around each launch), after one
+    warm-up launch; and the last launch's result."""
+    import torch
+
+    fn()
+    wv.TIMED = []
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in wv.TIMED)
+    wv.TIMED = None
+    return times[len(times) // 2], out
+
+
+# lockstep steps the plain version is run for in one comparison (~0.3 ms
+# a step on the card): lanes whose kernel search took longer are left out
+# of that launch's plain run, and the line says how many were compared
+PLAIN_STEP_LIMIT = 200_000
+
+
+class Kernel:
+    """The kernel's row of the final table, built up by the phases."""
+
+    def __init__(self):
+        self.compared = 0
+        self.max_abs_err = 0
+        self.shape = None
+        self.ms = self.plain_ms = self.bound_ms = None
+        self.bound_by = None
+
+
+def bound(packed, n_pad, small, key_words) -> tuple:
+    """(seconds for the bytes, seconds for the operations) of one launch
+    over `packed`: the packed input and step budgets read once, the
+    result block and best stack written once, over HBM bandwidth; and
+    the steps this run took times the int32 operations of one step, over
+    the int32 rate. The bound is the larger of the two."""
+    width = packed.shape[1]
+    nbytes = 4 * (packed.numel() + width + 5 * width + n_pad * width)
+    ops = int(small[1].sum()) * (key_words + STEP_OPS)
+    return nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+
+
+def bound_ms(t_bytes: float, t_ops: float) -> tuple:
+    return (1000 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(wv, launch, kernel) -> dict:
+    """Replay one captured `search` (wgl_vec.CAPTURE): the kernel, timed,
+    and the plain version on the same inputs on the card. The result
+    block and best stack must be bit-identical on every compared lane,
+    or this raises. Lanes whose kernel search took more than
+    PLAIN_STEP_LIMIT steps are left out of the plain run (lanes are
+    independent, so the others are compared as a narrower buffer).
+    Returns the launch's figures."""
+    import torch
+
+    packed, msteps, jm, n_pad, n_state, slots = launch
+    k_ms, (small_k, best) = kernel_ms(wv, lambda: wv.search(*launch))
+    small = small_k
+    width = packed.shape[1]
+    cols = (small[1] <= PLAIN_STEP_LIMIT).nonzero()[:, 0]
+    n_cmp = len(cols)
+    if n_cmp == width:
+        sub, sub_steps = packed, msteps
+    else:
+        w = max(1, -(-n_cmp // wv.LANES)) * wv.LANES
+        # zero columns are empty lanes: valid at once, no search
+        sub = torch.zeros((packed.shape[0], w), dtype=packed.dtype,
+                          device=packed.device)
+        sub[:, :n_cmp] = packed[:, cols]
+        sub_steps = torch.zeros(w, dtype=msteps.dtype, device=msteps.device)
+        sub_steps[:n_cmp] = msteps[cols]
+        small, best = small[:, cols], best[:, cols]
+    p_ms, (small_p, best_p) = cuda_ms(lambda: wv.search_plain(
+        sub, sub_steps, jm, n_pad, n_state, slots))
+    small_p, best_p = small_p[:, :n_cmp], best_p[:, :n_cmp]
+    err = int(torch.cat([
+        (small.long() - small_p.long()).flatten(),
+        (best.long() - best_p.long()).flatten(),
+        small.new_zeros(1, dtype=torch.long)]).abs().max())
+    kernel.max_abs_err = max(kernel.max_abs_err, err)
+    kernel.compared += 1
+    if err:
+        bad = (small != small_p).any(0).nonzero()[:4, 0].tolist()
+        raise AssertionError(
+            f"{jm.name}: kernel != plain at lanes {bad}: "
+            f"{small[:, bad].tolist()} vs {small_p[:, bad].tolist()}")
+    t_b, t_o = bound(packed, n_pad, small_k,
+                     wv._key_words(jm, n_pad, n_state))
+    b_ms, b_by = bound_ms(t_b, t_o)
+    real = (packed[-1] & 0xFFFF) > 0  # lanes with entries
+    return {"lanes": int(real.sum()), "rows": packed.shape[0],
+            "slots": slots,
+            "cap": int(msteps.max()), "kernel_ms": k_ms, "plain_ms": p_ms,
+            "plain_lanes": int(real[cols].sum()), "bound_ms": b_ms,
+            "bound_by": b_by, "t_bytes": t_b, "t_ops": t_o,
+            "steps": int(small_k[1].sum()),
+            "max_lane_steps": int(small_k[1].max())}
+
+
+def shifted(hist, d: int):
+    """`hist` with every register value moved up by `d`."""
+    def sh(v):
+        if isinstance(v, tuple):
+            return tuple(x + d for x in v)
+        return v if v is None else v + d
+    return [o.with_(value=sh(o.value)) for o in hist]
+
+
+def verdict_counts(valids) -> dict:
+    valids = list(valids)
+    return {str(v): sum(1 for x in valids if x == v)
+            for v in (True, False, "unknown")}
+
+
+def phase_kernel_vs_plain(args, wv, kernel):
+    """Phase 3: kernel == plain on the card for every model family and
+    both value packings and memo sizes. Each batch goes through
+    `analysis_batch`; every search it launched is replayed through
+    `compare`. The cas-register batch takes the two-pass schedule."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.workloads.queue import mutex_history, queue_history
+    from jepsen_tpu_torch.workloads.register import register_history
+
+    s = args.seed
+    batches = [
+        ("cas-register", models.CASRegister, 200_000, [register_history(
+            n_process=5, n_ops=64, corrupt=0.2, seed=s * 7919 + i)
+            for i in range(256)]),
+        # values outside int16: the 3-row (wide) packing
+        ("cas-register-v32", models.CASRegister, 20_000, [shifted(
+            register_history(n_process=5, n_ops=64, corrupt=0.2,
+                             seed=s * 7919 + 500 + i), 2**20)
+            for i in range(128)]),
+        ("register", models.Register, 20_000, [register_history(
+            n_process=5, n_ops=64, cas=False, corrupt=0.1 if i % 4 else 0.0,
+            seed=s * 7919 + 1000 + i) for i in range(128)]),
+        ("mutex", models.Mutex, 20_000, [mutex_history(
+            n_process=5, n_ops=48, corrupt=0.1 if i % 4 == 0 else 0.0,
+            seed=s * 7919 + 2000 + i) for i in range(128)]),
+        ("unordered-queue", models.UnorderedQueue, 20_000, [queue_history(
+            n_process=5, n_ops=40, corrupt=0.1 if i % 4 == 0 else 0.0,
+            seed=s * 7919 + 3000 + i) for i in range(128)]),
+        ("fifo-queue", models.FIFOQueue, 20_000, [queue_history(
+            n_process=4, n_ops=24, fifo=True,
+            corrupt=0.1 if i % 4 == 0 else 0.0,
+            seed=s * 7919 + 4000 + i) for i in range(128)]),
+        # 17+ enqueues in a lane: a 32- or 64-row ring, so the memo
+        # shrinks below 128 slots
+        ("fifo-queue-shrink", models.FIFOQueue, 20_000, [queue_history(
+            n_process=3, n_ops=40, fifo=True,
+            corrupt=0.1 if i % 4 == 0 else 0.0,
+            seed=s * 7919 + 5000 + i) for i in range(128)]),
+    ]
+    for name, model, max_steps, hists in batches:
+        wv.CAPTURE = []
+        results = wv.analysis_batch(model(), hists, max_steps=max_steps,
+                                    device="cuda")
+        launches, wv.CAPTURE = wv.CAPTURE, None
+        passes = [compare(wv, launch, kernel) for launch in launches]
+        n_pad = launches[0][3]
+        if name == "cas-register-v32":
+            assert passes[0]["rows"] == 3 * n_pad + 1, passes[0]["rows"]
+        if name == "fifo-queue-shrink":
+            assert passes[0]["slots"] < wv.CACHE_SLOTS, passes[0]["slots"]
+        emit({"phase": "kernel_vs_plain", "model": name, "n_pad": n_pad,
+              "max_steps": max_steps, "passes": passes,
+              "matches_plain": True,
+              "verdicts": verdict_counts(r.valid for r in results)})
+
+
+def main_path(args, wv, name, n_keys, n_ops, bad_every, kernel,
+              host_sample: int, bad_read: str = "first"):
+    """Phases 4-5: the port's main path over one keyed history, then
+    every search it launched replayed through `compare`."""
+    import torch
+
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import wgl_host
+    from jepsen_tpu_torch.workloads.register import keyed_history
+
+    t0 = time.perf_counter()
+    hist = keyed_history(n_keys, n_ops, n_process=5, bad_every=bad_every,
+                         bad_read=bad_read, seed=args.seed)
+    gen_s = time.perf_counter() - t0
+    chk = independent.checker(linearizable(CASRegister(),
+                                           algorithm="gpu_vec"))
+    wv.TIMED, wv.CAPTURE = [], []
+    wv.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = chk.check({}, hist, {})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wv.LAUNCHES
+    kernel_ms = sum(a.elapsed_time(b) for a, b in wv.TIMED)
+    captured = wv.CAPTURE
+    wv.TIMED = wv.CAPTURE = None
+
+    results = res["results"]
+    assert launches > 0, "the main path launched no kernel"
+    assert len(results) == n_keys, (len(results), n_keys)
+    # planted-bad keys are refuted (a late plant may instead run out of
+    # budget: unknown); every other key is linearizable by construction
+    bad_ok = (False,) if bad_read == "first" else (False, "unknown")
+    for k, r in results.items():
+        assert "error" not in r, (k, r.get("error"))
+        if bad_every and k % bad_every == 0:
+            assert r["valid"] in bad_ok, (k, r["valid"])
+            if r["valid"] is False:
+                assert r.get("op") and r.get("final_paths") is not None, k
+        else:
+            assert r["valid"] is True, (k, r["valid"])
+    # a sample of keys against the host search (unbounded memo): equal
+    # verdicts, and a key the kernel left unknown is one the host refutes
+    model = CASRegister()
+    step = max(1, n_keys // host_sample)
+    sample = sorted({(i * step + i) % n_keys for i in range(host_sample)})
+    t1 = time.perf_counter()
+    sample_subs = independent._split(hist, sample)
+    for k in sample:
+        hr = wgl_host.analysis(model, sample_subs[k])
+        kv = results[k]["valid"]
+        assert hr.valid == (False if kv == "unknown" else kv), (k, hr.valid,
+                                                                kv)
+    host_s = time.perf_counter() - t1
+    steps = sum(r["steps"] for r in results.values())
+
+    passes = [compare(wv, launch, kernel) for launch in captured]
+    if kernel.shape is None:  # the table reports the first cell
+        kernel.shape = (f"{passes[0]['lanes']} lanes, n_pad "
+                        f"{captured[0][3]}: every search of the main path")
+        kernel.ms = sum(p["kernel_ms"] for p in passes)
+        kernel.plain_ms = sum(p["plain_ms"] for p in passes)
+        kernel.bound_ms, kernel.bound_by = bound_ms(
+            sum(p["t_bytes"] for p in passes), sum(p["t_ops"] for p in passes))
+    emit({"phase": name, "keys": n_keys, "invocations_per_key": n_ops,
+          "bad_every": bad_every, "bad_read": bad_read,
+          "ops": len(hist), "history_gen_s": gen_s, "wall_s": wall,
+          "kernel_ms": kernel_ms, "launches": launches,
+          "device_idle": 1 - kernel_ms / 1000 / wall,
+          "total_steps": steps,
+          "steps_per_s": steps / wall if wall > 0 else None,
+          "kernel_steps_per_s": steps / (kernel_ms / 1000)
+          if kernel_ms > 0 else None,
+          "verdicts": verdict_counts(r["valid"] for r in results.values()),
+          "host_sample": len(sample), "host_sample_s": host_s,
+          "kernel_vs_plain": passes, "matches_plain": True})
+    return launches
+
+
+def run(args) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "jepsen_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(jepsen_tpu_torch/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from jepsen_tpu_torch.device import describe
+    from jepsen_tpu_torch.ops import _build
+    from jepsen_tpu_torch.ops import wgl_vec as wv
+
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "torch_device": kind,
+          "capability": describe("cuda")["capability"],
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    wv.build("cuda")
+    log = _build.BUILD_LOG.get("wgl_vec", "")
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": _build.BUILD_SECONDS.get("wgl_vec"),
+          "ptxas": [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]})
+
+    kernel = Kernel()
+    phase_kernel_vs_plain(args, wv, kernel)
+    # ops per key count invocations; each is two history events, so 64
+    # and 1000 give the ~128- and ~2000-event keys of the reference sizes
+    launches = main_path(args, wv, "main_register", 4096, 64, 8, kernel,
+                         host_sample=64)
+    # the same keys with each impossible read at a random read instead of
+    # the first: deep searches behind it, the regime where K1's bounded
+    # memo costs steps and verdicts may go unknown
+    launches += main_path(args, wv, "main_register_late", 4096, 64, 8,
+                          kernel, host_sample=64, bad_read="random")
+    launches += main_path(args, wv, "main_widest", 512, 1000, 0, kernel,
+                          host_sample=8)
+
+    emit({"kernels": [{
+        "name": "wgl_vec", "route": "cuda",
+        "source": "jepsen_tpu_torch/ops/csrc/wgl_vec.cu",
+        "replaces": "jepsen_tpu/ops/wgl_pallas_vec.py:163",
+        "launches": launches, "max_abs_err": kernel.max_abs_err,
+        "ms": kernel.ms, "kernel_ms": kernel.ms, "plain_ms": kernel.plain_ms,
+        "bound_ms": kernel.bound_ms, "bound_by": kernel.bound_by,
+        "library_ms": None, "shape": kernel.shape,
+        "matches_plain": kernel.max_abs_err == 0,
+        "compared_launches": kernel.compared}]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    return run(ap.parse_args())
+
+
+if __name__ == "__main__":
+    sys.exit(main())

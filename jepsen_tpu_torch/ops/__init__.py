@@ -1,0 +1,23 @@
+"""Analysis kernels of the port.
+
+wgl_host — Wing-Gong-Lowe linearizability search on the host (the
+           semantics oracle, and the engine for lanes the kernel
+           cannot take).
+wgl_vec  — the same search for a batch of lanes, one lane per CUDA
+           thread (csrc/wgl_vec.cu), with a plain PyTorch version for
+           CPU tensors.
+"""
+
+#: the smallest shape bucket the search pads a history to
+MIN_PAD = 32
+
+
+def next_pow2(x: int) -> int:
+    """Smallest power of two >= x (minimum 2)."""
+    return 1 << max(1, int(max(2, x) - 1).bit_length())
+
+
+def pad_size(n: int, min_pad: int = MIN_PAD) -> int:
+    """The shape-bucketing rule: pad to a power of two, floor
+    `min_pad`."""
+    return max(min_pad, next_pow2(n))

@@ -1,0 +1,241 @@
+"""The port's per-key linearizability check end to end, against the JAX
+package: `independent.checker(linearizable(...))` result dicts, the
+verdict corpus, the host search, the import boundary and the device
+rule. Verdicts and step counts are exact (tolerance zero)."""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from jepsen_tpu import history as jhist
+from jepsen_tpu import independent as jind
+from jepsen_tpu import models as jmodels
+from jepsen_tpu.checker.linearizable import linearizable as jlinearizable
+from jepsen_tpu.ops import wgl_host as jhost
+
+from jepsen_tpu_torch import carry, independent
+from jepsen_tpu_torch import models as tmodels
+from jepsen_tpu_torch.checker.linearizable import linearizable
+from jepsen_tpu_torch.device import CudaUnavailable, resolve
+from jepsen_tpu_torch.ops import wgl_host, wgl_vec
+from jepsen_tpu_torch.workloads.register import keyed_history
+
+from helpers import random_queue_history, random_register_history
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CORPUS = os.path.join(REPO, "tests", "fixtures",
+                      "linearizability_corpus.jsonl")
+MODELS = {
+    "cas-register": (jmodels.CASRegister, tmodels.CASRegister),
+    "register": (jmodels.Register, tmodels.Register),
+    "mutex": (jmodels.Mutex, tmodels.Mutex),
+    "unordered-queue": (jmodels.UnorderedQueue, tmodels.UnorderedQueue),
+    "fifo-queue": (jmodels.FIFOQueue, tmodels.FIFOQueue),
+}
+
+
+def normalise(d):
+    """A result dict as JSON would carry it (tuples become lists, int
+    keys strings)."""
+    return json.loads(json.dumps(d, default=str))
+
+
+def jax_keyed(hist):
+    """The JAX package's keyed history for one of the port's."""
+    out = []
+    for o in hist:
+        v = o.value
+        if isinstance(v, independent.KVTuple):
+            v = jind.KVTuple(v.key, v.value)
+        out.append(jhist.Op.from_dict({**o.to_dict(), "value": v}))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_independent_results_match_jax(seed):
+    """The slice end to end: the same keyed history through the JAX
+    package's independent pallas check and the port's gpu_vec check
+    (plain version on the CPU) gives the same result dicts."""
+    hist = keyed_history(10, 10, n_process=3, bad_every=3, seed=seed)
+    jhist_ = jax_keyed(hist)
+    jr = jind.checker(jlinearizable(jmodels.CASRegister(),
+                                    algorithm="pallas")).check({}, jhist_, {})
+    tr = independent.checker(linearizable(
+        tmodels.CASRegister(), algorithm="gpu_vec",
+        device="cpu")).check({}, hist, {})
+    assert normalise(tr) == normalise(jr)
+    # the JAX package's keyed Ops carried back into the port check alike
+    back = carry.history_from_dicts([o.to_dict() for o in jhist_])
+    assert all(isinstance(o.value, independent.KVTuple) for o in back)
+    tb = independent.checker(linearizable(
+        tmodels.CASRegister(), algorithm="gpu_vec",
+        device="cpu")).check({}, back, {})
+    assert normalise(tb) == normalise(jr)
+    assert tr["valid"] is False and tr["failures"] == [0, 3, 6, 9]
+    for k in tr["failures"]:
+        assert tr["results"][k]["op"] and tr["results"][k]["final_paths"]
+    # "auto" takes the same engine for an eligible batch
+    ta = independent.checker(linearizable(
+        tmodels.CASRegister(), device="cpu")).check({}, hist, {})
+    assert normalise(ta) == normalise(tr)
+
+
+def test_independent_late_bad_reads_match_jax():
+    """Impossible reads planted at random reads rather than the first:
+    the JAX package and the port still give the same result dicts, and
+    every planted key is refuted."""
+    hist = keyed_history(8, 12, n_process=3, bad_every=2, bad_read="random",
+                         seed=2)
+    first = keyed_history(8, 12, n_process=3, bad_every=2, seed=2)
+    assert [o.to_dict() for o in hist] != [o.to_dict() for o in first]
+    jr = jind.checker(jlinearizable(jmodels.CASRegister(),
+                                    algorithm="pallas")).check(
+        {}, jax_keyed(hist), {})
+    tr = independent.checker(linearizable(
+        tmodels.CASRegister(), algorithm="gpu_vec",
+        device="cpu")).check({}, hist, {})
+    assert normalise(tr) == normalise(jr)
+    assert tr["failures"] == [0, 2, 4, 6]
+    with pytest.raises(ValueError):
+        keyed_history(2, 4, bad_every=1, bad_read="last")
+
+
+def test_batch_kernel_failure_propagates(monkeypatch):
+    """Unlike the JAX package, a failing batch check is not re-run per
+    key as "unknown" verdicts: the exception reaches the caller."""
+    def boom(*a, **kw):
+        raise RuntimeError("kernel fault")
+
+    monkeypatch.setattr(wgl_vec, "analysis_batch", boom)
+    hist = keyed_history(3, 6, n_process=2, seed=0)
+    chk = independent.checker(linearizable(tmodels.CASRegister(),
+                                           algorithm="gpu_vec",
+                                           device="cpu"))
+    with pytest.raises(RuntimeError, match="kernel fault"):
+        chk.check({}, hist, {})
+
+
+def test_subhistory_split_matches_jax():
+    hist = keyed_history(6, 8, n_process=2, bad_every=2, seed=4)
+    jh = jax_keyed(hist)
+    ks = sorted(independent.history_keys(hist), key=str)
+    assert ks == sorted(jind.history_keys(jh), key=str)
+    subs = independent._split(hist, ks)
+    for k in ks:
+        a = [o.to_dict() for o in subs[k]]
+        assert a == [o.to_dict() for o in independent.subhistory(k, hist)]
+        assert a == [o.to_dict() for o in jind.subhistory(k, jh)]
+
+
+CORPUS_CASES = [
+    "cas-2p-8ops-c0.0", "cas-2p-8ops-c0.15", "cas-2p-8ops-c0.3",
+    "cas-3p-10ops-c0.0", "cas-3p-10ops-c0.15", "cas-3p-10ops-c0.3",
+    "cas-3p-16ops-c0.0", "cas-3p-16ops-c0.15", "cas-4p-24ops-c0.3",
+    "cas-4p-40ops-c0.15", "cas-4p-40ops-c0.3", "cas-5p-60ops-c0.3",
+    "cas-5p-80ops-c0.15", "cas-5p-80ops-c0.3", "register-0", "register-1",
+    "register-3", "register-5", "mutex-0", "mutex-2", "mutex-1", "mutex-5",
+    "queue-0", "queue-2", "queue-1", "queue-3", "fifo-0", "fifo-2",
+    "fifo-1", "fifo-5",
+]
+
+
+def _corpus():
+    with open(CORPUS) as fh:
+        cases = {c["name"]: c for c in map(json.loads, fh)}
+    return [cases[n] for n in CORPUS_CASES]
+
+
+@pytest.mark.parametrize("case", _corpus(), ids=CORPUS_CASES)
+def test_corpus_verdicts(case):
+    """A 30-case subset of the recorded verdict corpus, every model
+    family and both verdicts, through the port's auto route."""
+    model = MODELS[case["model"]][1]()
+    hist = carry.history_from_dicts(case["history"])
+    r = linearizable(model, device="cpu").check({}, hist, {})
+    assert r["valid"] == case["expected"], case["name"]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_host_search_matches_jax(seed):
+    for name, hist in [
+            ("cas-register", random_register_history(
+                n_process=4, n_ops=14, corrupt=0.3, seed=300 + seed)),
+            ("unordered-queue", random_queue_history(
+                n_process=3, n_ops=12, corrupt=0.3, seed=30 + seed))]:
+        jm, tm = (c() for c in MODELS[name])
+        jr = jhost.analysis(jm, hist)
+        tr = wgl_host.analysis(tm, carry.history_from_dicts(
+            [o.to_dict() for o in hist]))
+        assert normalise(tr.to_dict()) == normalise(jr.to_dict())
+        td = linearizable(tm, algorithm="host").check(
+            {}, carry.history_from_dicts([o.to_dict() for o in hist]), {})
+        jd = jlinearizable(jm, algorithm="host").check({}, hist, {})
+        assert normalise(td) == normalise(jd)
+
+
+def test_auto_routes_ineligible_lanes_to_host():
+    """A payload with no int32 encoding makes the batch ineligible:
+    "auto" takes the host search (decided before any launch) and still
+    gets the verdicts right; "gpu_vec" refuses it."""
+    big = 2**40
+    good = carry.history_from_dicts([
+        {"process": 0, "type": "invoke", "f": "write", "value": big},
+        {"process": 0, "type": "ok", "f": "write", "value": big},
+        {"process": 1, "type": "invoke", "f": "read", "value": None},
+        {"process": 1, "type": "ok", "f": "read", "value": big}])
+    chk = linearizable(tmodels.CASRegister(), device="cpu")
+    assert chk._route(tmodels.CASRegister(), [wgl_vec.make_entries(good)]) \
+        == "host"
+    assert chk.check({}, good, {})["valid"] is True
+    with pytest.raises(ValueError):
+        linearizable(tmodels.CASRegister(), algorithm="gpu_vec",
+                     device="cpu").check({}, good, {})
+
+
+def test_default_device_is_cuda():
+    """device=None means CUDA: it raises when CUDA is absent, and the
+    entry points pass it on unchanged."""
+    if torch.cuda.is_available():
+        assert resolve(None).type == "cuda"
+        return
+    with pytest.raises(CudaUnavailable):
+        resolve(None)
+    hist = random_register_history(n_process=2, n_ops=4, seed=0)
+    with pytest.raises(CudaUnavailable):
+        wgl_vec.analysis_batch(tmodels.CASRegister(), [
+            carry.history_from_dicts([o.to_dict() for o in hist])])
+    with pytest.raises(CudaUnavailable):
+        linearizable(tmodels.CASRegister()).check(
+            {}, carry.history_from_dicts([o.to_dict() for o in hist]), {})
+    assert resolve("cpu").type == "cpu"
+
+
+def test_port_imports_no_jax():
+    """A CPU check through jepsen_tpu_torch loads neither jax nor any
+    module of the JAX package (jepsen_tpu_torch's own name shares the
+    jepsen_tpu prefix, so match whole package names)."""
+    code = textwrap.dedent("""
+        import sys
+        from jepsen_tpu_torch import independent
+        from jepsen_tpu_torch.checker.linearizable import linearizable
+        from jepsen_tpu_torch.models import CASRegister
+        from jepsen_tpu_torch.workloads.register import keyed_history
+        h = keyed_history(4, 6, n_process=2, bad_every=2, seed=0)
+        r = independent.checker(linearizable(
+            CASRegister(), device="cpu")).check({}, h, {})
+        assert r["valid"] is False, r
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
+        print("LOADED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
