@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py [--seed N]
 
-Run from the root of a checkout. It builds the port's WGL kernel
-(jepsen_tpu_torch/ops/csrc/wgl_vec.cu) with nvcc, holds it bit for bit
-against its plain PyTorch version on the card, then drives the port's
-main path — `independent.checker(linearizable(CASRegister(),
-algorithm="gpu_vec"))` — over keyed register histories at the sizes the
-reference workload checks, and checks the verdicts. Every phase prints
-one JSON line; the last lines are the kernel table, the card's name and
-power limit (nvidia-smi), and {"ok": true, "device": ...}. Any failed
-check raises, so the exit code is not 0. Without CUDA, or outside a
-checkout, it exits 2 and prints no result. It imports nothing of jax
-or jepsen_tpu.
+Run from the root of a checkout. It builds the port's two WGL kernels
+(jepsen_tpu_torch/ops/csrc/wgl_vec.cu and wgl_row.cu, one nvcc each,
+started together), holds each bit for bit against its plain PyTorch
+version on the card, then drives the port's main paths —
+`independent.checker(linearizable(CASRegister(), ...))` over keyed
+register histories at the sizes the reference workload checks (short
+lanes through wgl_vec, long lanes through wgl_row, and a history mixing
+both), and one long single history — and checks the verdicts. Each path
+runs with every kernel's launch count set to 0 just before it and read
+just after. Every phase prints one JSON line; the last lines are the
+kernel table, the card's name and power limit (nvidia-smi), and
+{"ok": true, "device": ...}. Any failed check raises, so the exit code
+is not 0. Without CUDA, or outside a checkout, it exits 2 and prints no
+result. It imports nothing of jax or jepsen_tpu.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -34,7 +38,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # int32 operations one search step does besides the memo key compare
 # (decode the entry, step the model, hash, relink four list words,
-# push or pop, bookkeeping) — counted from wgl_vec.cu's step body
+# push or pop, bookkeeping) — counted from wgl_vec.cu's step body, and
+# taken for wgl_row.cu's too
 STEP_OPS = 64
 
 
@@ -65,19 +70,19 @@ def cuda_ms(fn):
     return start.elapsed_time(end), out
 
 
-def kernel_ms(wv, fn, reps: int = 5):
+def kernel_ms(mod, fn, reps: int = 5):
     """Median milliseconds of the kernel alone over `reps` launches (the
     wrapper's own events, recorded right around each launch), after one
     warm-up launch; and the last launch's result."""
     import torch
 
     fn()
-    wv.TIMED = []
+    mod.TIMED = []
     for _ in range(reps):
         out = fn()
     torch.cuda.synchronize()
-    times = sorted(a.elapsed_time(b) for a, b in wv.TIMED)
-    wv.TIMED = None
+    times = sorted(a.elapsed_time(b) for a, b in mod.TIMED)
+    mod.TIMED = None
     return times[len(times) // 2], out
 
 
@@ -88,14 +93,28 @@ PLAIN_STEP_LIMIT = 200_000
 
 
 class Kernel:
-    """The kernel's row of the final table, built up by the phases."""
+    """One kernel's row of the final table, built up by the phases."""
 
-    def __init__(self):
+    def __init__(self, name, mod, replaces):
+        self.name, self.mod, self.replaces = name, mod, replaces
+        self.launches = 0  # on the main paths
         self.compared = 0
         self.max_abs_err = 0
         self.shape = None
         self.ms = self.plain_ms = self.bound_ms = None
         self.bound_by = None
+
+    def row(self) -> dict:
+        return {
+            "name": self.name, "route": "cuda",
+            "source": f"jepsen_tpu_torch/ops/csrc/{self.name}.cu",
+            "replaces": self.replaces,
+            "launches": self.launches, "max_abs_err": self.max_abs_err,
+            "ms": self.ms, "kernel_ms": self.ms, "plain_ms": self.plain_ms,
+            "bound_ms": self.bound_ms, "bound_by": self.bound_by,
+            "library_ms": None, "shape": self.shape,
+            "matches_plain": self.max_abs_err == 0,
+            "compared_launches": self.compared}
 
 
 def bound(packed, n_pad, small, key_words) -> tuple:
@@ -115,7 +134,15 @@ def bound_ms(t_bytes: float, t_ops: float) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(wv, launch, kernel) -> dict:
+def compare(kernel, launch) -> dict:
+    """Replay one captured `search` of `kernel` through the kernel and
+    its plain version (`compare_vec` or `compare_row`)."""
+    if kernel.name == "wgl_row":
+        return compare_row(kernel.mod, launch, kernel)
+    return compare_vec(kernel.mod, launch, kernel)
+
+
+def compare_vec(wv, launch, kernel) -> dict:
     """Replay one captured `search` (wgl_vec.CAPTURE): the kernel, timed,
     and the plain version on the same inputs on the card. The result
     block and best stack must be bit-identical on every compared lane,
@@ -169,6 +196,59 @@ def compare(wv, launch, kernel) -> dict:
             "max_lane_steps": int(small_k[1].max())}
 
 
+def bound_row(packed, n_pad, small, key_words) -> tuple:
+    """(seconds for the bytes, seconds for the operations) of one wgl_row
+    launch: the packed lanes, the Zobrist table and the step budgets read
+    once and the (3, lanes) result written once, over HBM bandwidth; and
+    this run's steps times (one memo row's key words + STEP_OPS) int32
+    operations, over the int32 rate."""
+    lanes = packed.shape[0]
+    nbytes = 4 * (packed.numel() + n_pad + lanes + 3 * lanes)
+    ops = int(small[1].sum()) * (key_words + STEP_OPS)
+    return nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+
+
+def compare_row(wr, launch, kernel) -> dict:
+    """Replay one captured wgl_row `search` (wgl_row.CAPTURE): the
+    kernel, timed, and the plain version on the same inputs on the card.
+    Verdict, steps and depth must be bit-identical on every compared
+    lane, or this raises. Lanes whose kernel search took more than
+    PLAIN_STEP_LIMIT steps are left out of the plain run (the lanes are
+    rows of `packed`, so the others are compared as a smaller batch)."""
+    import torch
+
+    packed, msteps, jm, n_pad, cache_bits = launch
+    k_ms, small_k = kernel_ms(wr, lambda: wr.search(*launch))
+    lanes = packed.shape[0]
+    cols = (small_k[1] <= PLAIN_STEP_LIMIT).nonzero()[:, 0]
+    n_cmp = len(cols)
+    small = small_k
+    if n_cmp == lanes:
+        sub, sub_steps = packed, msteps
+    else:
+        sub = packed[cols].contiguous()
+        sub_steps = msteps[cols].contiguous()
+        small = small_k[:, cols]
+    p_ms, small_p = cuda_ms(lambda: wr.search_plain(
+        sub, sub_steps, jm, n_pad, cache_bits))
+    err = int((small.long() - small_p.long()).abs().max()) if n_cmp else 0
+    kernel.max_abs_err = max(kernel.max_abs_err, err)
+    kernel.compared += 1
+    if err:
+        bad = (small != small_p).any(0).nonzero()[:4, 0].tolist()
+        raise AssertionError(
+            f"wgl_row {jm.name}: kernel != plain at lanes {bad}: "
+            f"{small[:, bad].tolist()} vs {small_p[:, bad].tolist()}")
+    t_b, t_o = bound_row(packed, n_pad, small_k, wr.key_words(n_pad))
+    b_ms, b_by = bound_ms(t_b, t_o)
+    return {"lanes": lanes, "n_pad": n_pad, "cache_bits": cache_bits,
+            "cap": int(msteps.max()), "kernel_ms": k_ms, "plain_ms": p_ms,
+            "plain_lanes": n_cmp, "bound_ms": b_ms, "bound_by": b_by,
+            "t_bytes": t_b, "t_ops": t_o, "steps": int(small_k[1].sum()),
+            "max_lane_steps": int(small_k[1].max()),
+            "verdicts": small_k[0].tolist() if lanes <= 16 else None}
+
+
 def shifted(hist, d: int):
     """`hist` with every register value moved up by `d`."""
     def sh(v):
@@ -178,13 +258,22 @@ def shifted(hist, d: int):
     return [o.with_(value=sh(o.value)) for o in hist]
 
 
+def planted(hist, n_values: int = 3):
+    """`hist` with its first :ok read returning `n_values`, a value no
+    write wrote: certainly not linearizable, refuted early."""
+    hist = list(hist)
+    i = next(i for i, o in enumerate(hist) if o.type == "ok" and o.f == "read")
+    hist[i] = hist[i].with_(value=n_values)
+    return hist
+
+
 def verdict_counts(valids) -> dict:
     valids = list(valids)
     return {str(v): sum(1 for x in valids if x == v)
             for v in (True, False, "unknown")}
 
 
-def phase_kernel_vs_plain(args, wv, kernel):
+def phase_kernel_vs_plain(args, kernel):
     """Phase 3: kernel == plain on the card for every model family and
     both value packings and memo sizes. Each batch goes through
     `analysis_batch`; every search it launched is replayed through
@@ -193,6 +282,7 @@ def phase_kernel_vs_plain(args, wv, kernel):
     from jepsen_tpu_torch.workloads.queue import mutex_history, queue_history
     from jepsen_tpu_torch.workloads.register import register_history
 
+    wv = kernel.mod
     s = args.seed
     batches = [
         ("cas-register", models.CASRegister, 200_000, [register_history(
@@ -228,7 +318,7 @@ def phase_kernel_vs_plain(args, wv, kernel):
         results = wv.analysis_batch(model(), hists, max_steps=max_steps,
                                     device="cuda")
         launches, wv.CAPTURE = wv.CAPTURE, None
-        passes = [compare(wv, launch, kernel) for launch in launches]
+        passes = [compare(kernel, launch) for launch in launches]
         n_pad = launches[0][3]
         if name == "cas-register-v32":
             assert passes[0]["rows"] == 3 * n_pad + 1, passes[0]["rows"]
@@ -240,12 +330,107 @@ def phase_kernel_vs_plain(args, wv, kernel):
               "verdicts": verdict_counts(r.valid for r in results)})
 
 
-def main_path(args, wv, name, n_keys, n_ops, bad_every, kernel,
-              host_sample: int, bad_read: str = "first"):
-    """Phases 4-5: the port's main path over one keyed history, then
-    every search it launched replayed through `compare`."""
+def phase_row_vs_plain(args, kernel):
+    """wgl_row == plain on the card for the three scalar models: lanes
+    under and over 1024 entries, one near 4000, crashed (:info) ops,
+    impossible reads (planted, and random corrupt reads), values above
+    2^15, and a lane cut by a small step budget. Each batch goes through
+    `wgl_row.analysis_batch`; every search it launched is replayed
+    through `compare`."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.workloads.queue import mutex_history
+    from jepsen_tpu_torch.workloads.register import register_history
+
+    wr = kernel.mod
+    s = args.seed * 7919 + 6000
+
+    def reg(n, i, **kw):
+        return register_history(n_process=5, n_ops=n, seed=s + i, **kw)
+
+    batches = [
+        ("cas-register", models.CASRegister, 20_000,
+         [reg(200, i, corrupt=0.2) for i in range(3)]
+         + [reg(n, 10 + i) for i, n in enumerate((700, 1400, 2100, 4000))]
+         + [planted(reg(1800, 20)), planted(reg(600, 21))]
+         + [shifted(reg(1500, 22), 2**20), shifted(reg(300, 23), 2**16)]),
+        ("register", models.Register, 20_000,
+         [reg(200, 30 + i, cas=False, corrupt=0.2) for i in range(2)]
+         + [reg(n, 40 + i, cas=False) for i, n in enumerate((300, 1200))]
+         + [reg(3990, 44, cas=False), planted(reg(2500, 45, cas=False))]),
+        ("mutex", models.Mutex, 20_000,
+         [mutex_history(n_process=5, n_ops=n, corrupt=c, seed=s + 50 + i)
+          for i, (n, c) in enumerate(((150, 0.1), (150, 0.1), (300, 0.0),
+                                      (1100, 0.0), (2000, 0.0)))]),
+        # a long valid lane under a budget it cannot finish in: unknown
+        ("cas-register-cut", models.CASRegister, 500, [reg(2000, 60)]),
+    ]
+    for name, model, max_steps, hists in batches:
+        wr.CAPTURE = []
+        results = wr.analysis_batch(model(), hists, max_steps=max_steps,
+                                    device="cuda")
+        launches, wr.CAPTURE = wr.CAPTURE, None
+        passes = [compare(kernel, launch) for launch in launches]
+        counts = verdict_counts(r.valid for r in results)
+        if name == "cas-register-cut":
+            assert counts["unknown"] == 1, counts
+        else:
+            assert counts["True"] and counts["False"], (name, counts)
+        emit({"phase": "row_kernel_vs_plain", "model": name,
+              "max_steps": max_steps,
+              "history_ops": [len(h) for h in hists],
+              "passes": passes, "matches_plain": True, "verdicts": counts})
+
+
+def run_path(kernels, fn):
+    """fn() with every kernel's launch count set to 0 just before it and
+    read just after, and every launch timed and captured: (result, wall
+    seconds, {name: (launches, kernel ms, captured launches)})."""
     import torch
 
+    for k in kernels:
+        k.mod.LAUNCHES = 0
+        k.mod.TIMED, k.mod.CAPTURE = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    seen = {}
+    for k in kernels:
+        seen[k.name] = (k.mod.LAUNCHES,
+                        sum(a.elapsed_time(b) for a, b in k.mod.TIMED),
+                        k.mod.CAPTURE)
+        k.mod.TIMED = k.mod.CAPTURE = None
+        k.launches += seen[k.name][0]
+    return res, wall, seen
+
+
+def replay(kernels, seen) -> dict:
+    """Every launch a path made, replayed through `compare`; the first
+    path that launches a kernel sets that kernel's row of the table."""
+    out = {}
+    for k in kernels:
+        captured = seen[k.name][2]
+        passes = [compare(k, launch) for launch in captured]
+        if passes and k.shape is None:
+            lanes = sum(p["lanes"] for p in passes)
+            k.shape = (f"{lanes} lanes in {len(passes)} launches, n_pad "
+                       f"{captured[0][3]}: every search of the main path")
+            k.ms = sum(p["kernel_ms"] for p in passes)
+            k.plain_ms = sum(p["plain_ms"] for p in passes)
+            k.bound_ms, k.bound_by = bound_ms(
+                sum(p["t_bytes"] for p in passes),
+                sum(p["t_ops"] for p in passes))
+        out[k.name] = passes
+    return out
+
+
+def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
+              bad_read: str = "first", algorithm: str = "gpu_vec",
+              expect=("wgl_vec",)):
+    """The port's main path over one keyed history, then every search it
+    launched replayed through `compare`. `expect` names the kernels the
+    path must launch; the others must not launch."""
     from jepsen_tpu_torch import independent
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.models import CASRegister
@@ -257,21 +442,14 @@ def main_path(args, wv, name, n_keys, n_ops, bad_every, kernel,
                          bad_read=bad_read, seed=args.seed)
     gen_s = time.perf_counter() - t0
     chk = independent.checker(linearizable(CASRegister(),
-                                           algorithm="gpu_vec"))
-    wv.TIMED, wv.CAPTURE = [], []
-    wv.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = chk.check({}, hist, {})
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = wv.LAUNCHES
-    kernel_ms = sum(a.elapsed_time(b) for a, b in wv.TIMED)
-    captured = wv.CAPTURE
-    wv.TIMED = wv.CAPTURE = None
+                                           algorithm=algorithm))
+    res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
+    for k in kernels:
+        launched = seen[k.name][0]
+        assert (launched > 0) == (k.name in expect), (name, k.name, launched)
+    kernel_ms = sum(v[1] for v in seen.values())
 
     results = res["results"]
-    assert launches > 0, "the main path launched no kernel"
     assert len(results) == n_keys, (len(results), n_keys)
     # planted-bad keys are refuted (a late plant may instead run out of
     # budget: unknown); every other key is linearizable by construction
@@ -299,18 +477,13 @@ def main_path(args, wv, name, n_keys, n_ops, bad_every, kernel,
     host_s = time.perf_counter() - t1
     steps = sum(r["steps"] for r in results.values())
 
-    passes = [compare(wv, launch, kernel) for launch in captured]
-    if kernel.shape is None:  # the table reports the first cell
-        kernel.shape = (f"{passes[0]['lanes']} lanes, n_pad "
-                        f"{captured[0][3]}: every search of the main path")
-        kernel.ms = sum(p["kernel_ms"] for p in passes)
-        kernel.plain_ms = sum(p["plain_ms"] for p in passes)
-        kernel.bound_ms, kernel.bound_by = bound_ms(
-            sum(p["t_bytes"] for p in passes), sum(p["t_ops"] for p in passes))
-    emit({"phase": name, "keys": n_keys, "invocations_per_key": n_ops,
+    passes = replay(kernels, seen)
+    emit({"phase": name, "algorithm": algorithm, "keys": n_keys,
+          "invocations_per_key": n_ops,
           "bad_every": bad_every, "bad_read": bad_read,
           "ops": len(hist), "history_gen_s": gen_s, "wall_s": wall,
-          "kernel_ms": kernel_ms, "launches": launches,
+          "kernel_ms": kernel_ms,
+          "launches": {k: v[0] for k, v in seen.items()},
           "device_idle": 1 - kernel_ms / 1000 / wall,
           "total_steps": steps,
           "steps_per_s": steps / wall if wall > 0 else None,
@@ -319,7 +492,81 @@ def main_path(args, wv, name, n_keys, n_ops, bad_every, kernel,
           "verdicts": verdict_counts(r["valid"] for r in results.values()),
           "host_sample": len(sample), "host_sample_s": host_s,
           "kernel_vs_plain": passes, "matches_plain": True})
-    return launches
+
+
+def phase_mixed(args, kernels):
+    """One keyed history of 1024 short keys (64 invocations) and 16 long
+    ones (2000): one `check` under "auto" launches both kernels, and the
+    short keys' result dicts equal those of the same keys checked alone
+    through gpu_vec."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.workloads.register import keyed_history
+
+    n_short, n_long = 1024, 16
+    hist = keyed_history(n_short + n_long, [64] * n_short + [2000] * n_long,
+                         n_process=5, bad_every=8, seed=args.seed)
+    chk = independent.checker(linearizable(CASRegister()))
+    res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
+    assert all(v[0] > 0 for v in seen.values()), \
+        {k: v[0] for k, v in seen.items()}
+    results = res["results"]
+    for k, r in results.items():
+        assert r["valid"] is (k % 8 != 0), (k, r["valid"])
+    short = [o for o in hist if o.value.key < n_short]
+    alone = independent.checker(linearizable(
+        CASRegister(), algorithm="gpu_vec")).check({}, short, {})["results"]
+    same = all(results[k] == alone[k] for k in range(n_short))
+    assert same, "short keys' results changed beside the long keys"
+    passes = replay(kernels, seen)
+    emit({"phase": "mixed", "keys": [n_short, n_long],
+          "invocations_per_key": [64, 2000], "ops": len(hist),
+          "wall_s": wall, "launches": {k: v[0] for k, v in seen.items()},
+          "kernel_ms": {k: v[1] for k, v in seen.items()},
+          "verdicts": verdict_counts(r["valid"] for r in results.values()),
+          "short_keys_equal_alone": same, "kernel_vs_plain": passes,
+          "matches_plain": True})
+
+
+def phase_single(args, kernels):
+    """One register history of 3000 invocations (~2500 entries) through
+    `linearizable(CASRegister()).check`: routed to wgl_row, valid, and
+    the host search agrees."""
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import wgl_host
+    from jepsen_tpu_torch.workloads.register import register_history
+
+    hist = register_history(n_process=5, n_ops=3000, seed=args.seed)
+    chk = linearizable(CASRegister())
+    res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
+    launches = {k: v[0] for k, v in seen.items()}
+    assert launches == {"wgl_vec": 0, "wgl_row": 1}, launches
+    assert res["valid"] is True, res
+    assert wgl_host.analysis(CASRegister(), hist).valid is True
+    passes = replay(kernels, seen)
+    emit({"phase": "single_history", "ops": len(hist), "wall_s": wall,
+          "launches": launches, "kernel_ms": seen["wgl_row"][1],
+          "steps": res["steps"], "valid": res["valid"],
+          "kernel_vs_plain": passes, "matches_plain": True})
+
+
+def build_all(kernels) -> None:
+    """Build every kernel at once (one nvcc each, started together) and
+    print each build's seconds and ptxas registers and spills."""
+    from jepsen_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels)) as ex:
+        list(ex.map(lambda k: k.mod.build("cuda"), kernels))
+    wall = time.perf_counter() - t0
+    for k in kernels:
+        log = _build.BUILD_LOG.get(k.name, "")
+        emit({"phase": "build", "kernel": k.name, "wall_s": wall,
+              "nvcc_seconds": _build.BUILD_SECONDS.get(k.name),
+              "ptxas": [ln.strip() for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln]})
 
 
 def run(args) -> int:
@@ -334,8 +581,7 @@ def run(args) -> int:
         return 2
     sys.path.insert(0, HERE)
     from jepsen_tpu_torch.device import describe
-    from jepsen_tpu_torch.ops import _build
-    from jepsen_tpu_torch.ops import wgl_vec as wv
+    from jepsen_tpu_torch.ops import wgl_row, wgl_vec
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -343,38 +589,30 @@ def run(args) -> int:
           "capability": describe("cuda")["capability"],
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    t0 = time.perf_counter()
-    wv.build("cuda")
-    log = _build.BUILD_LOG.get("wgl_vec", "")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": _build.BUILD_SECONDS.get("wgl_vec"),
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    vec = Kernel("wgl_vec", wgl_vec, "jepsen_tpu/ops/wgl_pallas_vec.py:163")
+    row = Kernel("wgl_row", wgl_row, "jepsen_tpu/ops/wgl_pallas.py:84")
+    kernels = [vec, row]
+    build_all(kernels)
 
-    kernel = Kernel()
-    phase_kernel_vs_plain(args, wv, kernel)
+    phase_kernel_vs_plain(args, vec)
+    phase_row_vs_plain(args, row)
     # ops per key count invocations; each is two history events, so 64
     # and 1000 give the ~128- and ~2000-event keys of the reference sizes
-    launches = main_path(args, wv, "main_register", 4096, 64, 8, kernel,
-                         host_sample=64)
+    main_path(args, kernels, "main_register", 4096, 64, 8, host_sample=64)
     # the same keys with each impossible read at a random read instead of
     # the first: deep searches behind it, the regime where K1's bounded
     # memo costs steps and verdicts may go unknown
-    launches += main_path(args, wv, "main_register_late", 4096, 64, 8,
-                          kernel, host_sample=64, bad_read="random")
-    launches += main_path(args, wv, "main_widest", 512, 1000, 0, kernel,
-                          host_sample=8)
+    main_path(args, kernels, "main_register_late", 4096, 64, 8,
+              host_sample=64, bad_read="random")
+    main_path(args, kernels, "main_widest", 512, 1000, 0, host_sample=8)
+    # keys of ~2500 entries (a register test not split by key): past
+    # wgl_vec's 1024, so "auto" sends every lane to wgl_row
+    main_path(args, kernels, "main_long", 64, 3000, 8, host_sample=8,
+              algorithm="auto", expect=("wgl_row",))
+    phase_mixed(args, kernels)
+    phase_single(args, kernels)
 
-    emit({"kernels": [{
-        "name": "wgl_vec", "route": "cuda",
-        "source": "jepsen_tpu_torch/ops/csrc/wgl_vec.cu",
-        "replaces": "jepsen_tpu/ops/wgl_pallas_vec.py:163",
-        "launches": launches, "max_abs_err": kernel.max_abs_err,
-        "ms": kernel.ms, "kernel_ms": kernel.ms, "plain_ms": kernel.plain_ms,
-        "bound_ms": kernel.bound_ms, "bound_by": kernel.bound_by,
-        "library_ms": None, "shape": kernel.shape,
-        "matches_plain": kernel.max_abs_err == 0,
-        "compared_launches": kernel.compared}]})
+    emit({"kernels": [k.row() for k in kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -6,11 +6,18 @@ Algorithms:
              lane (the counterpart of the JAX package's "pallas").
              Scalar models plus both queue families, up to 1024
              entries per lane.
+  "gpu_row"  ops/wgl_row.py — the batch search for long lanes, one CUDA
+             warp per lane (the counterpart of jepsen_tpu/ops/
+             wgl_pallas.py). Scalar models only, up to 4064 entries per
+             lane.
   "host"     ops/wgl_host.py — the Python search (knossos.wgl analog).
-  "auto"     gpu_vec when the batch is eligible (`batch_eligible`),
-             else host. The route is chosen from eligibility BEFORE
-             anything launches; a failing kernel raises, nothing falls
-             back.
+  "auto"     per lane for the scalar models: gpu_vec for the lanes it
+             takes, gpu_row for the other int32-encodable lanes up to
+             4064 entries, host for the rest; the queue models go to
+             gpu_vec when the whole batch is eligible, else to host.
+             The routes are chosen from eligibility BEFORE anything
+             launches, each engine gets its lanes in one call, and a
+             failing kernel raises: nothing falls back.
 
 Results have the JAX package's shape: valid, op + final_paths for an
 invalid history (truncated to TRUNCATE ops), cache_size, steps.
@@ -23,12 +30,12 @@ from typing import Any
 from ..history import entries as make_entries
 from ..models import Model
 from ..models import jit as mjit
-from ..ops import wgl_host, wgl_vec
+from ..ops import wgl_host, wgl_row, wgl_vec
 from ..ops.common import STEPS_PER_SEC_ESTIMATE
 from . import Checker
 
 TRUNCATE = 10
-ALGORITHMS = ("auto", "gpu_vec", "host")
+ALGORITHMS = ("auto", "gpu_vec", "gpu_row", "host")
 
 
 class Linearizable(Checker):
@@ -59,20 +66,40 @@ class Linearizable(Checker):
             return None
         return max(1000, int(self.time_limit * STEPS_PER_SEC_ESTIMATE))
 
-    def _route(self, model, ess) -> str:
+    def _route(self, model, ess) -> list[str]:
+        """The engine of each lane, decided before anything launches."""
         if self.algorithm != "auto":
-            return self.algorithm
+            return [self.algorithm] * len(ess)
         jm = mjit.for_model(model)
-        if jm is not None and wgl_vec.batch_eligible(jm, ess):
-            return "gpu_vec"
-        return "host"
+        if jm is None:
+            return ["host"] * len(ess)
+        if not wgl_row.eligible(jm, wgl_row.MAX_PAD):
+            # the queue models: the whole batch goes one way
+            whole = "gpu_vec" if wgl_vec.batch_eligible(jm, ess) else "host"
+            return [whole] * len(ess)
+        return ["gpu_vec" if wgl_vec.batch_eligible(jm, [es])
+                else "gpu_row" if wgl_row.batch_eligible(jm, [es])
+                else "host" for es in ess]
 
     def _results(self, model, ess) -> list:
-        if self._route(model, ess) == "gpu_vec":
-            return wgl_vec.analysis_batch(
-                model, ess, max_steps=self._max_steps(), device=self.device)
-        return [wgl_host.analysis(model, es, time_limit=self.time_limit)
-                for es in ess]
+        routes = self._route(model, ess)
+        out: list = [None] * len(ess)
+        for engine in ("gpu_vec", "gpu_row", "host"):
+            idx = [i for i, r in enumerate(routes) if r == engine]
+            if not idx:
+                continue
+            sub = [ess[i] for i in idx]
+            if engine == "host":
+                rs = [wgl_host.analysis(model, es, time_limit=self.time_limit)
+                      for es in sub]
+            else:
+                mod = wgl_vec if engine == "gpu_vec" else wgl_row
+                rs = mod.analysis_batch(model, sub,
+                                        max_steps=self._max_steps(),
+                                        device=self.device)
+            for i, r in zip(idx, rs):
+                out[i] = r
+        return out
 
     def check(self, test, history, opts=None) -> dict:
         model = self._model(test)

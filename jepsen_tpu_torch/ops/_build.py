@@ -10,6 +10,8 @@ The library lands in `jepsen_tpu_torch/ops/_build/`, keyed by a digest
 of the source, the flags and the device's compute capability, so an
 edited source or another card builds anew and an unchanged one is
 reused. A failed build raises with nvcc's stderr: nothing falls back.
+Different sources build at the same time when called from different
+threads (one lock per library).
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ BUILD_SECONDS: dict = {}
 #: spills, shared memory per kernel)
 BUILD_LOG: dict = {}
 
-_lock = threading.Lock()
+_lock = threading.Lock()   # guards _locks
+_locks: dict = {}          # so path -> the lock its build holds
 _libs: dict = {}
 
 
@@ -75,6 +78,8 @@ def load(name: str, capability: tuple, signatures: dict) -> ctypes.CDLL:
         src + repr((fl, capability)).encode()).hexdigest()[:16]
     so_path = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     with _lock:
+        lock = _locks.setdefault(so_path, threading.Lock())
+    with lock:
         lib = _libs.get(so_path)
         if lib is not None:
             return lib

@@ -184,3 +184,12 @@ def analysis(
 def check(model: Model, history, **kw) -> dict:
     """Convenience: analysis() as a plain dict."""
     return analysis(model, history, **kw).to_dict()
+
+
+def recover_invalid(model: Model, es) -> WGLResult:
+    """Re-run the search on the host for a lane a kernel already proved
+    invalid, to recover its counterexample (`op`, best linearization);
+    the verdicts agree by construction. The JAX package prefers its
+    native C++ engine here and falls back to the Python search; the port
+    has no native engine yet, so this is the Python search."""
+    return analysis(model, es)

@@ -74,8 +74,8 @@ def register_history(n_process=3, n_ops=12, n_values=3, cas=True,
 def keyed_history(n_keys, n_ops, n_process=5, n_values=3, bad_every=0,
                   bad_read="first", seed=0) -> list[Op]:
     """One history over `n_keys` independent keys, each a clean
-    `register_history` of `n_ops` invocations by its own `n_process`
-    clients (process ids are disjoint across keys), interleaved
+    `register_history` of `n_ops` invocations (an int, or one int per
+    key) by its own `n_process` clients (process ids are disjoint across keys), interleaved
     round-robin. In every `bad_every`-th key (0 = none) one :ok read
     returns `n_values` — a value no write ever wrote — so that key is
     certainly not linearizable. bad_read="first" plants it at the key's
@@ -84,10 +84,13 @@ def keyed_history(n_keys, n_ops, n_process=5, n_values=3, bad_every=0,
     Values are KVTuple(key, value)."""
     if bad_read not in ("first", "random"):
         raise ValueError(f"bad_read must be 'first' or 'random': {bad_read!r}")
+    ops = [n_ops] * n_keys if isinstance(n_ops, int) else list(n_ops)
+    if len(ops) != n_keys:
+        raise ValueError(f"{len(ops)} invocation counts for {n_keys} keys")
     rng = random.Random(seed)
     per_key = []
     for k in range(n_keys):
-        h = register_history(n_process=n_process, n_ops=n_ops,
+        h = register_history(n_process=n_process, n_ops=ops[k],
                              n_values=n_values, seed=seed * 1_000_003 + k)
         if bad_every and k % bad_every == 0:
             reads = [i for i, o in enumerate(h)

@@ -22,8 +22,9 @@ from jepsen_tpu_torch import carry, independent
 from jepsen_tpu_torch import models as tmodels
 from jepsen_tpu_torch.checker.linearizable import linearizable
 from jepsen_tpu_torch.device import CudaUnavailable, resolve
-from jepsen_tpu_torch.ops import wgl_host, wgl_vec
-from jepsen_tpu_torch.workloads.register import keyed_history
+from jepsen_tpu_torch.history import entries as make_entries
+from jepsen_tpu_torch.ops import wgl_host, wgl_row, wgl_vec
+from jepsen_tpu_torch.workloads.register import keyed_history, register_history
 
 from helpers import random_queue_history, random_register_history
 
@@ -190,11 +191,103 @@ def test_auto_routes_ineligible_lanes_to_host():
         {"process": 1, "type": "ok", "f": "read", "value": big}])
     chk = linearizable(tmodels.CASRegister(), device="cpu")
     assert chk._route(tmodels.CASRegister(), [wgl_vec.make_entries(good)]) \
-        == "host"
+        == ["host"]
     assert chk.check({}, good, {})["valid"] is True
     with pytest.raises(ValueError):
         linearizable(tmodels.CASRegister(), algorithm="gpu_vec",
                      device="cpu").check({}, good, {})
+
+
+def mixed_history(seed):
+    """Four short keys (10 invocations) and two long ones (1300, past
+    wgl_vec's 1024 entries); keys 0, 2 and 4 carry an impossible read."""
+    return keyed_history(6, [10] * 4 + [1300] * 2, n_process=3, bad_every=2,
+                         seed=seed)
+
+
+def test_auto_routes_each_lane():
+    """"auto" decides per lane for the scalar models, before anything
+    launches: gpu_vec up to 1024 entries, gpu_row up to 4064, the host
+    past that or without an int32 encoding. The queue models keep the
+    whole-batch rule."""
+    short = make_entries(register_history(n_process=3, n_ops=10, seed=0))
+    long = make_entries(register_history(n_process=3, n_ops=1300, seed=1))
+    huge = make_entries(register_history(n_process=5, n_ops=4100, cas=False,
+                                         seed=2))
+    big = make_entries(carry.history_from_dicts([
+        {"process": 0, "type": "invoke", "f": "write", "value": 2**40},
+        {"process": 0, "type": "ok", "f": "write", "value": 2**40}]))
+    assert len(short) <= 1024 < len(long) <= 4064 < len(huge)
+    chk = linearizable(tmodels.CASRegister(), device="cpu")
+    assert chk._route(tmodels.Register(), [short, long, huge, big]) == [
+        "gpu_vec", "gpu_row", "host", "host"]
+    q = make_entries(random_queue_history(n_process=2, n_ops=6, seed=0))
+    assert linearizable(tmodels.UnorderedQueue(), device="cpu")._route(
+        tmodels.UnorderedQueue(), [q, q]) == ["gpu_vec", "gpu_vec"]
+    assert linearizable(tmodels.CASRegister(), algorithm="host")._route(
+        tmodels.CASRegister(), [short, long]) == ["host", "host"]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mixed_keys_match_jax_host(seed):
+    """Short and long keys in one keyed history: the port's auto check
+    (gpu_vec and gpu_row, plain versions on the CPU) gives the JAX
+    package's host check's verdicts and counterexamples, and the short
+    keys' result dicts are those of the short keys checked alone."""
+    hist = mixed_history(seed)
+    wgl_vec.CAPTURE, wgl_row.CAPTURE = [], []
+    try:
+        tr = independent.checker(linearizable(
+            tmodels.CASRegister(), device="cpu")).check({}, hist, {})
+        vec, row = wgl_vec.CAPTURE, wgl_row.CAPTURE
+    finally:
+        wgl_vec.CAPTURE = wgl_row.CAPTURE = None
+    assert len(vec) == 1 and vec[0][0].shape[1] == wgl_vec.LANES
+    assert len(row) == 1 and row[0][0].shape[0] == 2
+    jr = jind.checker(jlinearizable(jmodels.CASRegister(),
+                                    algorithm="host")).check(
+        {}, jax_keyed(hist), {})
+    assert tr["valid"] is False and tr["failures"] == jr["failures"] \
+        == [0, 2, 4]
+    for k, r in normalise(tr["results"]).items():
+        j = normalise(jr["results"])[k]
+        assert {x: r.get(x) for x in ("valid", "op", "final_paths")} \
+            == {x: j.get(x) for x in ("valid", "op", "final_paths")}, k
+    short = [o for o in hist if o.value.key < 4]
+    alone = independent.checker(linearizable(
+        tmodels.CASRegister(), device="cpu")).check({}, short, {})
+    for k in range(4):
+        assert tr["results"][k] == alone["results"][k]
+
+
+def test_single_long_history_routes_to_gpu_row():
+    hist = register_history(n_process=5, n_ops=1500, seed=3)
+    assert 1024 < len(make_entries(hist)) <= wgl_row.MAX_PAD
+    wgl_row.CAPTURE = []
+    try:
+        r = linearizable(tmodels.CASRegister(), device="cpu").check(
+            {}, hist, {})
+        launches = wgl_row.CAPTURE
+    finally:
+        wgl_row.CAPTURE = None
+    assert len(launches) == 1 and launches[0][3] == 2048
+    assert r["valid"] is True
+    assert r == linearizable(tmodels.CASRegister(), algorithm="gpu_row",
+                             device="cpu").check({}, hist, {})
+    assert wgl_host.analysis(tmodels.CASRegister(), hist).valid is True
+
+
+def test_row_kernel_failure_propagates(monkeypatch):
+    """A failing gpu_row engine raises through the check: its lanes do
+    not fall back to the host search."""
+    def boom(*a, **kw):
+        raise RuntimeError("row kernel fault")
+
+    monkeypatch.setattr(wgl_row, "analysis_batch", boom)
+    with pytest.raises(RuntimeError, match="row kernel fault"):
+        independent.checker(linearizable(
+            tmodels.CASRegister(), device="cpu")).check(
+            {}, mixed_history(0), {})
 
 
 def test_default_device_is_cuda():
@@ -229,6 +322,12 @@ def test_port_imports_no_jax():
         r = independent.checker(linearizable(
             CASRegister(), device="cpu")).check({}, h, {})
         assert r["valid"] is False, r
+        from jepsen_tpu_torch.ops import wgl_row
+        from jepsen_tpu_torch.workloads.register import register_history
+        wgl_row.CAPTURE = []
+        r = linearizable(CASRegister(), device="cpu").check(
+            {}, register_history(n_process=3, n_ops=1300, seed=1), {})
+        assert r["valid"] is True and len(wgl_row.CAPTURE) == 1, r
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
