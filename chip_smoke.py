@@ -12,8 +12,15 @@ register histories at the sizes the reference workload checks (short
 lanes through wgl_vec, long lanes through wgl_row, and a history mixing
 both), and one long single history — and checks the verdicts. Each path
 runs with every kernel's launch count set to 0 just before it and read
-just after. Every phase prints one JSON line; the last lines are the
-kernel table, the card's name and power limit (nvidia-smi), and
+just after, and every search it launched is replayed through the kernel
+and the plain version (lanes that ran past PLAIN_STEP_LIMIT steps under
+the common LONG_CAP). Last, wgl_vec's widest main-path launches run
+again at other lanes-a-block counts beside its plan's (SWEEP_LANES), bit
+for bit equal. Every phase prints one JSON line; the last lines
+are the kernel table (per kernel and main-path cell: kernel ms,
+launches, the longest lane's steps and µs a step, each launch's shared
+bytes and lanes a block, the bound), the card's name and power limit
+(nvidia-smi), and
 {"ok": true, "device": ...}. Any failed check raises, so the exit code
 is not 0. Without CUDA, or outside a checkout, it exits 2 and prints no
 result. It imports nothing of jax or jepsen_tpu.
@@ -88,8 +95,15 @@ def kernel_ms(mod, fn, reps: int = 5):
 
 # lockstep steps the plain version is run for in one comparison (~0.3 ms
 # a step on the card): lanes whose kernel search took longer are left out
-# of that launch's plain run, and the line says how many were compared
+# of that launch's full plain run, and the line says how many were compared
 PLAIN_STEP_LIMIT = 200_000
+# ...and are compared instead under this common step budget, through both
+# the kernel and the plain version (a capped search is the same search up
+# to the cap)
+LONG_CAP = 20_000
+# lanes a block K1 is timed at beside its plan's, on the main paths'
+# widest launches (those that fit)
+SWEEP_LANES = (1, 2, 4, 8, 16, 32)
 
 
 class Kernel:
@@ -103,6 +117,9 @@ class Kernel:
         self.shape = None
         self.ms = self.plain_ms = self.bound_ms = None
         self.bound_by = None
+        self.cells = {}  # main-path cell -> its launches' figures
+        self.widest = {}  # main-path cell -> its widest captured launch
+        self.lanes_sweep = None
 
     def row(self) -> dict:
         return {
@@ -114,7 +131,8 @@ class Kernel:
             "bound_ms": self.bound_ms, "bound_by": self.bound_by,
             "library_ms": None, "shape": self.shape,
             "matches_plain": self.max_abs_err == 0,
-            "compared_launches": self.compared}
+            "compared_launches": self.compared, "cells": self.cells,
+            "lanes_sweep": self.lanes_sweep}
 
 
 def bound(packed, n_pad, small, key_words) -> tuple:
@@ -142,58 +160,92 @@ def compare(kernel, launch) -> dict:
     return compare_vec(kernel.mod, launch, kernel)
 
 
+def check_equal(kernel, name, small, small_p, best=None, best_p=None):
+    """Fold one comparison into the kernel's max_abs_err; raise unless
+    the kernel's outputs equal the plain version's bit for bit."""
+    import torch
+
+    parts = [(small.long() - small_p.long()).flatten(),
+             small.new_zeros(1, dtype=torch.long)]
+    if best is not None:
+        parts.append((best.long() - best_p.long()).flatten())
+    err = int(torch.cat(parts).abs().max())
+    kernel.max_abs_err = max(kernel.max_abs_err, err)
+    kernel.compared += 1
+    if err:
+        bad = (small != small_p).any(0).nonzero()[:4, 0].tolist()
+        raise AssertionError(
+            f"{kernel.name} {name}: kernel != plain at lanes {bad}: "
+            f"{small[:, bad].tolist()} vs {small_p[:, bad].tolist()}")
+
+
+def vec_lanes(wv, packed, msteps, cols, cap=None):
+    """The lanes `cols` of a wgl_vec launch as a buffer of their own
+    (lanes are independent; zero columns are empty lanes, valid at once,
+    no search), with their step budgets or `cap` for every one."""
+    import torch
+
+    n_cmp = len(cols)
+    w = max(1, -(-n_cmp // wv.LANES)) * wv.LANES
+    sub = torch.zeros((packed.shape[0], w), dtype=packed.dtype,
+                      device=packed.device)
+    sub[:, :n_cmp] = packed[:, cols]
+    steps = torch.zeros(w, dtype=msteps.dtype, device=msteps.device)
+    steps[:n_cmp] = msteps[cols] if cap is None else cap
+    return sub, steps
+
+
 def compare_vec(wv, launch, kernel) -> dict:
     """Replay one captured `search` (wgl_vec.CAPTURE): the kernel, timed,
     and the plain version on the same inputs on the card. The result
     block and best stack must be bit-identical on every compared lane,
     or this raises. Lanes whose kernel search took more than
-    PLAIN_STEP_LIMIT steps are left out of the plain run (lanes are
-    independent, so the others are compared as a narrower buffer).
-    Returns the launch's figures."""
+    PLAIN_STEP_LIMIT steps are left out of the full plain run and run
+    again through both under LONG_CAP. Returns the launch's figures."""
     import torch
 
     packed, msteps, jm, n_pad, n_state, slots = launch
     k_ms, (small_k, best) = kernel_ms(wv, lambda: wv.search(*launch))
     small = small_k
     width = packed.shape[1]
-    cols = (small[1] <= PLAIN_STEP_LIMIT).nonzero()[:, 0]
+    long = small_k[1] > PLAIN_STEP_LIMIT
+    cols = (~long).nonzero()[:, 0]
     n_cmp = len(cols)
     if n_cmp == width:
         sub, sub_steps = packed, msteps
     else:
-        w = max(1, -(-n_cmp // wv.LANES)) * wv.LANES
-        # zero columns are empty lanes: valid at once, no search
-        sub = torch.zeros((packed.shape[0], w), dtype=packed.dtype,
-                          device=packed.device)
-        sub[:, :n_cmp] = packed[:, cols]
-        sub_steps = torch.zeros(w, dtype=msteps.dtype, device=msteps.device)
-        sub_steps[:n_cmp] = msteps[cols]
+        sub, sub_steps = vec_lanes(wv, packed, msteps, cols)
         small, best = small[:, cols], best[:, cols]
     p_ms, (small_p, best_p) = cuda_ms(lambda: wv.search_plain(
         sub, sub_steps, jm, n_pad, n_state, slots))
-    small_p, best_p = small_p[:, :n_cmp], best_p[:, :n_cmp]
-    err = int(torch.cat([
-        (small.long() - small_p.long()).flatten(),
-        (best.long() - best_p.long()).flatten(),
-        small.new_zeros(1, dtype=torch.long)]).abs().max())
-    kernel.max_abs_err = max(kernel.max_abs_err, err)
-    kernel.compared += 1
-    if err:
-        bad = (small != small_p).any(0).nonzero()[:4, 0].tolist()
-        raise AssertionError(
-            f"{jm.name}: kernel != plain at lanes {bad}: "
-            f"{small[:, bad].tolist()} vs {small_p[:, bad].tolist()}")
+    check_equal(kernel, jm.name, small, small_p[:, :n_cmp], best,
+                best_p[:, :n_cmp])
     t_b, t_o = bound(packed, n_pad, small_k,
                      wv._key_words(jm, n_pad, n_state))
     b_ms, b_by = bound_ms(t_b, t_o)
+    plan = wv.launch_plan(packed, jm, n_pad, n_state, slots)
     real = (packed[-1] & 0xFFFF) > 0  # lanes with entries
-    return {"lanes": int(real.sum()), "rows": packed.shape[0],
-            "slots": slots,
-            "cap": int(msteps.max()), "kernel_ms": k_ms, "plain_ms": p_ms,
-            "plain_lanes": int(real[cols].sum()), "bound_ms": b_ms,
-            "bound_by": b_by, "t_bytes": t_b, "t_ops": t_o,
-            "steps": int(small_k[1].sum()),
-            "max_lane_steps": int(small_k[1].max())}
+    out = {"lanes": int(real.sum()), "rows": packed.shape[0],
+           "n_pad": n_pad, "slots": slots,
+           "cap": int(msteps.max()), "kernel_ms": k_ms, "plain_ms": p_ms,
+           "plain_lanes": int(real[cols].sum()), "bound_ms": b_ms,
+           "bound_by": b_by, "t_bytes": t_b, "t_ops": t_o,
+           "steps": int(small_k[1].sum()),
+           "max_lane_steps": int(small_k[1].max()),
+           "smem_bytes": plan.bytes, "lanes_per_block": plan.lanes}
+    if bool(long.any()):
+        lcols = long.nonzero()[:, 0]
+        t0 = time.perf_counter()
+        sub, sub_steps = vec_lanes(wv, packed, msteps, lcols, LONG_CAP)
+        small_l, best_l = wv.search(sub, sub_steps, jm, n_pad, n_state, slots)
+        small_lp, best_lp = wv.search_plain(sub, sub_steps, jm, n_pad,
+                                            n_state, slots)
+        check_equal(kernel, f"{jm.name} capped", small_l, small_lp,
+                    best_l, best_lp)
+        torch.cuda.synchronize()
+        out.update(long_lanes=len(lcols), long_cap=LONG_CAP,
+                   long_s=time.perf_counter() - t0)
+    return out
 
 
 def bound_row(packed, n_pad, small, key_words) -> tuple:
@@ -213,14 +265,16 @@ def compare_row(wr, launch, kernel) -> dict:
     kernel, timed, and the plain version on the same inputs on the card.
     Verdict, steps and depth must be bit-identical on every compared
     lane, or this raises. Lanes whose kernel search took more than
-    PLAIN_STEP_LIMIT steps are left out of the plain run (the lanes are
-    rows of `packed`, so the others are compared as a smaller batch)."""
+    PLAIN_STEP_LIMIT steps are left out of the full plain run (the lanes
+    are rows of `packed`, so the others are compared as a smaller batch)
+    and run again through both under LONG_CAP."""
     import torch
 
     packed, msteps, jm, n_pad, cache_bits = launch
     k_ms, small_k = kernel_ms(wr, lambda: wr.search(*launch))
     lanes = packed.shape[0]
-    cols = (small_k[1] <= PLAIN_STEP_LIMIT).nonzero()[:, 0]
+    long = small_k[1] > PLAIN_STEP_LIMIT
+    cols = (~long).nonzero()[:, 0]
     n_cmp = len(cols)
     small = small_k
     if n_cmp == lanes:
@@ -231,22 +285,29 @@ def compare_row(wr, launch, kernel) -> dict:
         small = small_k[:, cols]
     p_ms, small_p = cuda_ms(lambda: wr.search_plain(
         sub, sub_steps, jm, n_pad, cache_bits))
-    err = int((small.long() - small_p.long()).abs().max()) if n_cmp else 0
-    kernel.max_abs_err = max(kernel.max_abs_err, err)
-    kernel.compared += 1
-    if err:
-        bad = (small != small_p).any(0).nonzero()[:4, 0].tolist()
-        raise AssertionError(
-            f"wgl_row {jm.name}: kernel != plain at lanes {bad}: "
-            f"{small[:, bad].tolist()} vs {small_p[:, bad].tolist()}")
+    check_equal(kernel, jm.name, small, small_p)
     t_b, t_o = bound_row(packed, n_pad, small_k, wr.key_words(n_pad))
     b_ms, b_by = bound_ms(t_b, t_o)
-    return {"lanes": lanes, "n_pad": n_pad, "cache_bits": cache_bits,
-            "cap": int(msteps.max()), "kernel_ms": k_ms, "plain_ms": p_ms,
-            "plain_lanes": n_cmp, "bound_ms": b_ms, "bound_by": b_by,
-            "t_bytes": t_b, "t_ops": t_o, "steps": int(small_k[1].sum()),
-            "max_lane_steps": int(small_k[1].max()),
-            "verdicts": small_k[0].tolist() if lanes <= 16 else None}
+    plan = wr.launch_plan(packed, n_pad, cache_bits)
+    out = {"lanes": lanes, "n_pad": n_pad, "cache_bits": cache_bits,
+           "cap": int(msteps.max()), "kernel_ms": k_ms, "plain_ms": p_ms,
+           "plain_lanes": n_cmp, "bound_ms": b_ms, "bound_by": b_by,
+           "t_bytes": t_b, "t_ops": t_o, "steps": int(small_k[1].sum()),
+           "max_lane_steps": int(small_k[1].max()),
+           "smem_bytes": plan.bytes, "lanes_per_block": plan.lanes,
+           "verdicts": small_k[0].tolist() if lanes <= 16 else None}
+    if bool(long.any()):
+        lcols = long.nonzero()[:, 0]
+        t0 = time.perf_counter()
+        sub = packed[lcols].contiguous()
+        sub_steps = torch.full_like(msteps[lcols], LONG_CAP)
+        check_equal(kernel, f"{jm.name} capped",
+                    wr.search(sub, sub_steps, jm, n_pad, cache_bits),
+                    wr.search_plain(sub, sub_steps, jm, n_pad, cache_bits))
+        torch.cuda.synchronize()
+        out.update(long_lanes=len(lcols), long_cap=LONG_CAP,
+                   long_s=time.perf_counter() - t0)
+    return out
 
 
 def shifted(hist, d: int):
@@ -405,23 +466,46 @@ def run_path(kernels, fn):
     return res, wall, seen
 
 
-def replay(kernels, seen) -> dict:
-    """Every launch a path made, replayed through `compare`; the first
-    path that launches a kernel sets that kernel's row of the table."""
+def replay(kernels, seen, cell: str) -> dict:
+    """Every launch a path made, replayed through `compare`. Each kernel
+    the path launched gets a `cells` entry for it: the path's launches
+    and their own kernel time, and per replayed launch its kernel time,
+    its longest lane's steps and µs a step of that lane, its shared
+    memory plan and its bound. The first path that launches a kernel
+    also sets that kernel's top-level figures."""
     out = {}
     for k in kernels:
-        captured = seen[k.name][2]
+        launched, path_ms, captured = seen[k.name]
         passes = [compare(k, launch) for launch in captured]
-        if passes and k.shape is None:
+        out[k.name] = passes
+        if not passes:
+            continue
+        b_ms, b_by = bound_ms(sum(p["t_bytes"] for p in passes),
+                              sum(p["t_ops"] for p in passes))
+        slowest = max(passes, key=lambda p: p["kernel_ms"])
+        k.cells[cell] = {
+            "launches": launched, "path_kernel_ms": path_ms,
+            "kernel_ms": sum(p["kernel_ms"] for p in passes),
+            "max_lane_steps": max(p["max_lane_steps"] for p in passes),
+            "us_per_step": 1000 * slowest["kernel_ms"]
+            / max(1, slowest["max_lane_steps"]),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "per_launch": [{
+                "kernel_ms": p["kernel_ms"], "lanes": p["lanes"],
+                "n_pad": p["n_pad"], "max_lane_steps": p["max_lane_steps"],
+                "us_per_step": 1000 * p["kernel_ms"]
+                / max(1, p["max_lane_steps"]),
+                "smem_bytes": p["smem_bytes"],
+                "lanes_per_block": p["lanes_per_block"],
+                "bound_ms": p["bound_ms"]} for p in passes]}
+        k.widest[cell] = max(captured, key=lambda c: c[0].shape[-1])
+        if k.shape is None:
             lanes = sum(p["lanes"] for p in passes)
             k.shape = (f"{lanes} lanes in {len(passes)} launches, n_pad "
-                       f"{captured[0][3]}: every search of the main path")
+                       f"{captured[0][3]}: every search of the {cell} cell")
             k.ms = sum(p["kernel_ms"] for p in passes)
             k.plain_ms = sum(p["plain_ms"] for p in passes)
-            k.bound_ms, k.bound_by = bound_ms(
-                sum(p["t_bytes"] for p in passes),
-                sum(p["t_ops"] for p in passes))
-        out[k.name] = passes
+            k.bound_ms, k.bound_by = b_ms, b_by
     return out
 
 
@@ -477,7 +561,7 @@ def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
     host_s = time.perf_counter() - t1
     steps = sum(r["steps"] for r in results.values())
 
-    passes = replay(kernels, seen)
+    passes = replay(kernels, seen, name)
     emit({"phase": name, "algorithm": algorithm, "keys": n_keys,
           "invocations_per_key": n_ops,
           "bad_every": bad_every, "bad_read": bad_read,
@@ -519,7 +603,7 @@ def phase_mixed(args, kernels):
         CASRegister(), algorithm="gpu_vec")).check({}, short, {})["results"]
     same = all(results[k] == alone[k] for k in range(n_short))
     assert same, "short keys' results changed beside the long keys"
-    passes = replay(kernels, seen)
+    passes = replay(kernels, seen, "mixed")
     emit({"phase": "mixed", "keys": [n_short, n_long],
           "invocations_per_key": [64, 2000], "ops": len(hist),
           "wall_s": wall, "launches": {k: v[0] for k, v in seen.items()},
@@ -545,11 +629,62 @@ def phase_single(args, kernels):
     assert launches == {"wgl_vec": 0, "wgl_row": 1}, launches
     assert res["valid"] is True, res
     assert wgl_host.analysis(CASRegister(), hist).valid is True
-    passes = replay(kernels, seen)
+    passes = replay(kernels, seen, "single")
     emit({"phase": "single_history", "ops": len(hist), "wall_s": wall,
           "launches": launches, "kernel_ms": seen["wgl_row"][1],
           "steps": res["steps"], "valid": res["valid"],
           "kernel_vs_plain": passes, "matches_plain": True})
+
+
+def phase_lanes_per_block(kernel) -> None:
+    """K1 at every lanes-a-block count of SWEEP_LANES that fits, beside
+    its plan's, on the widest launch of the register and widest cells
+    and on the register launch tiled to four times its width. Each
+    result must equal the plan's bit for bit (the plan's equals the plain
+    version's: `replay`; the tiled one equals the register launch's,
+    tiled). Each launch also runs at a step budget of 0 (`cap0_ms`: the
+    decode of its lanes and the write of its outputs, no step), equal to
+    the plain version's."""
+    import torch
+
+    wv = kernel.mod
+    reg = kernel.widest["main_register"]
+    tiled = (torch.cat([reg[0]] * 4, 1).contiguous(),
+             torch.cat([reg[1]] * 4).contiguous(), *reg[2:])
+    rows = []
+    for cell, launch in (("main_register", reg), ("main_register x4", tiled),
+                         ("main_widest", kernel.widest["main_widest"])):
+        packed, msteps, jm, n_pad, n_state, slots = launch
+        plan = wv.launch_plan(packed, jm, n_pad, n_state, slots)
+        fit = wv.launch_plan(packed, jm, n_pad, n_state, slots, wv.WARP)
+        plan_ms, (small0, best0) = kernel_ms(wv, lambda: wv.search(*launch))
+        cap0 = (packed, torch.zeros_like(msteps), jm, n_pad, n_state, slots)
+        cap0_ms, (small, best) = kernel_ms(wv, lambda: wv.search(*cap0))
+        small_p, best_p = wv.search_plain(*cap0)
+        check_equal(kernel, f"{jm.name} at step budget 0", small, small_p,
+                    best, best_p)
+        if cell == "main_register":
+            reg_out = small0, best0
+        elif cell == "main_register x4":
+            check_equal(kernel, "tiled", small0,
+                        torch.cat([reg_out[0]] * 4, 1), best0,
+                        torch.cat([reg_out[1]] * 4, 1))
+        ms = {}
+        for lanes in SWEEP_LANES:
+            if lanes > fit.lanes:
+                break
+            ms[lanes], (small, best) = kernel_ms(
+                wv, lambda: wv.search(*launch, lanes=lanes))
+            check_equal(kernel, f"{jm.name} at {lanes} lanes a block",
+                        small, small0, best, best0)
+        rows.append({"cell": cell, "width": packed.shape[1], "n_pad": n_pad,
+                     "max_lane_steps": int(small0[1].max()),
+                     "plan_lanes": plan.lanes, "plan_ms": plan_ms,
+                     "cap0_ms": cap0_ms,
+                     "fit_lanes": fit.lanes, "ms_by_lanes": ms})
+    kernel.lanes_sweep = rows
+    emit({"phase": "lanes_per_block", "kernel": kernel.name,
+          "launches": rows, "matches_plan": True})
 
 
 def build_all(kernels) -> None:
@@ -611,6 +746,7 @@ def run(args) -> int:
               algorithm="auto", expect=("wgl_row",))
     phase_mixed(args, kernels)
     phase_single(args, kernels)
+    phase_lanes_per_block(vec)
 
     emit({"kernels": [k.row() for k in kernels]})
     print(smi, flush=True)

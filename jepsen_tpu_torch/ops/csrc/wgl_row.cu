@@ -22,26 +22,41 @@
 // word 127). Here each key holds the live words only; the words past the
 // lane's last entry are zero in every K5 row, so the compare is the same.
 //
-// Layout: the wrapper (ops/wgl_row.py) packs each lane's inputs
-// contiguously (lane-major, `_pack`), and gives each lane a contiguous
-// scratch area: memo keys (slots x key_words), used flags (slots), nxt,
-// prv (m_pad each), stack_e, stack_s (n_pad each). The Zobrist table is
-// one (n_pad,) array for every lane.
+// What bounds it on an H100, and where each table lives. A search step is
+// a chain of dependent reads (node -> entry -> its facts -> memo probe ->
+// list neighbours), one warp per lane, so the kernel is bound by the
+// latency of that chain, far above both the bytes and the operations it
+// needs. So everything a step reads, except the memo's key rows, sits in
+// dynamic shared memory (~30 cycles a read instead of an L2 or HBM round
+// trip), decoded from the packed lane once at kernel start:
+//   block:    the Zobrist table (n_pad uint32), shared by the block's warps
+//   per lane: facts (n_pad int32: (f+1) | crashed << 2 | call node << 3
+//             | ret node << 16), v1 and v2 (n_pad int32 each), the undo
+//             stack's states (n_pad int32), the memo's fingerprints
+//             (2^cache_bits uint32: hh | 1 of the key a slot holds, 0 when
+//             unused), then as int16 the list nxt, prv (m_pad each), the
+//             node map (m_pad: entry << 1 | is_call) and the undo stack's
+//             entries (n_pad).
+// At n_pad 4064 that is ~146 KB (cache_bits 11) for one lane a block; at
+// n_pad <= 2048 several warps share a block (ops/wgl_row.py::_smem_plan
+// computes the same layout and the lanes a block takes).
+// The key rows (2^cache_bits x key words, 1 MiB a lane at n_pad 4064) stay
+// in device memory and are never zeroed: a row is read only where its
+// slot's fingerprint equals the new key's hh, which is a function of the
+// key (the Zobrist XOR over the set entries, folded with the state), so a
+// differing fingerprint cannot hold the key. Threads 0-7 read the 8
+// probes' fingerprints at once and two ballots give the used and the
+// matching probes; only matching rows are loaded, all in one round trip
+// (thread t takes words t, t+32, t+64, t+96 of each), with one warp vote
+// per row. A lift writes its key row without waiting on the store.
 //
 // The warp: thread t holds bitset words t, t+32, t+64 and t+96 of the
-// current key in registers, so a probe reads one memo row coalesced (each
-// thread its own words) and its verdict is one warp vote. The search's
-// scalars (node, state, hash, depth, ...) are kept by every thread alike:
-// loads of them are broadcasts, stores write the same value from every
-// thread, and a __syncwarp() ends each step.
-//
-// What bounds it on an H100: each step is a chain of dependent loads from
-// device memory (node -> entry -> its facts -> memo probe rows -> list
-// neighbours), one warp per lane, so it is latency-bound, far above both
-// the bytes and the operations it needs. The memo (1 MiB a lane at 4064
-// entries) is zeroed at the start of every launch, inside the kernel's
-// time, as K5 re-zeroes it for each lane. Later work can keep the list and
-// the hot memo rows in shared memory or run several lanes per warp.
+// current key in registers. The search's scalars (node, state, hash,
+// depth, ...) are kept by every thread alike: shared-memory reads of them
+// are broadcasts, stores write the same value from every thread, and a
+// __syncwarp() ends each step so no thread runs ahead into the next. Each
+// step starts the reads of the next event and of the undo stack's top
+// together, so a pop does not wait on the event read before it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,6 +68,7 @@ constexpr int32_t NIL32 = 1 << 30;
 constexpr int N_PROBES = 8;
 constexpr int WARP = 32;
 constexpr int WPT = 4;  // key words per thread: keys of up to 128 words
+constexpr int MAX_LANES_PER_BLOCK = 8;
 constexpr uint32_t FULL = 0xFFFFFFFFu;
 constexpr uint32_t FNV_BASIS = 2166136261u;
 
@@ -64,10 +80,17 @@ struct Params {
   const int32_t* ztab;    // (n_pad,) Zobrist table (uint32 bits)
   const int32_t* msteps;  // (lanes,) step budgets
   int32_t* small;         // (3, lanes): verdict, steps, depth
-  int32_t* scratch;       // (lanes, scratch_rows)
-  int lanes, n_pad, m_pad, rows, scratch_rows, model, cache_bits, nw,
-      init_state;
+  int32_t* keys;          // (lanes, 2^cache_bits * key words) memo key rows
+  int lanes, n_pad, m_pad, rows, cache_bits, nw, init_state,
+      lanes_per_block, lane_bytes;
 };
+
+// Bytes of one lane's shared tables (layout above); a multiple of 16 since
+// n_pad >= 8 and m_pad % 8 == 0.
+__host__ __device__ inline int lane_bytes(int n_pad, int m_pad,
+                                          int cache_bits) {
+  return 4 * (4 * n_pad + (1 << cache_bits)) + 2 * (3 * m_pad + n_pad);
+}
 
 __device__ __forceinline__ uint32_t mix_hash(uint32_t h_lin, int32_t state) {
   uint32_t h = (h_lin ^ (uint32_t)state) * 16777619u;
@@ -75,79 +98,94 @@ __device__ __forceinline__ uint32_t mix_hash(uint32_t h_lin, int32_t state) {
   return h ^ (h >> 13);
 }
 
-__global__ void wgl_row_kernel(Params p) {
-  const int lane = blockIdx.x;
-  const int t = threadIdx.x;
+// One instantiation per model, so a step carries no branch on it.
+template <int MODEL>
+__global__ void __launch_bounds__(WARP * MAX_LANES_PER_BLOCK)
+    wgl_row_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x & (WARP - 1);
+  const int wid = threadIdx.x / WARP;
+  const int lane = blockIdx.x * p.lanes_per_block + wid;
   const int n = p.n_pad, m = p.m_pad;
   const int kw = p.nw + 1;  // key words: bitset, then the state
   const int slots = 1 << p.cache_bits;
   const uint32_t mask = (uint32_t)slots - 1;
 
-  const int32_t* in = p.packed + (size_t)lane * p.rows;
-  const int32_t* f_of = in;
-  const int32_t* v1_of = in + n;
-  const int32_t* v2_of = in + 2 * n;
-  const int32_t* crashed_of = in + 3 * n;
-  const int32_t* call_of = in + 4 * n;
-  const int32_t* ret_of = in + 5 * n;
-  const int32_t* node_entry = in + 6 * n;
-  const int32_t* node_is_call = node_entry + m;
-  const int32_t* nxt0 = node_is_call + m;
-  const int32_t* prv0 = nxt0 + m;
-  const int32_t ncomp = prv0[m];
+  uint32_t* ztab = reinterpret_cast<uint32_t*>(smem);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    ztab[i] = (uint32_t)p.ztab[i];
+  __syncthreads();
+  if (lane >= p.lanes) return;
 
-  int32_t* s = p.scratch + (size_t)lane * p.scratch_rows;
-  int32_t* memo = s;
-  int32_t* used = memo + (size_t)slots * kw;
-  int32_t* nxt = used + slots;
-  int32_t* prv = nxt + m;
-  int32_t* stack_e = prv + m;
-  int32_t* stack_s = stack_e + n;
+  unsigned char* base = smem + 4 * n + (size_t)wid * p.lane_bytes;
+  int32_t* facts = reinterpret_cast<int32_t*>(base);
+  int32_t* v1_of = facts + n;
+  int32_t* v2_of = v1_of + n;
+  int32_t* stack_s = v2_of + n;
+  uint32_t* fp = reinterpret_cast<uint32_t*>(stack_s + n);
+  int16_t* nxt = reinterpret_cast<int16_t*>(fp + slots);
+  int16_t* prv = nxt + m;
+  int16_t* nmap = prv + m;
+  int16_t* stack_e = nmap + m;
+
+  const int32_t* in = p.packed + (size_t)lane * p.rows;
+  const int32_t ncomp = in[6 * n + 4 * m];
+  int32_t* keys = p.keys + (size_t)lane * slots * kw;
 
   const int32_t max_steps = p.msteps[lane];
   int32_t verdict = ncomp == 0 ? VALID : RUNNING;
   int32_t steps = 0, depth = 0;
 
   if (verdict == RUNNING && steps < max_steps) {
-    // the memo starts empty for every lane (16-byte stores: the wrapper
-    // keeps each lane's scratch 16-byte aligned, slots * kw % 4 == 0)
-    int4* memo4 = reinterpret_cast<int4*>(memo);
-    const int n4 = slots * kw / 4;
-    for (int i = t; i < n4; i += WARP) memo4[i] = make_int4(0, 0, 0, 0);
-    for (int i = t; i < slots; i += WARP) used[i] = 0;
-    for (int i = t; i < m; i += WARP) {
-      nxt[i] = nxt0[i];
-      prv[i] = prv0[i];
-    }
+    // decode the lane (columns f, v1, v2, crashed, call, ret; then
+    // node_entry, node_is_call, nxt0, prv0) into the shared tables
     for (int i = t; i < n; i += WARP) {
-      stack_e[i] = 0;
-      stack_s[i] = 0;
+      facts[i] = (in[i] + 1) | ((in[3 * n + i] != 0) << 2) |
+                 (in[4 * n + i] << 3) | (in[5 * n + i] << 16);
+      v1_of[i] = in[n + i];
+      v2_of[i] = in[2 * n + i];
     }
+    const int32_t* nodes = in + 6 * n;
+    for (int i = t; i < m; i += WARP) {
+      nmap[i] = (int16_t)((nodes[i] << 1) | (nodes[m + i] != 0));
+      nxt[i] = (int16_t)nodes[2 * m + i];
+      prv[i] = (int16_t)nodes[3 * m + i];
+    }
+    // the memo starts empty: only the fingerprints are cleared
+    for (int i = t; i < slots; i += WARP) fp[i] = 0u;
+    stack_e[0] = 0;  // read (as a valid entry) before the first push
     __syncwarp();
   }
 
   uint32_t row[WPT];  // this thread's bitset words: w = t + 32 * j
 #pragma unroll
   for (int j = 0; j < WPT; ++j) row[j] = 0;
-  int32_t node = nxt0[0];
+  int32_t node = in[6 * n + 2 * m];  // nxt0[0]
   int32_t state = p.init_state;
   uint32_t h = FNV_BASIS;
   int32_t completed = 0;
 
   while (verdict == RUNNING && steps < max_steps) {
-    const int e = node_entry[node];
-    const bool is_call = node != 0 && node_is_call[node] != 0;
+    // the next event's reads and the undo stack top's start together
+    const int en = nmap[node];
+    const int top = depth > 0 ? depth - 1 : 0;
+    const int e2 = stack_e[top];
+    const int32_t pop_state = stack_s[top];
+    const int32_t fact2 = facts[e2];
+    const int e = en >> 1;
+    const bool is_call = node != 0 && (en & 1);
 
     if (is_call) {
-      const int f = f_of[e];
+      const int32_t fact = facts[e];
+      const int f = (fact & 3) - 1;
       const int32_t v1 = v1_of[e];
       bool ok;
       int32_t new_state = state;
-      if (p.model == CAS_REGISTER) {
+      if (MODEL == CAS_REGISTER) {
         const bool match = state == v1;
         ok = (f == 0 && (v1 == NIL32 || match)) || f == 1 || (f == 2 && match);
         new_state = f == 1 ? v1 : (f == 2 && match ? v2_of[e] : state);
-      } else if (p.model == REGISTER) {
+      } else if (MODEL == REGISTER) {
         ok = f == 1 || (f == 0 && (v1 == NIL32 || state == v1));
         new_state = f == 1 ? v1 : state;
       } else {  // MUTEX
@@ -159,8 +197,14 @@ __global__ void wgl_row_kernel(Params p) {
       if (ok) {
         const int word = e >> 5;
         const uint32_t bit = 1u << (e & 31);
-        const uint32_t new_h = h ^ (uint32_t)p.ztab[e];
+        const uint32_t new_h = h ^ ztab[e];
         const uint32_t hh = mix_hash(new_h, new_state);
+        const uint32_t fpn = hh | 1u;
+
+        // the probes' fingerprints, one per thread 0..N_PROBES-1
+        const uint32_t mine = t < N_PROBES ? fp[(hh + (uint32_t)t) & mask] : 0u;
+        const uint32_t used = __ballot_sync(FULL, mine != 0u);
+        const uint32_t hit = __ballot_sync(FULL, mine == fpn);
 
         // this thread's words of the new key
         uint32_t key[WPT];
@@ -172,37 +216,45 @@ __global__ void wgl_row_kernel(Params p) {
         }
 
         bool found = false;
-        int ins = -1, last = 0;
-        for (int pr = 0; pr < N_PROBES && !found; ++pr) {
-          const int slot = (int)((hh + (uint32_t)pr) & mask);
-          last = slot;
-          if (used[slot]) {
-            const int32_t* r = memo + (size_t)slot * kw;
-            bool eq = true;
+        if (hit) {
+          // every row whose fingerprint matches, loaded in one round trip
+          uint32_t got[N_PROBES][WPT];
+#pragma unroll
+          for (int pr = 0; pr < N_PROBES; ++pr) {
+            const uint32_t* r = reinterpret_cast<const uint32_t*>(keys) +
+                                (size_t)((hh + (uint32_t)pr) & mask) * kw;
 #pragma unroll
             for (int j = 0; j < WPT; ++j) {
               const int w = t + WARP * j;
-              if (w < kw && (uint32_t)r[w] != key[j]) eq = false;
+              got[pr][j] = ((hit >> pr) & 1u) && w < kw ? r[w] : key[j];
             }
-            found = __all_sync(FULL, eq);
-          } else if (ins < 0) {
-            ins = slot;
+          }
+#pragma unroll
+          for (int pr = 0; pr < N_PROBES; ++pr) {
+            if ((hit >> pr) & 1u) {
+              bool eq = true;
+#pragma unroll
+              for (int j = 0; j < WPT; ++j) eq = eq && got[pr][j] == key[j];
+              found = __all_sync(FULL, eq) || found;
+            }
           }
         }
-        if (ins < 0) ins = last;
 
         if (!found) {
           lifted = true;
-          // memo insert, then push
-          int32_t* r = memo + (size_t)ins * kw;
+          // memo insert at the first unused probe, else the last; then push
+          const uint32_t free_probes = ~used & ((1u << N_PROBES) - 1);
+          const int pr = free_probes ? __ffs(free_probes) - 1 : N_PROBES - 1;
+          const uint32_t ins = (hh + (uint32_t)pr) & mask;
+          int32_t* r = keys + (size_t)ins * kw;
 #pragma unroll
           for (int j = 0; j < WPT; ++j) {
             const int w = t + WARP * j;
             if (w < kw) r[w] = (int32_t)key[j];
           }
-          used[ins] = 1;
+          fp[ins] = fpn;
           const int dpush = depth < n - 1 ? depth : n - 1;
-          stack_e[dpush] = e;
+          stack_e[dpush] = (int16_t)e;
           stack_s[dpush] = state;
 
           state = new_state;
@@ -211,15 +263,15 @@ __global__ void wgl_row_kernel(Params p) {
             if (t + WARP * j == word) row[j] |= bit;
           h = new_h;
           depth += 1;
-          completed += crashed_of[e] ? 0 : 1;
+          completed += (fact >> 2) & 1 ? 0 : 1;
 
           // unlink the call node (write A), then the return node (write B,
           // reading the list as A left it)
-          const int cn = call_of[e], rn = ret_of[e];
-          const int32_t pa = prv[cn], qa = nxt[cn];
+          const int cn = (fact >> 3) & 0x1FFF, rn = fact >> 16;
+          const int16_t pa = prv[cn], qa = nxt[cn];
           nxt[pa] = qa;
           prv[qa] = pa;
-          const int32_t pb = prv[rn], qb = nxt[rn];
+          const int16_t pb = prv[rn], qb = nxt[rn];
           nxt[pb] = qb;
           prv[qb] = pb;
           node = nxt[0];
@@ -232,23 +284,22 @@ __global__ void wgl_row_kernel(Params p) {
       verdict = INVALID;
     } else {
       // backtrack: pop the last lift
-      const int e2 = stack_e[depth - 1];
-      state = stack_s[depth - 1];
+      state = pop_state;
 #pragma unroll
       for (int j = 0; j < WPT; ++j)
         if (t + WARP * j == (e2 >> 5)) row[j] &= ~(1u << (e2 & 31));
-      h ^= (uint32_t)p.ztab[e2];
+      h ^= ztab[e2];
       depth -= 1;
-      completed -= crashed_of[e2] ? 0 : 1;
+      completed -= (fact2 >> 2) & 1 ? 0 : 1;
 
       // relink the return node (write A), then the call node (write B)
-      const int cn2 = call_of[e2], rn2 = ret_of[e2];
-      const int32_t pa = prv[rn2], qa = nxt[rn2];
-      nxt[pa] = rn2;
-      prv[qa] = rn2;
-      const int32_t pb = prv[cn2], qb = nxt[cn2];
-      nxt[pb] = cn2;
-      prv[qb] = cn2;
+      const int cn2 = (fact2 >> 3) & 0x1FFF, rn2 = fact2 >> 16;
+      const int16_t pa = prv[rn2], qa = nxt[rn2];
+      nxt[pa] = (int16_t)rn2;
+      prv[qa] = (int16_t)rn2;
+      const int16_t pb = prv[cn2], qb = nxt[cn2];
+      nxt[pb] = (int16_t)cn2;
+      prv[qb] = (int16_t)cn2;
       node = nxt[cn2];
     }
     steps += 1;
@@ -264,30 +315,49 @@ __global__ void wgl_row_kernel(Params p) {
 
 }  // namespace
 
-// One block of one warp per lane. The scratch tensor holds, per lane, the
-// areas listed above in ops/wgl_row.py::_scratch_rows order.
+// Blocks of `lanes_per_block` warps, one lane each, with `smem_bytes` of
+// dynamic shared memory (the Zobrist table, then each warp's tables); the
+// wrapper (ops/wgl_row.py::_smem_plan) computes both, and the launch
+// refuses a plan that disagrees with the layout above. Past the device's
+// opt-in limit cudaFuncSetAttribute fails, and its error is returned.
+// `keys` holds each lane's memo key rows (ops/wgl_row.py::_scratch_rows).
 extern "C" int wgl_row_launch(const void* packed, const void* ztab,
-                              const void* msteps, void* small, void* scratch,
+                              const void* msteps, void* small, void* keys,
                               int lanes, int n_pad, int m_pad, int rows,
-                              int scratch_rows, int model, int cache_bits,
-                              int nw, int init_state, void* stream) {
-  if (nw + 1 > WARP * WPT) return (int)cudaErrorInvalidValue;
+                              int model, int cache_bits, int nw,
+                              int init_state, int lanes_per_block,
+                              int smem_bytes, void* stream) {
+  const int lb = lane_bytes(n_pad, m_pad, cache_bits);
+  if (nw + 1 > WARP * WPT || n_pad > 4096 || m_pad > 8192 ||
+      lanes_per_block < 1 || lanes_per_block > MAX_LANES_PER_BLOCK ||
+      smem_bytes != 4 * n_pad + lanes_per_block * lb)
+    return (int)cudaErrorInvalidValue;
   if (lanes == 0) return 0;
+  void (*kernel)(Params) = model == CAS_REGISTER ? wgl_row_kernel<CAS_REGISTER>
+                          : model == REGISTER   ? wgl_row_kernel<REGISTER>
+                          : model == MUTEX      ? wgl_row_kernel<MUTEX>
+                                                : nullptr;
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
   Params p;
   p.packed = static_cast<const int32_t*>(packed);
   p.ztab = static_cast<const int32_t*>(ztab);
   p.msteps = static_cast<const int32_t*>(msteps);
   p.small = static_cast<int32_t*>(small);
-  p.scratch = static_cast<int32_t*>(scratch);
+  p.keys = static_cast<int32_t*>(keys);
   p.lanes = lanes;
   p.n_pad = n_pad;
   p.m_pad = m_pad;
   p.rows = rows;
-  p.scratch_rows = scratch_rows;
-  p.model = model;
   p.cache_bits = cache_bits;
   p.nw = nw;
   p.init_state = init_state;
-  wgl_row_kernel<<<lanes, WARP, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  p.lanes_per_block = lanes_per_block;
+  p.lane_bytes = lb;
+  const int blocks = (lanes + lanes_per_block - 1) / lanes_per_block;
+  kernel<<<blocks, WARP * lanes_per_block, smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

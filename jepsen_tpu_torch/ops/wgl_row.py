@@ -27,6 +27,15 @@ raises; on a CPU tensor it runs `search_plain`, a lockstep PyTorch
 version of the same search over all lanes. Both return, per lane, the
 verdict, steps and depth K5 returns.
 
+Where the kernel keeps its tables: in shared memory, the Zobrist table
+(one per block) and, per lane, the entries' facts, v1 and v2, the
+linked list and node map (int16), the undo stack and one fingerprint
+per memo slot (the key's hash, 0 when unused); in device memory only
+the memo's key rows (`_scratch_rows` words a lane), read where a
+fingerprint matches. `_smem_plan` gives the shared bytes and lanes
+(warps) per block; a shape whose lane does not fit one block's
+shared memory raises — nothing falls back.
+
 `cache_bits` is an argument of both: at 11 the search is K5's, at 13
 (`wgl_search.DEFAULT_CACHE_BITS`) it takes the step counts of the JAX
 package's scalar K2 search (`jepsen_tpu/ops/wgl_tpu.py`).
@@ -35,6 +44,7 @@ package's scalar K2 search (`jepsen_tpu/ops/wgl_tpu.py`).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,6 +61,9 @@ CACHE_BITS = 11              # K5's memo: 2048 rows per lane
 ROW = 128                    # K5's key row: 127 bitset words + the state
 MAX_PAD = (ROW - 1) * 32     # 4064 entries
 MAX_CACHE_BITS = 16
+SMEM_MAX = 232448            # shared bytes a block may opt into on an
+#                              H100: the plan's limit off the card
+MAX_LANES_PER_BLOCK = 8      # warps a block holds (as wgl_row.cu)
 FNV_BASIS = 2166136261       # the bitset hash before any entry
 PLAIN_CHUNK = 256            # graph replays of search_plain per check
 
@@ -130,12 +143,49 @@ def _pack(entries_list, jm, n_pad: int) -> np.ndarray:
 
 
 def _scratch_rows(n_pad: int, cache_bits: int) -> int:
-    """Words of one lane's scratch (order in wgl_row.cu): memo keys,
-    used flags, nxt, prv, stack_e, stack_s; a multiple of 4 so every
-    lane's memo starts 16-byte aligned."""
-    c = 1 << cache_bits
-    words = c * key_words(n_pad) + c + 2 * _m_pad(n_pad) + 2 * n_pad
-    return (words + 3) // 4 * 4
+    """Words of one lane's device-memory scratch: its memo key rows
+    (2^cache_bits x key_words), never zeroed. Everything else the
+    kernel keeps lives in shared memory (`_smem_plan`)."""
+    return (1 << cache_bits) * key_words(n_pad)
+
+
+class SmemPlan(NamedTuple):
+    """A launch's shared memory: `lanes` warps (one lane each) a block,
+    `lane_bytes` of tables per lane, `bytes` in all per block."""
+    lanes: int
+    lane_bytes: int
+    bytes: int
+
+
+def _smem_plan(n_pad: int, cache_bits: int, lanes: int | None = None,
+               smem_max: int = SMEM_MAX) -> SmemPlan:
+    """The shared-memory layout wgl_row.cu uses: the Zobrist table (n_pad
+    uint32) once per block, then per lane facts, v1, v2 and stack states
+    (n_pad int32 each), one fingerprint per memo slot (uint32), the list
+    nxt/prv and the node map (m_pad int16 each) and the stack entries
+    (n_pad int16). As many lanes a block as fit `smem_max` bytes, at
+    most MAX_LANES_PER_BLOCK and at most `lanes` (the launch's lane
+    count, when given); raises ValueError when one lane does not fit."""
+    lane = 4 * (4 * n_pad + (1 << cache_bits)) \
+        + 2 * (3 * _m_pad(n_pad) + n_pad)
+    per_block = min(MAX_LANES_PER_BLOCK, (smem_max - 4 * n_pad) // lane)
+    if per_block < 1:
+        raise ValueError(
+            f"wgl_row: n_pad {n_pad} at cache_bits {cache_bits} needs "
+            f"{4 * n_pad + lane} bytes of shared memory, over {smem_max}")
+    if lanes is not None:
+        per_block = min(per_block, max(1, lanes))
+    return SmemPlan(per_block, lane, 4 * n_pad + per_block * lane)
+
+
+def launch_plan(packed: torch.Tensor, n_pad: int,
+                cache_bits: int) -> SmemPlan:
+    """The plan `search` launches `packed` (on a CUDA device) with: at
+    most its lane count a block, under the device's own shared-memory
+    limit."""
+    return _smem_plan(n_pad, cache_bits, packed.shape[0],
+                      torch.cuda.get_device_properties(packed.device)
+                      .shared_memory_per_block_optin)
 
 
 def _check_inputs(packed, msteps, jm, n_pad: int, cache_bits: int) -> None:
@@ -160,7 +210,7 @@ def _check_inputs(packed, msteps, jm, n_pad: int, cache_bits: int) -> None:
 
 
 _SIG = {"wgl_row_launch": (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
     ctypes.c_int)}
 
 
@@ -190,8 +240,10 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
     verdict, steps, depth.
 
     CUDA tensors launch the kernel (built at first use) on the current
-    stream and raise if the build or the launch fails; CPU tensors run
-    `search_plain`."""
+    stream, each lane's tables in shared memory as `launch_plan` lays
+    them out and its memo key rows in device memory; this raises if the
+    plan does not fit a block or the build or the launch fails. CPU
+    tensors run `search_plain`."""
     global LAUNCHES
     _check_inputs(packed, msteps, jm, n_pad, cache_bits)
     if CAPTURE is not None:
@@ -201,16 +253,17 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     dev = packed.device
+    plan = launch_plan(packed, n_pad, cache_bits)
     with torch.cuda.device(dev):
         lib = build(dev)
         lanes = packed.shape[0]
         small = torch.empty((3, lanes), dtype=torch.int32, device=dev)
-        # ztab and scratch are freed when this returns, while the kernel
+        # ztab and keys are freed when this returns, while the kernel
         # may still run: the caching allocator hands their memory only
         # to work queued after the kernel on this same stream
         ztab = _ztab(n_pad, dev)
-        srows = _scratch_rows(n_pad, cache_bits)
-        scratch = torch.empty((lanes, srows), dtype=torch.int32, device=dev)
+        keys = torch.empty((lanes, _scratch_rows(n_pad, cache_bits)),
+                           dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev)
         if TIMED is not None:
             ev = (torch.cuda.Event(enable_timing=True),
@@ -218,10 +271,10 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
             ev[0].record(stream)
         rc = lib.wgl_row_launch(
             packed.data_ptr(), ztab.data_ptr(), msteps.data_ptr(),
-            small.data_ptr(), scratch.data_ptr(),
-            lanes, n_pad, _m_pad(n_pad), packed.shape[1], srows,
+            small.data_ptr(), keys.data_ptr(),
+            lanes, n_pad, _m_pad(n_pad), packed.shape[1],
             MODEL_IDS[jm.name], cache_bits, _nw(n_pad), int(jm.init_state),
-            stream.cuda_stream)
+            plan.lanes, plan.bytes, stream.cuda_stream)
         if rc != 0:
             raise RuntimeError(f"wgl_row kernel launch failed: cudaError {rc}")
         if TIMED is not None:

@@ -15,6 +15,19 @@ with n = n_pad. A launch is one host-to-device copy of that buffer, one
 kernel, and one device-to-host copy of the 5-row result block (verdict,
 steps, depth, best depth, stuck entry) plus the best stack.
 
+Where the kernel keeps its tables: a block is one warp holding L <= 32
+lanes, and each lane's search state lives in the block's shared memory
+— the entries' meta and values decoded from the packed buffer, the
+linked list and node map (int16), the undo stack, the bitset, the queue
+state, the memo's keys with one fingerprint per slot (a slot's key is
+compared only where its fingerprint matches) and the best stack, which
+goes to device memory once at the end. Device memory holds only the
+inputs and the outputs. `_smem_plan` lays a lane out and `launch_plan`
+picks L before the launch (L only as large as it takes to fill the
+card: lanes that share a warp and branch apart step one after another);
+a shape whose lane does not fit one block's shared memory raises —
+nothing falls back.
+
 `search` is the kernel's wrapper: on a CUDA tensor it launches the
 kernel (building it at first use) or raises; on a CPU tensor it runs
 `search_plain`, a lockstep PyTorch transcription of the same search
@@ -31,6 +44,7 @@ scratch) with the full budget; their reported steps add both passes.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,8 +64,13 @@ FIFO_MAX_RING = 64           # fifo ring rows ride every memo key
 CACHE_VMEM_BUDGET = 2 << 20  # memo bytes per 128 lanes (fifo shrink rule)
 PASS1_CAP = 512              # first-pass step budget (two-pass rule)
 NIL16 = 32767                # NIL32's image in the 16-bit value packing
-THREADS = 32                 # CUDA threads per block: one warp, so even a
-#                              few thousand lanes spread over every SM
+WARP = 32                    # threads a block: one warp, at most 32 lanes
+SMEM_MAX = 232448            # shared bytes a block may opt into on an
+#                              H100: the plan's limit off the card
+WARPS_PER_SM = 16            # a launch packs lanes into warps only past
+#                              this many warps an SM: the count within 8 %
+#                              of the fastest lanes a block at 4096 and
+#                              16,384 lanes in chip_smoke.py's sweep
 PLAIN_CHUNK = 256            # graph replays of search_plain per check
 
 MODEL_IDS = {"cas-register": 0, "register": 1, "mutex": 2,
@@ -275,12 +294,60 @@ def _layout(flats: dict, idx, n_pad: int) -> tuple[np.ndarray, int]:
     return buf, n_blocks
 
 
-def _scratch_rows(jm, n_pad: int, n_state: int, cache_slots: int) -> int:
-    """Rows of the kernel's one scratch tensor (order in wgl_vec.cu)."""
-    m_pad = _m_pad(n_pad)
-    return (3 * m_pad + n_pad + (n_pad if _is_scalar(jm) else 1)
-            + cache_slots * _key_words(jm, n_pad, n_state) + cache_slots
-            + _nw(n_pad) + n_state)
+def _lane_bytes(jm, n_pad: int, n_state: int, cache_slots: int) -> int:
+    """Shared bytes of one lane's tables, in wgl_vec.cu's layout: int32
+    meta, v1, v2 (n_pad each), stack states (n_pad for the scalar
+    models, else 1), bitset (nw), queue state (n_state), fingerprints
+    (cache_slots) and memo keys (cache_slots x key words); int16 nxt,
+    prv, node map (m_pad each), stack entries and best stack (n_pad
+    each)."""
+    stack_s = n_pad if _is_scalar(jm) else 1
+    kw = _key_words(jm, n_pad, n_state)
+    return (4 * (3 * n_pad + stack_s + _nw(n_pad) + n_state
+                 + cache_slots * (1 + kw))
+            + 2 * (3 * _m_pad(n_pad) + 2 * n_pad))
+
+
+class SmemPlan(NamedTuple):
+    """A launch's shared memory: `lanes` lanes (threads of the block's
+    one warp) a block, `lane_bytes` per lane and `bytes` in all per
+    block (the zmix table of n_pad words, then the lanes)."""
+    lanes: int
+    lane_bytes: int
+    bytes: int
+
+
+def _smem_plan(jm, n_pad: int, n_state: int, cache_slots: int,
+               most: int = WARP, smem_max: int = SMEM_MAX) -> SmemPlan:
+    """As many lanes a block as fit `smem_max` bytes beside the block's
+    zmix table, at most `most` (<= WARP). Raises ValueError when one
+    lane does not fit."""
+    lane = _lane_bytes(jm, n_pad, n_state, cache_slots)
+    lanes = min(most, WARP, (smem_max - 4 * n_pad) // lane)
+    if lanes < 1:
+        raise ValueError(
+            f"wgl_vec: one lane at n_pad {n_pad}, n_state {n_state} needs "
+            f"{4 * n_pad + lane} bytes of shared memory, over {smem_max}")
+    return SmemPlan(lanes, lane, 4 * n_pad + lanes * lane)
+
+
+def _warp_lanes(width: int, sms: int) -> int:
+    """Lanes a warp for a launch of `width` lanes on `sms` SMs: no more
+    than it takes to give each SM WARPS_PER_SM warps. Lanes that share a
+    warp and branch apart step one after another, so few lanes run one
+    a warp."""
+    return max(1, -(-width // (sms * WARPS_PER_SM)))
+
+
+def launch_plan(packed: torch.Tensor, jm, n_pad: int, n_state: int,
+                cache_slots: int, lanes: int | None = None) -> SmemPlan:
+    """The plan `search` launches `packed` (on a CUDA device) with: at
+    most `lanes` lanes a block, or, when None, `_warp_lanes` of its
+    width over the device's SMs; the device's own shared-memory limit."""
+    props = torch.cuda.get_device_properties(packed.device)
+    most = lanes or _warp_lanes(packed.shape[1], props.multi_processor_count)
+    return _smem_plan(jm, n_pad, n_state, cache_slots, most,
+                      props.shared_memory_per_block_optin)
 
 
 def _check_inputs(packed, msteps, jm, n_pad: int, n_state: int,
@@ -310,7 +377,7 @@ def _check_inputs(packed, msteps, jm, n_pad: int, n_state: int,
 
 
 _SIG = {"wgl_vec_launch": (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
     ctypes.c_int)}
 
 
@@ -328,7 +395,8 @@ def build(device=None):
 
 
 def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
-           n_state: int = 1, cache_slots: int = CACHE_SLOTS):
+           n_state: int = 1, cache_slots: int = CACHE_SLOTS,
+           lanes: int | None = None):
     """One WGL search launch over the lanes of `packed`.
 
     packed: (2*n_pad+1 or 3*n_pad+1, width) int32, the `_layout` buffer;
@@ -338,8 +406,10 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
     [0, best depth) per lane, zero above.
 
     CUDA tensors launch the kernel (built at first use) on the current
-    stream and raise if the build or the launch fails; CPU tensors run
-    `search_plain`."""
+    stream, every table of each lane's search in shared memory as
+    `launch_plan` lays them out (at most `lanes` lanes a block when
+    given); this raises if the plan does not fit a block or the build or
+    the launch fails. CPU tensors run `search_plain`."""
     global LAUNCHES
     _check_inputs(packed, msteps, jm, n_pad, n_state, cache_slots)
     if CAPTURE is not None:
@@ -349,17 +419,12 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     dev = packed.device
+    plan = launch_plan(packed, jm, n_pad, n_state, cache_slots, lanes)
     with torch.cuda.device(dev):
         lib = build(dev)
         width = packed.shape[1]
         small = torch.empty((5, width), dtype=torch.int32, device=dev)
         best = torch.empty((n_pad, width), dtype=torch.int32, device=dev)
-        # freed when this returns, while the kernel may still run: the
-        # caching allocator hands its memory only to work queued after
-        # the kernel on this same stream
-        scratch = torch.empty(
-            (_scratch_rows(jm, n_pad, n_state, cache_slots), width),
-            dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev)
         if TIMED is not None:
             ev = (torch.cuda.Event(enable_timing=True),
@@ -367,13 +432,11 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
             ev[0].record(stream)
         rc = lib.wgl_vec_launch(
             packed.data_ptr(), msteps.data_ptr(), small.data_ptr(),
-            best.data_ptr(), scratch.data_ptr(),
-            width, n_pad, _m_pad(n_pad),
+            best.data_ptr(), width, n_pad, _m_pad(n_pad),
             int(packed.shape[0] == 2 * n_pad + 1), MODEL_IDS[jm.name],
-            n_state, cache_slots, _nw(n_pad),
-            _key_words(jm, n_pad, n_state),
-            int(jm.init_state) if _is_scalar(jm) else 0, THREADS,
-            stream.cuda_stream)
+            n_state, cache_slots, _nw(n_pad), _key_words(jm, n_pad, n_state),
+            int(jm.init_state) if _is_scalar(jm) else 0,
+            plan.lanes, plan.bytes, stream.cuda_stream)
         if rc != 0:
             raise RuntimeError(f"wgl_vec kernel launch failed: cudaError {rc}")
         if TIMED is not None:

@@ -390,6 +390,65 @@ def test_duplicate_node_positions_rejected():
         wgl_row._pack([es], tjit.cas_register, 32)
 
 
+ROW_PADS = [8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4064]
+
+
+@pytest.mark.parametrize("cache_bits", [11, 13])
+@pytest.mark.parametrize("n_pad", ROW_PADS)
+def test_smem_plan_fits_every_routed_shape(n_pad, cache_bits):
+    """Every n_pad the router sends to wgl_row, at K5's memo and K2's:
+    the block's shared bytes fit the H100's opt-in limit, and they are
+    the kernel's layout — the Zobrist table once, then `lanes` lanes of
+    facts, v1, v2, stack states, fingerprints (int32) and list, node map
+    and stack entries (int16)."""
+    plan = wgl_row._smem_plan(n_pad, cache_bits)
+    m_pad = wgl_row._m_pad(n_pad)
+    assert 1 <= plan.lanes <= wgl_row.MAX_LANES_PER_BLOCK
+    assert plan.bytes <= wgl_row.SMEM_MAX == 232448
+    assert plan.lane_bytes == (4 * (4 * n_pad + (1 << cache_bits))
+                               + 2 * (3 * m_pad + n_pad))
+    assert plan.bytes == 4 * n_pad + plan.lanes * plan.lane_bytes
+    assert plan.lane_bytes % 16 == 0
+    # as many lanes as fit, up to the cap
+    assert (plan.lanes == wgl_row.MAX_LANES_PER_BLOCK
+            or plan.bytes + plan.lane_bytes > wgl_row.SMEM_MAX)
+    if n_pad == wgl_row.MAX_PAD:
+        assert plan.lanes == 1           # one lane a block at the top
+    elif n_pad <= 2048 and cache_bits == wgl_row.CACHE_BITS:
+        assert plan.lanes >= 3           # several warps share a block
+    # a launch of fewer lanes takes only what it needs
+    one = wgl_row._smem_plan(n_pad, cache_bits, lanes=1)
+    assert one.lanes == 1 and one.bytes == 4 * n_pad + one.lane_bytes
+
+
+def test_smem_plan_raises_when_a_lane_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        wgl_row._smem_plan(wgl_row.MAX_PAD, wgl_row.MAX_CACHE_BITS)
+    with pytest.raises(ValueError, match="shared memory"):
+        wgl_row._smem_plan(8, 16)   # 64k fingerprints alone: 256 KiB
+    # a device that offers less than the H100 takes fewer lanes a block
+    plan = wgl_row._smem_plan(2048, 11)
+    assert wgl_row._smem_plan(2048, 11, smem_max=plan.bytes - 1).lanes \
+        == plan.lanes - 1
+    with pytest.raises(ValueError, match="over 100000"):
+        wgl_row._smem_plan(4064, 11, smem_max=100000)
+
+
+@pytest.mark.parametrize("cache_bits", [3, 11, 13])
+@pytest.mark.parametrize("n_pad", [8, 1024, 4064])
+def test_scratch_rows_are_the_key_rows_only(n_pad, cache_bits):
+    """The device-memory scratch holds only the memo key rows: no used
+    flags, list or stacks (those live in shared memory)."""
+    slots = 1 << cache_bits
+    rows = wgl_row._scratch_rows(n_pad, cache_bits)
+    assert rows == slots * wgl_row.key_words(n_pad)
+    old = (slots * wgl_row.key_words(n_pad) + slots
+           + 2 * wgl_row._m_pad(n_pad) + 2 * n_pad)
+    assert rows < old
+    if n_pad == wgl_row.MAX_PAD and cache_bits == wgl_row.CACHE_BITS:
+        assert rows * 4 == 1 << 20      # 1 MiB a lane at the top
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -420,3 +479,23 @@ def test_cuda_kernel_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert wgl_row.LAUNCHES == launches + 1
     assert torch.equal(small, wgl_row.search_plain(packed, msteps, tm, n_pad))
+
+
+def test_cuda_kernel_matches_plain_at_n_pad_4064(cuda):
+    """On the card, at the top of the plan: n_pad 4064, one lane a
+    block (the launch's 4 lanes take 4 blocks), K5's memo and K2's."""
+    tm = tjit.cas_register
+    hists = [register_history(n_process=5, n_ops=n, corrupt=c, seed=s)
+             for s, (n, c) in enumerate([(3000, 0.0), (2600, 0.0),
+                                         (400, 0.2), (60, 0.3)])]
+    tess = [thist.entries(x) for x in hists]
+    n_pad = wgl_row.pad_size(max(len(es) for es in tess))
+    assert n_pad == wgl_row.MAX_PAD
+    packed = torch.from_numpy(wgl_row._pack(tess, tm, n_pad)).to(cuda)
+    msteps = torch.full((len(tess),), 20000, dtype=torch.int32, device=cuda)
+    for cache_bits in (wgl_row.CACHE_BITS, wgl_search.DEFAULT_CACHE_BITS):
+        assert wgl_row._smem_plan(n_pad, cache_bits, len(tess)).lanes == 1
+        small = wgl_row.search(packed, msteps, tm, n_pad, cache_bits)
+        torch.cuda.synchronize()
+        assert torch.equal(small, wgl_row.search_plain(
+            packed, msteps, tm, n_pad, cache_bits))

@@ -26,7 +26,8 @@ from jepsen_tpu_torch import history as thist
 from jepsen_tpu_torch import models as tmodels
 from jepsen_tpu_torch.models import jit as tjit
 from jepsen_tpu_torch.ops import wgl_vec
-from jepsen_tpu_torch.workloads.queue import mutex_history
+from jepsen_tpu_torch.workloads.queue import mutex_history, queue_history
+from jepsen_tpu_torch.workloads.register import register_history
 
 from helpers import random_queue_history, random_register_history
 
@@ -253,6 +254,99 @@ def test_pallas_idle_row0_write_is_a_noop():
         np.testing.assert_array_equal(p2, prv)
 
 
+def plan_states(name, n_pad):
+    """The n_state values a batch of `name` lanes at `n_pad` can have:
+    1 for the scalar models; the unordered queue's value count (8 up to
+    n_pad); the fifo ring (8 to FIFO_MAX_RING rows) + 8."""
+    if name == "unordered-queue":
+        return [8, n_pad]
+    if name == "fifo-queue":
+        return [8 + r for r in (8, 16, 32, wgl_vec.FIFO_MAX_RING)]
+    return [1]
+
+
+@pytest.mark.parametrize("n_pad", [32, 64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_smem_plan_fits_every_eligible_shape(name, n_pad):
+    """Every shape batch_eligible admits: the block's shared bytes (the
+    zmix table, then its lanes, memo keys included) fit the H100's
+    opt-in limit, and one warp holds as many lanes as fit, at most 32
+    and never fewer than 4."""
+    jm = tjit.BY_NAME[name]
+    assert wgl_vec.eligible(jm, n_pad)
+    for n_state in plan_states(name, n_pad):
+        slots = wgl_vec._cache_slots(jm, n_pad, n_state)
+        plan = wgl_vec._smem_plan(jm, n_pad, n_state, slots)
+        assert 4 <= plan.lanes <= wgl_vec.WARP == 32
+        assert plan.bytes == 4 * n_pad + plan.lanes * plan.lane_bytes
+        assert plan.bytes <= wgl_vec.SMEM_MAX == 232448
+        assert (plan.lanes == 32
+                or plan.bytes + plan.lane_bytes > wgl_vec.SMEM_MAX)
+        kw = wgl_vec._key_words(jm, n_pad, n_state)
+        assert plan.lane_bytes == wgl_vec._lane_bytes(jm, n_pad, n_state,
+                                                      slots)
+        assert plan.lane_bytes > 4 * slots * (1 + kw)  # keys, fingerprints
+        few = wgl_vec._smem_plan(jm, n_pad, n_state, slots, most=1)
+        assert (few.lanes, few.bytes) == (1, 4 * n_pad + plan.lane_bytes)
+
+
+@pytest.mark.parametrize("width,lanes", [
+    (128, 1), (512, 1), (2112, 1), (2113, 2), (4096, 2), (16384, 8),
+    (67584, 32), (1 << 20, 32)])
+def test_smem_plan_fills_the_card_before_packing_warps(width, lanes):
+    """A launch of `width` lanes on 132 SMs packs lanes into a warp only
+    past WARPS_PER_SM warps an SM, and never past what fits or a warp."""
+    jm = tjit.cas_register
+    full = wgl_vec._smem_plan(jm, 64, 1, 128)
+    plan = wgl_vec._smem_plan(jm, 64, 1, 128, wgl_vec._warp_lanes(width, 132))
+    assert plan.lanes == min(lanes, full.lanes)
+    assert plan.lane_bytes == full.lane_bytes
+    assert plan.bytes == 4 * 64 + plan.lanes * plan.lane_bytes
+    wide = wgl_vec._smem_plan(jm, 1024, 1, 128,
+                              wgl_vec._warp_lanes(1 << 20, 132))
+    assert wide.lanes == wgl_vec._smem_plan(jm, 1024, 1, 128).lanes == 4
+
+
+@pytest.mark.parametrize("name,n_pad,n_state,lanes", [
+    ("cas-register", 64, 1, 32),        # register cells: 32 lanes fit
+    ("cas-register", 1024, 1, 4),       # widest
+    ("unordered-queue", 1024, 1024, 4),
+    ("fifo-queue", 64, 72, 21),         # ring 64: the shrunk memo
+    ("fifo-queue", 1024, 72, 5),
+])
+def test_smem_plan_boundary_shapes(name, n_pad, n_state, lanes):
+    jm = tjit.BY_NAME[name]
+    slots = wgl_vec._cache_slots(jm, n_pad, n_state)
+    plan = wgl_vec._smem_plan(jm, n_pad, n_state, slots)
+    assert plan.lanes == lanes
+    # a device that offers less shared memory takes fewer lanes a block
+    small = wgl_vec._smem_plan(jm, n_pad, n_state, slots,
+                               smem_max=plan.bytes - 1)
+    assert small.lanes == lanes - 1
+
+
+def test_scratch_rows_shrink_to_the_keys():
+    """The device-memory scratch held every per-lane table (list, node
+    map, stacks, memo, bitset, queue state); now there is none: the
+    lane's shared bytes hold each of those tables (the list, node map and
+    undo stack's entries as int16), the memo keys included, beside the
+    decoded meta, v1 and v2 and the best stack."""
+    jm = tjit.cas_register
+    for n_pad in (32, 64, 1024):
+        m_pad = wgl_vec._m_pad(n_pad)
+        kw = wgl_vec._key_words(jm, n_pad, 1)
+        old = (3 * m_pad + 2 * n_pad + 128 * kw + 128 + wgl_vec._nw(n_pad)
+               + 1)
+        int32_tables = old - 3 * m_pad - 2 * n_pad   # memo, bitset, state
+        assert wgl_vec._lane_bytes(jm, n_pad, 1, 128) == (
+            4 * int32_tables + 4 * n_pad          # + the undo stack's states
+            + 2 * (3 * m_pad + n_pad)             # list, node map, entries
+            + 4 * 3 * n_pad + 2 * n_pad)          # meta, v1, v2; best
+    assert not hasattr(wgl_vec, "_scratch_rows")
+    with pytest.raises(ValueError, match="shared memory"):
+        wgl_vec._smem_plan(jm, 1 << 16, 1, 128)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -277,6 +371,49 @@ def test_cuda_kernel_matches_plain(cuda, case):
     small, best = wgl_vec.search(packed, msteps, tm, n_pad, n_state, slots)
     torch.cuda.synchronize()
     assert wgl_vec.LAUNCHES == launches + 1
+    psmall, pbest = wgl_vec.search_plain(packed, msteps, tm, n_pad,
+                                         n_state, slots)
+    assert torch.equal(small, psmall) and torch.equal(best, pbest)
+
+
+def edge_case(case):
+    """(model name, histories, cap, lanes a block) at the edges of the
+    shared-memory plan: n_pad 1024 at the four lanes a block that fit
+    (four histories, 32 times over), and n_pad 64 with a fifo ring of 64
+    rows (the shrunk memo) at the plan's lanes a block."""
+    if case == "n1024-four-lanes-a-block":
+        return "cas-register", [to_jax(register_history(
+            n_process=5, n_ops=n, corrupt=c, seed=30 + s))
+            for s, (n, c) in enumerate([(1000, 0.0), (900, 0.01),
+                                        (300, 0.1), (50, 0.3)])] * 32, \
+            20000, 4
+    return "fifo-queue", [to_jax(queue_history(
+        n_process=3, n_ops=62, fifo=True,
+        corrupt=0.1 if s % 3 == 0 else 0.0, seed=40 + s))
+        for s in range(40)], 20000, None
+
+
+@pytest.mark.parametrize("case", ["n1024-four-lanes-a-block", "n64-fifo-64"])
+def test_cuda_edge_shapes_match_plain(cuda, case):
+    """On the card, at the plan's edges: the kernel and the plain
+    version give the same result block and best stack, bit for bit."""
+    name, hists, cap, lanes = edge_case(case)
+    tm = tjit.BY_NAME[name]
+    tess = [thist.entries(to_port(h)) for h in hists]
+    n_pad = wgl_vec._pad_size(max(len(es) for es in tess))
+    n_state = wgl_vec._state_pad(tm, tess)
+    slots = wgl_vec._cache_slots(tm, n_pad, n_state)
+    buf, _ = wgl_vec._layout(wgl_vec._encode_flats(tess, tm, n_pad),
+                             None, n_pad)
+    packed, msteps = carry.packed_from_numpy(buf, cap, device=cuda)
+    plan = wgl_vec.launch_plan(packed, tm, n_pad, n_state, slots, lanes)
+    if lanes:
+        assert (n_pad, plan.lanes) == (1024, lanes)
+    else:
+        assert (n_pad, n_state) == (64, 72)
+    small, best = wgl_vec.search(packed, msteps, tm, n_pad, n_state, slots,
+                                 lanes)
+    torch.cuda.synchronize()
     psmall, pbest = wgl_vec.search_plain(packed, msteps, tm, n_pad,
                                          n_state, slots)
     assert torch.equal(small, psmall) and torch.equal(best, pbest)
