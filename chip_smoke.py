@@ -3,27 +3,35 @@
 
     python3 chip_smoke.py [--seed N]
 
-Run from the root of a checkout. It builds the port's two WGL kernels
-(jepsen_tpu_torch/ops/csrc/wgl_vec.cu and wgl_row.cu, one nvcc each,
-started together), holds each bit for bit against its plain PyTorch
-version on the card, then drives the port's main paths —
-`independent.checker(linearizable(CASRegister(), ...))` over keyed
-register histories at the sizes the reference workload checks (short
-lanes through wgl_vec, long lanes through wgl_row, and a history mixing
-both), and one long single history — and checks the verdicts. Each path
-runs with every kernel's launch count set to 0 just before it and read
-just after, and every search it launched is replayed through the kernel
-and the plain version (lanes that ran past PLAIN_STEP_LIMIT steps under
-the common LONG_CAP). Last, wgl_vec's widest main-path launches run
-again at other lanes-a-block counts beside its plan's (SWEEP_LANES), bit
-for bit equal. Every phase prints one JSON line; the last lines
-are the kernel table (per kernel and main-path cell: kernel ms,
-launches, the longest lane's steps and µs a step, each launch's shared
-bytes and lanes a block, the bound), the card's name and power limit
-(nvidia-smi), and
-{"ok": true, "device": ...}. Any failed check raises, so the exit code
-is not 0. Without CUDA, or outside a checkout, it exits 2 and prints no
-result. It imports nothing of jax or jepsen_tpu.
+Run from the root of a checkout. It builds the port's kernel sources
+(jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu and closure.cu, one
+nvcc each, started together), holds each WGL kernel bit for bit against
+its plain PyTorch version on the card, then drives the port's main
+paths — `independent.checker(linearizable(CASRegister(), ...))` over
+keyed register histories at the sizes the reference workload checks
+(short lanes through wgl_vec, long lanes through wgl_row, and a history
+mixing both), and one long single history — and checks the verdicts.
+Each path runs with every kernel's launch count set to 0 just before it
+and read just after, and every search it launched is replayed through
+the kernel and the plain version (lanes that ran past PLAIN_STEP_LIMIT
+steps under the common LONG_CAP). wgl_vec's widest main-path launches
+run again at other lanes-a-block counts beside its plan's
+(SWEEP_LANES), bit for bit equal. Then the closure kernels
+(closure_word, unpack, or_threshold_pack; the product is torch.matmul)
+against their plain versions on seeded digraphs of 7 to 10,000 nodes,
+and the cycle checker's main path, `cycle.checker().check`, on
+list-append histories of 5,000 ops (its dict equal to the host DFS
+engine's), 20,000 ops and 5,000 ops with realtime edges, every bucket
+fixpoint it ran replayed round by round through the kernels and their
+plain versions. Every phase prints one JSON line; the last lines are
+the kernel table (per kernel and main-path cell: kernel ms, launches,
+for the WGL kernels the longest lane's steps and µs a step and each
+launch's shared bytes and lanes a block, for the closure kernels each
+bucket's rounds, the bound; the product's launches and ms beside), the
+card's name and power limit (nvidia-smi), and {"ok": true, "device":
+...}. Any failed check raises, so the exit code is not 0. Without CUDA,
+or outside a checkout, it exits 2 and prints no result. It imports
+nothing of jax or jepsen_tpu.
 """
 
 from __future__ import annotations
@@ -48,6 +56,9 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # push or pop, bookkeeping) — counted from wgl_vec.cu's step body, and
 # taken for wgl_row.cu's too
 STEP_OPS = 64
+# dense bf16 tensor-core peak of one H100 SXM (data sheet): the bound of
+# the closure's product
+BF16_FLOPS_PER_S = 989e12
 
 
 def emit(obj) -> None:
@@ -109,6 +120,8 @@ SWEEP_LANES = (1, 2, 4, 8, 16, 32)
 class Kernel:
     """One kernel's row of the final table, built up by the phases."""
 
+    library = False  # a PyTorch call timed beside the kernels, no row
+
     def __init__(self, name, mod, replaces):
         self.name, self.mod, self.replaces = name, mod, replaces
         self.launches = 0  # on the main paths
@@ -121,10 +134,25 @@ class Kernel:
         self.widest = {}  # main-path cell -> its widest captured launch
         self.lanes_sweep = None
 
+    def reset(self) -> None:
+        """Launch count to 0; time and capture every launch."""
+        self.mod.LAUNCHES = 0
+        self.mod.TIMED, self.mod.CAPTURE = [], []
+
+    def collect(self) -> tuple:
+        """(launches, kernel ms, captured launches) since `reset`."""
+        return (self.mod.LAUNCHES,
+                sum(a.elapsed_time(b) for a, b in self.mod.TIMED),
+                self.mod.CAPTURE)
+
+    def release(self) -> None:
+        self.mod.TIMED = self.mod.CAPTURE = None
+
     def row(self) -> dict:
         return {
             "name": self.name, "route": "cuda",
-            "source": f"jepsen_tpu_torch/ops/csrc/{self.name}.cu",
+            "source": "jepsen_tpu_torch/ops/csrc/"
+                      f"{self.mod.__name__.rsplit('.', 1)[1]}.cu",
             "replaces": self.replaces,
             "launches": self.launches, "max_abs_err": self.max_abs_err,
             "ms": self.ms, "kernel_ms": self.ms, "plain_ms": self.plain_ms,
@@ -449,21 +477,22 @@ def run_path(kernels, fn):
     import torch
 
     for k in kernels:
-        k.mod.LAUNCHES = 0
-        k.mod.TIMED, k.mod.CAPTURE = [], []
+        k.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    seen = {}
+    seen = {k.name: k.collect() for k in kernels}
     for k in kernels:
-        seen[k.name] = (k.mod.LAUNCHES,
-                        sum(a.elapsed_time(b) for a, b in k.mod.TIMED),
-                        k.mod.CAPTURE)
-        k.mod.TIMED = k.mod.CAPTURE = None
+        k.release()
         k.launches += seen[k.name][0]
     return res, wall, seen
+
+
+def wgl(kernels) -> list:
+    """The WGL search kernels of `kernels`."""
+    return [k for k in kernels if k.name in ("wgl_vec", "wgl_row")]
 
 
 def replay(kernels, seen, cell: str) -> dict:
@@ -474,7 +503,7 @@ def replay(kernels, seen, cell: str) -> dict:
     memory plan and its bound. The first path that launches a kernel
     also sets that kernel's top-level figures."""
     out = {}
-    for k in kernels:
+    for k in wgl(kernels):
         launched, path_ms, captured = seen[k.name]
         passes = [compare(k, launch) for launch in captured]
         out[k.name] = passes
@@ -593,8 +622,8 @@ def phase_mixed(args, kernels):
                          n_process=5, bad_every=8, seed=args.seed)
     chk = independent.checker(linearizable(CASRegister()))
     res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
-    assert all(v[0] > 0 for v in seen.values()), \
-        {k: v[0] for k, v in seen.items()}
+    assert all((v[0] > 0) == (k in ("wgl_vec", "wgl_row"))
+               for k, v in seen.items()), {k: v[0] for k, v in seen.items()}
     results = res["results"]
     for k, r in results.items():
         assert r["valid"] is (k % 8 != 0), (k, r["valid"])
@@ -626,7 +655,8 @@ def phase_single(args, kernels):
     chk = linearizable(CASRegister())
     res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
     launches = {k: v[0] for k, v in seen.items()}
-    assert launches == {"wgl_vec": 0, "wgl_row": 1}, launches
+    assert launches == {k.name: int(k.name == "wgl_row") for k in kernels}, \
+        launches
     assert res["valid"] is True, res
     assert wgl_host.analysis(CASRegister(), hist).valid is True
     passes = replay(kernels, seen, "single")
@@ -687,19 +717,327 @@ def phase_lanes_per_block(kernel) -> None:
           "launches": rows, "matches_plan": True})
 
 
-def build_all(kernels) -> None:
-    """Build every kernel at once (one nvcc each, started together) and
-    print each build's seconds and ptxas registers and spills."""
-    from jepsen_tpu_torch.ops import _build
+class ClosureKernel(Kernel):
+    """One closure kernel (or, with `library`, the product): the three
+    share closure.py's hooks, LAUNCHES keyed by name."""
+
+    def __init__(self, name, mod, replaces, library=False):
+        super().__init__(name, mod, replaces)
+        self.library = library
+
+    def reset(self) -> None:
+        for name in self.mod.LAUNCHES:
+            self.mod.LAUNCHES[name] = 0
+        self.mod.TIMED, self.mod.CAPTURE = [], []
+
+    def collect(self) -> tuple:
+        return (self.mod.LAUNCHES[self.name],
+                sum(a.elapsed_time(b) for n, a, b in self.mod.TIMED
+                    if n == self.name),
+                self.mod.CAPTURE)
+
+
+# GPU clock cycles the card spins (torch.cuda._sleep) before each timed
+# closure launch, ~0.5 ms: longer than the host takes to submit the
+# launch, so the wrapper's start event runs once the launch is queued and
+# the events time the kernel, not the host's call into it
+SPIN_CYCLES = 1_000_000
+
+
+def closure_ms(cl, name: str, fn, reps: int = 3):
+    """Median ms of closure kernel `name` (its wrapper's events, each
+    launch queued behind a SPIN_CYCLES spin) over `reps` calls of fn()
+    after one warm-up, and the last call's result."""
+    import torch
+
+    fn()
+    cl.TIMED = []
+    for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
+        out = fn()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for n, a, b in cl.TIMED if n == name)
+    cl.TIMED = None
+    return times[len(times) // 2], out
+
+
+def held(kernel, name, got, want) -> None:
+    """Fold a kernel-vs-plain comparison of tensors into the kernel's
+    max_abs_err; raise unless they are equal bit for bit."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.dtype == torch.bfloat16:
+            d = (g.float() - w.float()).abs()
+        else:
+            d = (g.long() - w.long()).abs()
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            err = max(err, 1.0)
+    kernel.max_abs_err = max(kernel.max_abs_err, err)
+    kernel.compared += 1
+    if err:
+        raise AssertionError(f"{kernel.name} {name}: kernel != plain "
+                             f"(max abs err {err})")
+
+
+def replay_closure(ck, captured) -> list:
+    """Every bucket fixpoint a run captured (closure.CAPTURE), replayed
+    through the kernels and their plain versions on the card, round by
+    round on the kernels' own words: unpack and or_threshold_pack (its
+    words and its flag) against their plain versions on each round's
+    inputs, closure_word (its words and each matrix's rounds) against
+    closure_word_plain. Raises on any difference. Returns per bucket:
+    pad size, batch, rounds, and per kernel and the product the median
+    ms of its launches summed over the rounds, the plain version's ms and
+    the bound (bytes read and written once over HBM bandwidth; the
+    product's 2*b*p^3 operations over the bf16 peak; closure_word's
+    rounds x 32 x 32 x 2 int32 operations a matrix over the int32
+    rate)."""
+    import torch
+
+    cl = ck["unpack"].mod
+    out = []
+    for words0, p, rounds in captured:
+        b = words0.shape[0]
+        n_words = words0.numel()
+        bucket = {"p": p, "b": b, "round_cap": rounds}
+        if p == cl.MIN_PAD:
+            w = words0.view(-1, 32)
+            k_ms, (kw, kt) = closure_ms(
+                cl, "closure_word", lambda: cl.closure_word(w, rounds))
+            p_ms, (pw, pt) = cuda_ms(lambda: cl.closure_word_plain(w, rounds))
+            held(ck["closure_word"], f"p {p}", (kw, kt), (pw, pt))
+            t_b = (8 * n_words + 4 * b) / HBM_BYTES_PER_S
+            t_o = int(kt.sum()) * 32 * 32 * 2 / INT32_OPS_PER_S
+            b_ms, b_by = bound_ms(t_b, t_o)
+            bucket.update(rounds=int(kt.max()), closure_word={
+                "launches": 1, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by})
+            out.append(bucket)
+            continue
+        dev = words0.device
+        figs = {name: {"launches": 0, "ms": 0.0, "plain_ms": 0.0,
+                       "t_bytes": 0.0, "t_ops": 0.0}
+                for name in ("unpack", "matmul", "or_threshold_pack")}
+
+        def add(name, ms, plain, t_b, t_o=0.0):
+            f = figs[name]
+            f["launches"] += 1
+            f["ms"] += ms
+            f["plain_ms"] += plain
+            f["t_bytes"] += t_b
+            f["t_ops"] += t_o
+
+        words = words0.clone()
+        ran = rounds
+        for t in range(rounds):
+            u_ms, m = closure_ms(cl, "unpack", lambda: cl.unpack(words, p))
+            up_ms, m_p = cuda_ms(lambda: cl.unpack_plain(words, p))
+            held(ck["unpack"], f"p {p} round {t}", (m,), (m_p,))
+            add("unpack", u_ms, up_ms, (4 * n_words + 2 * m.numel())
+                / HBM_BYTES_PER_S)
+            mm_ms, prod = closure_ms(cl, "matmul", lambda: cl.matmul(m))
+            add("matmul", mm_ms, 0.0, 4 * m.numel() / HBM_BYTES_PER_S,
+                2.0 * b * p ** 3 / BF16_FLOPS_PER_S)
+
+            def otp(fn):
+                flag = torch.zeros(1, dtype=torch.int32, device=dev)
+                return fn(prod, words, flag), flag
+
+            o_ms, (new, flag) = closure_ms(
+                cl, "or_threshold_pack",
+                lambda: otp(cl.or_threshold_pack))
+            op_ms, (new_p, flag_p) = cuda_ms(
+                lambda: otp(cl.or_threshold_pack_plain))
+            held(ck["or_threshold_pack"], f"p {p} round {t}",
+                 (new, flag), (new_p, flag_p))
+            add("or_threshold_pack", o_ms, op_ms,
+                (2 * prod.numel() + 8 * n_words + 4) / HBM_BYTES_PER_S)
+            words = new
+            if not int(flag.item()):
+                ran = t + 1
+                break
+        final, ran_p = cl.closure_block_plain(words0, p)
+        held(ck["or_threshold_pack"], f"p {p} fixpoint", (words,), (final,))
+        assert ran == ran_p, (ran, ran_p)
+        bucket["rounds"] = ran
+        figs["matmul"]["plain_ms"] = None  # no plain version: it is one
+        for name, f in figs.items():
+            b_ms, b_by = bound_ms(f.pop("t_bytes"), f.pop("t_ops"))
+            bucket[name] = {**f, "bound_ms": b_ms, "bound_by": b_by}
+        out.append(bucket)
+    return out
+
+
+def closure_cell(ck, cell, seen, buckets) -> None:
+    """Fold one main-path cell's closure launches into the kernels'
+    rows: per kernel its launches and path ms in the run, and per bucket
+    the replayed figures. The first cell that launches a kernel sets its
+    top-level ms, plain ms and bound (sums over the cell's launches; the
+    bound's kind is that of its largest bucket)."""
+    for k in ck.values():
+        launched, path_ms, _ = seen[k.name]
+        rows = [dict(bk[k.name], p=bk["p"], b=bk["b"], rounds=bk["rounds"])
+                for bk in buckets if k.name in bk]
+        if not launched:
+            continue
+        k.cells[cell] = {"launches": launched, "path_kernel_ms": path_ms,
+                         "kernel_ms": sum(r["ms"] for r in rows),
+                         "bound_ms": sum(r["bound_ms"] for r in rows),
+                         "buckets": rows}
+        if k.ms is None:
+            k.ms = sum(r["ms"] for r in rows)
+            k.plain_ms = None if k.library \
+                else sum(r["plain_ms"] for r in rows)
+            k.bound_ms = sum(r["bound_ms"] for r in rows)
+            k.bound_by = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+            k.shape = (f"{cell}: " + ", ".join(
+                f"{r['launches']} x [{r['b']}, {r['p']}, {r['p']}]"
+                for r in rows))
+
+
+def digraph(n: int, seed: int, avg_deg: float = 4.0):
+    """A seeded random digraph of average out-degree `avg_deg`, no
+    self-loops (the JAX package's bench: bench.py cycle_closure)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = rng.random((n, n)) < (avg_deg / n)
+    np.fill_diagonal(a, False)
+    return a
+
+
+def phase_closure_vs_plain(args, ck) -> None:
+    """closure.reach_batch on the card against reach_batch_plain on the
+    card, bit for bit, and against the host DFS up to 1000 nodes: seeded
+    digraphs of 7 to 10,000 nodes (every pad bucket from 32 to 16,384),
+    one batch of 4096 matrices of 2-32 nodes (the one-word bucket), and
+    a complete 600-node digraph (path counts past 256, rounded in bf16).
+    Every bucket fixpoint is replayed through `replay_closure`."""
+    import numpy as np
+
+    from jepsen_tpu_torch.ops import closure_host
+
+    cl = ck["unpack"].mod
+    s = args.seed
+    rng = np.random.default_rng(s)
+    full = np.ones((600, 600), dtype=bool)
+    np.fill_diagonal(full, False)
+    cases = [(f"n{n}", [digraph(n, s * 7919 + n)])
+             for n in (7, 32, 33, 100, 1000, 2500, 10000)]
+    cases.append(("word_batch", [digraph(int(rng.integers(2, 33)),
+                                         s * 7919 + 20000 + i)
+                                 for i in range(4096)]))
+    cases.append(("complete600", [full]))
+    for name, mats in cases:
+        cl.CAPTURE = []
+        t0 = time.perf_counter()
+        got = cl.reach_batch(mats, device="cuda")
+        wall = time.perf_counter() - t0
+        captured, cl.CAPTURE = cl.CAPTURE, None
+        plain = cl.reach_batch_plain(mats, device="cuda")
+        assert all(np.array_equal(g, q) for g, q in zip(got, plain)), name
+        host = None
+        if max(m.shape[0] for m in mats) <= 1000:
+            host = all(np.array_equal(g, closure_host.reach(m))
+                       for g, m in zip(got, mats))
+            assert host, name
+        if name == "complete600":
+            assert got[0].all()
+        buckets = replay_closure(ck, captured)
+        emit({"phase": "closure_vs_plain", "case": name,
+              "n": [m.shape[0] for m in mats[:4]], "matrices": len(mats),
+              "wall_s": wall, "buckets": buckets,
+              "cyclic_nodes": int(sum(np.diagonal(g).sum() for g in got)),
+              "matches_plain": True, "matches_host": host})
+
+
+def normalise(d):
+    """A result dict as JSON carries it, ops by `to_dict`."""
+    return json.loads(json.dumps(
+        d, default=lambda o: o.to_dict() if hasattr(o, "to_dict") else str(o)))
+
+
+def phase_cycle(args, kernels, ck, name, n_ops, realtime=False,
+                host=False, components=3,
+                expect=("closure_word", "unpack", "or_threshold_pack",
+                        "matmul")):
+    """The port's cycle checker on one list-append history of `n_ops`
+    ops (`list_append.simulate`, G1c and G-single injected) on the card
+    through `cycle.checker(realtime=...).check`: the main path, with
+    every count set to 0 just before and read just after. Checks the
+    verdict (invalid, exactly G1c and G-single, `components` components)
+    and, with `host`, that the whole dict equals the host DFS engine's.
+    Every captured bucket fixpoint is replayed through `replay_closure`.
+    Prints the wall split into extract, components, closure and hits +
+    witnesses (anomalies.PHASES), kernel and product ms, launches,
+    rounds per bucket and the device's idle share."""
+    from jepsen_tpu_torch.checker import cycle
+    from jepsen_tpu_torch.checker.cycle import anomalies
+    from jepsen_tpu_torch.workloads import list_append
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as ex:
-        list(ex.map(lambda k: k.mod.build("cuda"), kernels))
-    wall = time.perf_counter() - t0
+    hist = list_append.simulate(n_ops, seed=args.seed,
+                                inject=("G1c", "G-single"))
+    gen_s = time.perf_counter() - t0
+    chk = cycle.checker(realtime=realtime)
+    anomalies.PHASES = {}
+    try:
+        res, wall, seen = run_path(kernels,
+                                   lambda: chk.check({}, hist, {}))
+        split = anomalies.PHASES
+    finally:
+        anomalies.PHASES = None
+    launches = {k: v[0] for k, v in seen.items()}
     for k in kernels:
-        log = _build.BUILD_LOG.get(k.name, "")
-        emit({"phase": "build", "kernel": k.name, "wall_s": wall,
-              "nvcc_seconds": _build.BUILD_SECONDS.get(k.name),
+        assert (launches[k.name] > 0) == (k.name in expect), (name, launches)
+    assert res["valid"] is False, res["valid"]
+    assert res["anomaly-types"] == ["G1c", "G-single"], res["anomaly-types"]
+    if components is not None:
+        assert res["component-count"] == components, res["component-count"]
+    host_s = None
+    if host:
+        t1 = time.perf_counter()
+        hr = cycle.checker(realtime=realtime, engine="host").check(
+            {}, hist, {})
+        host_s = time.perf_counter() - t1
+        assert normalise(res) == normalise(hr), "card != host DFS"
+    buckets = replay_closure(ck, seen["unpack"][2])
+    closure_cell(ck, name, seen, buckets)
+    # the run's own events also hold the host's call into each launch;
+    # the device's share is that of the replayed launches (the same
+    # launches, each timed alone)
+    path_ms = {k: v[1] for k, v in seen.items() if v[0]}
+    ms = {k: sum(bk[k]["ms"] for bk in buckets if k in bk) for k in path_ms}
+    emit({"phase": name, "ops": len(hist), "realtime": realtime,
+          "txns": res["node-count"], "components": res["component-count"],
+          "history_gen_s": gen_s, "wall_s": wall, "split_s": split,
+          "launches": launches, "kernel_ms": ms, "path_kernel_ms": path_ms,
+          "device_idle": 1 - sum(ms.values()) / 1000 / wall,
+          "buckets": buckets, "anomaly-types": res["anomaly-types"],
+          "cycle-count": res["cycle-count"], "host_equal": host or None,
+          "host_s": host_s, "matches_plain": True})
+
+
+def build_all(kernels) -> None:
+    """Build every kernel source at once (one nvcc each, started
+    together) and print each build's seconds and ptxas registers and
+    spills."""
+    from jepsen_tpu_torch.ops import _build
+
+    mods = {k.mod.__name__.rsplit(".", 1)[1]: k.mod for k in kernels}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(mods)) as ex:
+        list(ex.map(lambda m: m.build("cuda"), mods.values()))
+    wall = time.perf_counter() - t0
+    for name, mod in mods.items():
+        log = _build.BUILD_LOG.get(name, "")
+        emit({"phase": "build", "source": f"{name}.cu", "wall_s": wall,
+              "kernels": [k.name for k in kernels
+                          if k.mod is mod and not k.library],
+              "nvcc_seconds": _build.BUILD_SECONDS.get(name),
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]})
 
@@ -716,7 +1054,7 @@ def run(args) -> int:
         return 2
     sys.path.insert(0, HERE)
     from jepsen_tpu_torch.device import describe
-    from jepsen_tpu_torch.ops import wgl_row, wgl_vec
+    from jepsen_tpu_torch.ops import closure, wgl_row, wgl_vec
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -726,7 +1064,14 @@ def run(args) -> int:
 
     vec = Kernel("wgl_vec", wgl_vec, "jepsen_tpu/ops/wgl_pallas_vec.py:163")
     row = Kernel("wgl_row", wgl_row, "jepsen_tpu/ops/wgl_pallas.py:84")
-    kernels = [vec, row]
+    k3 = "jepsen_tpu/ops/closure_tpu.py"
+    ck = {"closure_word": ClosureKernel("closure_word", closure, f"{k3}:98"),
+          "unpack": ClosureKernel("unpack", closure, f"{k3}:85"),
+          "or_threshold_pack": ClosureKernel("or_threshold_pack", closure,
+                                             f"{k3}:89"),
+          "matmul": ClosureKernel("matmul", closure, f"{k3}:88",
+                                  library=True)}
+    kernels = [vec, row, *ck.values()]
     build_all(kernels)
 
     phase_kernel_vs_plain(args, vec)
@@ -748,7 +1093,24 @@ def run(args) -> int:
     phase_single(args, kernels)
     phase_lanes_per_block(vec)
 
-    emit({"kernels": [k.row() for k in kernels]})
+    phase_closure_vs_plain(args, ck)
+    # the JAX package's list-append-5k bench history (bench.py:836): 2505
+    # txns, one component of 2496 and two of 2-3 (the injections)
+    phase_cycle(args, kernels, ck, "cycle_append", 5000, host=True)
+    # 10,005 txns: the giant component in the pad-16384 bucket
+    phase_cycle(args, kernels, ck, "cycle_append_20k", 20000)
+    # strict serializability: realtime edges join every txn into one
+    # component, so the one-word bucket is not launched
+    phase_cycle(args, kernels, ck, "cycle_append_rt", 5000, realtime=True,
+                components=1,
+                expect=("unpack", "or_threshold_pack", "matmul"))
+
+    mm = ck["matmul"]
+    emit({"kernels": [k.row() for k in kernels if not k.library],
+          "matmul": {"call": "torch.matmul (bf16, the closure's product)",
+                     "launches": mm.launches, "ms": mm.ms,
+                     "bound_ms": mm.bound_ms, "bound_by": mm.bound_by,
+                     "cells": mm.cells}})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

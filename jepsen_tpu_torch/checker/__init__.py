@@ -10,6 +10,9 @@ from __future__ import annotations
 import traceback
 from typing import Any, Mapping
 
+from ..device import CudaUnavailable, KernelError
+from ..ops._build import BuildError
+
 VALID_PRIORITIES = {True: 0, "unknown": 0.5, False: 1}
 
 
@@ -31,13 +34,18 @@ class Checker:
 
 
 def check_safe(checker: Checker, test, history, opts=None) -> dict:
-    """check(), but exceptions are wrapped as unknown verdicts."""
+    """check(), but exceptions are wrapped as unknown verdicts — except
+    a kernel that failed to build or launch, or a card that is absent:
+    those re-raise, so a fault of the card never reads as "unknown"."""
     try:
         return checker.check(test, history, opts or {})
+    except (KernelError, BuildError, CudaUnavailable):
+        raise
     except Exception:  # noqa: BLE001
         return {"valid": "unknown", "error": traceback.format_exc()}
 
 
+from . import cycle  # noqa: E402
 from .linearizable import linearizable  # noqa: E402
 
-__all__ = ["Checker", "check_safe", "linearizable", "merge_valid"]
+__all__ = ["Checker", "check_safe", "cycle", "linearizable", "merge_valid"]

@@ -1,0 +1,229 @@
+"""Adya anomaly classification over a dependency graph (the port's copy
+of `jepsen_tpu/checker/cycle/anomalies.py`).
+
+Given the relation matrices from deps.extract, each anomaly is a cycle
+shape, detected by masking WHICH relations may participate (Adya's
+taxonomy, via Elle):
+
+  G0        cycle of ww edges only (write cycle)
+  G1c       cycle of ww|wr edges with at least one wr (circular
+            information flow)
+  G-single  cycle with exactly one rw edge (read skew / SI's
+            characteristic anomaly)
+  G2        cycle with two or more rw edges (anti-dependency cycle)
+
+Detection reduces to transitive closure: an edge a -r-> b lies on a
+qualifying cycle iff b reaches a through the allowed mask —
+
+  G0 hits        ww  & closure(ww).T
+  G1c hits       wr  & closure(ww|wr).T
+  G-single hits  rw  & closure(ww|wr).T      (the return path has no
+                                              rw, so the cycle has
+                                              exactly one)
+  G2 hits        rw  & closure(ww|wr|rw).T   minus G-single hits
+
+With realtime in play (strict-serializability checking), the realtime
+relation is simply OR-ed into every mask.
+
+The graph is first split into weakly-connected components (cycles
+cannot cross components), and every component x mask matrix goes to
+the closure engine in ONE batch: `ops/closure.reach_batch` on the card
+by default (engine None), the host DFS with engine "host". The engine is
+chosen before anything launches; a kernel fault raises. Witness recovery
+(a concrete shortest cycle per anomaly) is a host BFS on the flagged
+component.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from ...ops import closure, closure_host
+from .deps import DepGraph
+
+ANOMALIES = ("G0", "G1c", "G-single", "G2")
+ENGINES = (None, "host")
+
+#: when a dict, `classify` adds the host seconds of its steps to it
+#: ("components", "closure", "hits_witnesses") and CycleChecker.check
+#: those of "extract", so a caller can split a check's wall
+PHASES: dict | None = None
+
+# anomaly -> (relations allowed in the cycle, relation the hit edge
+# must carry)
+_MASKS = {
+    "G0": (("ww",), "ww"),
+    "G1c": (("ww", "wr"), "wr"),
+    "G-single": (("ww", "wr"), "rw"),
+    "G2": (("ww", "wr", "rw"), "rw"),
+}
+
+
+def components(full: np.ndarray) -> list:
+    """Weakly-connected components of the union graph, as sorted index
+    arrays in the order of their smallest node; singletons without a
+    self-loop are dropped (no cycle can involve them)."""
+    n = full.shape[0]
+    und = full | full.T
+    label = np.full(n, -1, dtype=np.int64)
+    comps: list = []
+    for s in range(n):
+        if label[s] >= 0:
+            continue
+        c = len(comps)
+        label[s] = c
+        members = [np.array([s], dtype=np.int64)]
+        stack = [s]
+        while stack:
+            nb = np.flatnonzero(und[stack.pop()])
+            new = nb[label[nb] < 0]
+            if new.size:
+                label[new] = c
+                members.append(new)
+                stack.extend(new.tolist())
+        comps.append(np.sort(np.concatenate(members)))
+    return [c for c in comps
+            if len(c) > 1 or full[c[0], c[0]]]
+
+
+def _closures(mats, engine=None, device=None, budget=None) -> list:
+    """Closure of every matrix: on the card (`closure.reach_batch`,
+    `device` None = CUDA) for engine None, by the host DFS for "host".
+    `budget` is an absolute time.monotonic() deadline, checked before
+    each pad bucket (before the whole batch on the host); past it this
+    raises closure.DeadlineExpired."""
+    if not mats:
+        return []
+    if engine == "host":
+        if budget is not None and time.monotonic() >= budget:
+            raise closure.DeadlineExpired(
+                "deadline passed before the host closure")
+        return closure_host.reach_batch(mats)
+    if engine is not None:
+        raise ValueError(f"unknown closure engine {engine!r} "
+                         f"(known: {ENGINES})")
+    return closure.reach_batch(mats, device=device, budget=budget)
+
+
+def _lap(name: str, t0: float) -> float:
+    """Add the seconds since t0 to PHASES[name] (when PHASES is a
+    dict); returns now."""
+    now = time.perf_counter()
+    if PHASES is not None:
+        PHASES[name] = PHASES.get(name, 0.0) + now - t0
+    return now
+
+
+def _witness(g: DepGraph, comp, allowed, a, b) -> dict:
+    """A concrete cycle through edge a -> b: the edge plus the
+    shortest b -> a path inside the allowed-mask subgraph of one
+    component (host BFS). Returns op indices + relation labels."""
+    sub = allowed[np.ix_(comp, comp)]
+    la = int(np.searchsorted(comp, a))
+    lb = int(np.searchsorted(comp, b))
+    path = closure_host.shortest_cycle_path(sub, lb, la)
+    if path is None:  # can't happen if the closure was sound; degrade
+        path = [lb, la]
+    nodes = [a] + [int(comp[i]) for i in path]
+    steps = []
+    for u, v in zip(nodes, nodes[1:]):
+        rels = g.rels_of(u, v)
+        steps.append({
+            "from": int(g.ops[u].index),
+            "to": int(g.ops[v].index),
+            "rel": rels[0] if rels else "?",
+        })
+    return {
+        "cycle": [int(g.ops[i].index) for i in nodes],
+        "steps": steps,
+        "ops": [g.ops[i] for i in nodes[:-1]],
+    }
+
+
+def classify(g: DepGraph, anomalies=ANOMALIES, *, realtime=False,
+             engine=None, device=None, max_witnesses=4,
+             budget=None) -> dict:
+    """Find every requested anomaly in a dependency graph.
+
+    Returns {"anomaly-types": [...], "anomalies": {type: [witness]},
+    "cycle-count": int, "node-count": int, "component-count": int}.
+    Witness lists are capped at max_witnesses per type; the hit COUNT
+    (cycle-count) is exact. `budget` (absolute time.monotonic()
+    deadline) bounds the closure step: past it this raises
+    closure.DeadlineExpired."""
+    for a in anomalies:
+        if a not in _MASKS:
+            raise ValueError(f"unknown anomaly {a!r} "
+                             f"(known: {ANOMALIES})")
+    anomalies = [a for a in ANOMALIES if a in anomalies]
+    t0 = time.perf_counter()
+    n = len(g)
+    base = ("realtime",) if realtime and "realtime" in g.adj else ()
+    # every distinct relation mask we need a closure of
+    masks = {}
+    for a in anomalies:
+        rels = tuple(_MASKS[a][0]) + base
+        masks.setdefault(rels, g.union(rels))
+    full = g.union(("ww", "wr", "rw") + base)
+    comps = components(full)
+    t0 = _lap("components", t0)
+    # one batch: |components| x |distinct masks| closures
+    keys = list(masks)
+    jobs = [(rels, c) for rels in keys for c in comps]
+    mats = [masks[rels][np.ix_(c, c)] for rels, c in jobs]
+    closed: list = [None] * len(jobs)
+    # largest first, as the JAX package submits (results realign by
+    # index; the engine buckets by pad size either way)
+    todo = sorted(range(len(jobs)), key=lambda i: -mats[i].shape[0])
+    for i, sub in zip(todo, _closures([mats[i] for i in todo],
+                                      engine=engine, device=device,
+                                      budget=budget)):
+        closed[i] = sub
+    # reassemble per-mask full-size closure (block-diagonal by
+    # construction: no path leaves a weak component)
+    closure_of = {rels: np.zeros((n, n), dtype=bool) for rels in keys}
+    for (rels, c), sub in zip(jobs, closed):
+        closure_of[rels][np.ix_(c, c)] = sub
+    t0 = _lap("closure", t0)
+    found: dict = {}
+    types: list = []
+    cycles = 0
+    claimed = np.zeros((n, n), dtype=bool)  # G-single hits, for G2 dedup
+    for a in anomalies:
+        rels, hit_rel = _MASKS[a]
+        allowed = masks[tuple(rels) + base]
+        cl = closure_of[tuple(rels) + base]
+        hits = g.adj[hit_rel] & cl.T
+        if a == "G-single":
+            claimed |= hits
+        elif a == "G2":
+            # when G-single also ran, its hits are the exactly-one-rw
+            # cycles; without it, G2 keeps Adya's broad sense (>= 1 rw)
+            hits = hits & ~claimed
+        k = int(hits.sum())
+        if not k:
+            continue
+        cycles += k
+        types.append(a)
+        ws = []
+        ii, jj = np.nonzero(hits)
+        for x, y in list(zip(ii, jj))[:max_witnesses]:
+            x, y = int(x), int(y)
+            comp = next(c for c in comps if x in c)
+            # the return path b -> a stays inside the allowed mask (the
+            # closure proved it exists there); the hit edge itself is
+            # prepended from the real adjacency
+            w = _witness(g, comp, allowed, x, y)
+            w["type"] = a
+            ws.append(w)
+        found[a] = ws
+    _lap("hits_witnesses", t0)
+    return {
+        "anomaly-types": types,
+        "anomalies": found,
+        "cycle-count": cycles,
+        "node-count": n,
+        "component-count": len(comps),
+    }

@@ -14,6 +14,11 @@ class CudaUnavailable(RuntimeError):
     """The default device (CUDA) was asked for on a host without it."""
 
 
+class KernelError(RuntimeError):
+    """A kernel launch on the card failed (the wrapper's launcher
+    returned a CUDA error)."""
+
+
 def resolve(device=None) -> torch.device:
     """`device` (None = "cuda") as a torch.device; raises
     CudaUnavailable for a CUDA device when CUDA is not present."""

@@ -74,7 +74,9 @@ class IndependentChecker(Checker):
     per-key subhistories in ONE call, so its kernel sees the whole key
     space in one launch. Unlike the JAX package, an exception from that
     call propagates: re-running per key under check_safe would turn a
-    kernel fault into "unknown" verdicts."""
+    kernel fault into "unknown" verdicts. Other sub-checkers (the cycle
+    checker), and a history of one key, go key by key under check_safe,
+    which re-raises kernel, build and missing-CUDA faults."""
 
     def __init__(self, checker: Checker):
         self.checker = checker
@@ -103,15 +105,23 @@ class IndependentChecker(Checker):
 
 
 def combine_results(results: dict) -> dict:
-    """Fold per-key result dicts into one verdict: merged validity and
-    the failing keys. Only definite falsifications are failures;
-    "unknown" keys are excluded, as in the reference."""
+    """Fold per-key result dicts into one verdict: merged validity, the
+    failing keys and, for cycle-checker results, the union of the keys'
+    anomaly types. Only definite falsifications are failures; "unknown"
+    keys are excluded, as in the reference."""
     failures = [k for k, r in results.items() if r["valid"] is False]
-    return {
+    out = {
         "valid": merge_valid(r["valid"] for r in results.values()),
         "results": results,
         "failures": failures,
     }
+    anomaly_types = sorted({
+        t for r in results.values() if isinstance(r, dict)
+        for t in r.get("anomaly-types") or ()
+    })
+    if anomaly_types:
+        out["anomaly-types"] = anomaly_types
+    return out
 
 
 def checker(c: Checker) -> IndependentChecker:

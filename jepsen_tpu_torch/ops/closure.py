@@ -1,0 +1,444 @@
+"""Transitive closure by boolean repeated squaring on the card: the
+port's counterpart of K3, the JAX package's XLA closure engine
+(`jepsen_tpu/ops/closure_tpu.py`, single-device path).
+
+Reachability over a dependency adjacency matrix is the fixpoint of
+R <- R | (R.R > 0). As in the JAX package the loop state is a *packed*
+bit matrix (`_pack`: bit b of word w of a row is column 32*w + b, words
+stored as int32), matrices are padded to a power of two (at least
+MIN_PAD = 32) with all-zero rows and columns, which create and destroy
+no path, and `reach_batch` stacks the matrices of one pad size into one
+batched fixpoint of at most `max(1, p.bit_length())` rounds
+(ceil(log2 p) squarings reach every path; one more observes the
+fixpoint), leaving early once a round changes nothing.
+
+The kernels (csrc/closure.cu), each behind a wrapper that launches it
+for a CUDA tensor or raises, and runs its plain PyTorch version (same
+name + `_plain`, same bit order, same rounds) for a CPU tensor:
+
+    closure_word        the one-word bucket (p == 32): the whole fixpoint
+                        in one launch, a warp per matrix
+    unpack              packed words -> 0/1 bf16 [b, p, p]
+    or_threshold_pack   words | pack(prod > 0), and a device flag raised
+                        when a word changed
+
+Between the last two the product is `torch.matmul` of the bf16 operand
+with itself (the JAX package leaves it to XLA's matmul too): it sums in
+fp32 and rounds the output to bf16, and a sum of 0/1 products is zero
+only when every term is, while rounding a count >= 1 to bf16 never
+makes it 0, so `> 0` on the rounded product is the boolean product
+exactly. The fixpoint reads the flag once a round (at most
+`p.bit_length()` host syncs a bucket), resetting it on the device first.
+Every launch, the product included, goes on
+`torch.cuda.current_stream(dev)`: a kernel on another stream would race
+the product.
+
+Closures are irreflexive-path closures, as in the host engine:
+out[i, j] iff a path i -> ... -> j of >= 1 edge exists, so the diagonal
+marks nodes on cycles. The block-row split over several cards
+(`closure_tpu.reach_batch_mesh`) is not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import time
+
+import numpy as np
+import torch
+
+from ..device import KernelError, resolve
+from . import MIN_PAD, pad_size
+
+#: launches on CUDA tensors so far: of each kernel, and of the product
+LAUNCHES = {"closure_word": 0, "unpack": 0, "or_threshold_pack": 0,
+            "matmul": 0}
+#: when a list, every launch on the card appends (name, start, end), its
+#: CUDA events
+TIMED: list | None = None
+#: when a list, every bucket's fixpoint appends (words0, p, rounds): its
+#: packed input (a copy), pad size and round cap, so a caller can replay
+#: exactly the closures a check ran
+CAPTURE: list | None = None
+
+# elements a plain version converts at once (bounds its int64 scratch)
+_PLAIN_CHUNK = 1 << 24
+
+
+class DeadlineExpired(RuntimeError):
+    """The caller's deadline passed before every bucket was closed."""
+
+
+def rounds_for(p: int) -> int:
+    """The round cap of a pad bucket (closure_tpu._closure_block)."""
+    return max(1, p.bit_length())
+
+
+# ---------------------------------------------------------------------------
+# Host packing: bool matrices <-> the packed layout
+
+def _pack(mats, p: int) -> np.ndarray:
+    """[b, p, p//32] int32 words of the bool matrices `mats` (each at most
+    p x p), padded with zeros: np.packbits' little bit order puts column
+    8*j + k at bit k of byte j, and four bytes read as a little-endian
+    word give bit 8*q + k of word w for column 32*w + 8*q + k."""
+    out = np.zeros((len(mats), p, p // 8), dtype=np.uint8)
+    for j, a in enumerate(mats):
+        n = a.shape[0]
+        if n:
+            bits = np.packbits(a, axis=1, bitorder="little")
+            out[j, :n, :bits.shape[1]] = bits
+    return out.view("<i4")
+
+
+def _unpack(words: np.ndarray, n: int) -> np.ndarray:
+    """The top-left n x n bool matrix of one packed [p, p//32] matrix."""
+    by = np.ascontiguousarray(words[:n]).view(np.uint8)
+    return np.unpackbits(by, axis=1, count=n, bitorder="little").astype(bool)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+
+def _rows(t: torch.Tensor, width: int):
+    """(start, end) row ranges of `t` holding at most _PLAIN_CHUNK
+    elements of `width` each."""
+    step = max(1, _PLAIN_CHUNK // width)
+    for s in range(0, t.shape[0], step):
+        yield s, min(t.shape[0], s + step)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """[..., c] bool -> [..., c//32] int32 words (bit k of word w is
+    column 32*w + k; bit 31 lands in the sign, as the kernel's uint32
+    read as int32)."""
+    *lead, c = bits.shape
+    flat = bits.reshape(-1, c // 32, 32)
+    out = torch.empty(flat.shape[:2], dtype=torch.int32, device=bits.device)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    for s, e in _rows(flat, c):
+        w = (flat[s:e].to(torch.int64) << shifts).sum(-1)
+        out[s:e] = ((w ^ 2**31) - 2**31).to(torch.int32)
+    return out.reshape(*lead, c // 32)
+
+
+def closure_word_plain(words: torch.Tensor, rounds: int):
+    """The one-word bucket's fixpoint: `words` [b, 32] int32, row i one
+    word; a round ORs into row i every row k whose bit is set in row i.
+    Returns (words [b, 32], rounds each matrix ran [b] int32), a matrix
+    stopping after the first round that changes it no more."""
+    _check_word(words)
+    w = words.clone()
+    b = w.shape[0]
+    taken = torch.zeros(b, dtype=torch.int32, device=w.device)
+    active = torch.ones(b, dtype=torch.bool, device=w.device)
+    shifts = torch.arange(32, dtype=torch.int32, device=w.device)
+    for _ in range(rounds):
+        sel = ((w[:, :, None] >> shifts) & 1).bool()  # [b, row i, bit k]
+        prod = torch.zeros_like(w)
+        for k in range(32):
+            prod |= torch.where(sel[:, :, k], w[:, k:k + 1], 0)
+        nxt = w | prod
+        taken += active.to(torch.int32)
+        # a matrix that stopped is a fixpoint: nxt equals w there
+        active &= (nxt != w).any(1)
+        w = nxt
+        if not bool(active.any()):
+            break
+    return w, taken
+
+
+def unpack_plain(words: torch.Tensor, p: int,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """[b, p, p//32] int32 words -> [b, p, p] bf16 0/1."""
+    _check_words(words, p)
+    b = words.shape[0]
+    out = _out(out, (b, p, p), torch.bfloat16, words.device)
+    w = words.reshape(-1, p // 32)
+    o = out.view(-1, p)
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    for s, e in _rows(w, p):
+        o[s:e] = ((w[s:e, :, None] >> shifts) & 1).reshape(e - s, p) \
+            .to(torch.bfloat16)
+    return out
+
+
+def or_threshold_pack_plain(prod: torch.Tensor, words: torch.Tensor,
+                            flag: torch.Tensor,
+                            out: torch.Tensor | None = None) -> torch.Tensor:
+    """words | pack(prod > 0), into `out` (which may be `words`); sets
+    `flag` ([1] int32) to 1 when a word changed, else leaves it."""
+    p = prod.shape[-1]
+    _check_otp(prod, words, flag, p)
+    new = words | pack_bits(prod > 0)
+    changed = (new != words).any().to(torch.int32).reshape(1)
+    flag.copy_(torch.maximum(flag, changed))
+    out = _out(out, words.shape, torch.int32, words.device)
+    out.copy_(new)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+
+_SIG = {
+    "closure_word_launch": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "closure_unpack_launch": (
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int),
+    "closure_or_threshold_pack_launch": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int),
+}
+
+
+def build(device=None):
+    """The kernels' library for `device` (None = the current CUDA
+    device), built from csrc/closure.cu at first use; raises
+    _build.BuildError with nvcc's stderr when the build fails."""
+    from . import _build
+
+    dev = resolve(device)
+    if dev.type != "cuda":
+        raise ValueError("the closure kernels build for a CUDA device")
+    return _build.load("closure", torch.cuda.get_device_capability(dev),
+                       _SIG)
+
+
+def _out(out, shape, dtype, device) -> torch.Tensor:
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
+            or out.device != device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {dtype} {tuple(shape)} "
+                         f"tensor on {device}")
+    return out
+
+
+def _check_word(words) -> None:
+    if words.dtype != torch.int32 or words.dim() != 2 \
+            or words.shape[1] != 32 or not words.is_contiguous():
+        raise ValueError("closure_word takes contiguous [b, 32] int32 words")
+
+
+def _check_words(words, p: int) -> None:
+    if p < MIN_PAD or p & (p - 1):
+        raise ValueError(f"pad size {p} is not a power of two >= {MIN_PAD}")
+    if words.dtype != torch.int32 or words.dim() != 3 \
+            or tuple(words.shape[1:]) != (p, p // 32) \
+            or not words.is_contiguous():
+        raise ValueError(f"words must be contiguous [b, {p}, {p // 32}] "
+                         f"int32, got {words.dtype} {tuple(words.shape)}")
+
+
+def _check_otp(prod, words, flag, p: int) -> None:
+    _check_words(words, p)
+    if prod.dtype != torch.bfloat16 \
+            or tuple(prod.shape) != (words.shape[0], p, p) \
+            or not prod.is_contiguous():
+        raise ValueError("prod must be a contiguous bf16 [b, p, p] tensor")
+    if flag.dtype != torch.int32 or tuple(flag.shape) != (1,):
+        raise ValueError("flag must be one int32")
+    if not prod.device == words.device == flag.device:
+        raise ValueError("prod, words and flag on different devices")
+
+
+@contextlib.contextmanager
+def _launch(name: str, dev):
+    """Around one launch on the card: the current stream's handle, CUDA
+    events into TIMED when it is a list, and the launch count."""
+    stream = torch.cuda.current_stream(dev)
+    if TIMED is not None:
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record(stream)
+    yield stream.cuda_stream
+    if TIMED is not None:
+        ev[1].record(stream)
+        TIMED.append((name, *ev))
+    LAUNCHES[name] += 1
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise KernelError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def closure_word(words: torch.Tensor, rounds: int):
+    """The one-word bucket's fixpoint (see closure_word_plain) in one
+    launch on a CUDA tensor; the plain version on a CPU tensor."""
+    _check_word(words)
+    if not _cuda(words):
+        return closure_word_plain(words, rounds)
+    dev = words.device
+    with torch.cuda.device(dev):
+        lib = build(dev)
+        out = torch.empty_like(words)
+        taken = torch.empty(words.shape[0], dtype=torch.int32, device=dev)
+        with _launch("closure_word", dev) as stream:
+            _raise_on(lib.closure_word_launch(
+                words.data_ptr(), out.data_ptr(), taken.data_ptr(),
+                words.shape[0], rounds, stream), "closure_word")
+    return out, taken
+
+
+def unpack(words: torch.Tensor, p: int,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """Packed [b, p, p//32] int32 words -> 0/1 bf16 [b, p, p] (into
+    `out` when given): the kernel on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    _check_words(words, p)
+    if not _cuda(words):
+        return unpack_plain(words, p, out)
+    dev = words.device
+    out = _out(out, (words.shape[0], p, p), torch.bfloat16, dev)
+    with torch.cuda.device(dev):
+        lib = build(dev)
+        with _launch("unpack", dev) as stream:
+            _raise_on(lib.closure_unpack_launch(
+                words.data_ptr(), out.data_ptr(), words.numel(), stream),
+                "unpack")
+    return out
+
+
+def or_threshold_pack(prod: torch.Tensor, words: torch.Tensor,
+                      flag: torch.Tensor,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """words | pack(prod > 0) into `out` (None: a new tensor; it may be
+    `words` itself), raising `flag` when a word changed: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    p = prod.shape[-1]
+    _check_otp(prod, words, flag, p)
+    if not _cuda(words):
+        return or_threshold_pack_plain(prod, words, flag, out)
+    dev = words.device
+    out = _out(out, words.shape, torch.int32, dev)
+    with torch.cuda.device(dev):
+        lib = build(dev)
+        with _launch("or_threshold_pack", dev) as stream:
+            _raise_on(lib.closure_or_threshold_pack_launch(
+                prod.data_ptr(), words.data_ptr(), out.data_ptr(),
+                flag.data_ptr(), words.numel(), stream), "or_threshold_pack")
+    return out
+
+
+def matmul(m: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The round's product m.m of the bf16 0/1 operand (torch.matmul,
+    counted and timed on the card like the kernels)."""
+    if not _cuda(m):
+        return torch.matmul(m, m, out=out)
+    with _launch("matmul", m.device):
+        return torch.matmul(m, m, out=out)
+
+
+# ---------------------------------------------------------------------------
+# The fixpoint
+
+def _squaring(words: torch.Tensor, p: int, rounds: int, unpack_fn,
+              otp_fn) -> int:
+    """R <- R | (R.R > 0) on `words` in place, at most `rounds` rounds,
+    stopping after the first round that changes no word. Returns the
+    rounds run."""
+    flag = torch.zeros(1, dtype=torch.int32, device=words.device)
+    m = prod = None
+    for t in range(rounds):
+        m = unpack_fn(words, p, out=m)
+        prod = matmul(m, out=prod)
+        flag.zero_()
+        otp_fn(prod, words, flag, out=words)
+        if not int(flag.item()):
+            return t + 1
+    return rounds
+
+
+def closure_block(words0: torch.Tensor, p: int) -> torch.Tensor:
+    """The closure of one pad bucket, [b, p, p//32] int32 packed (the
+    kernels on a CUDA tensor, their plain versions on a CPU one).
+    Returns the closed words; `words0` is left as it was."""
+    _check_words(words0, p)
+    rounds = rounds_for(p)
+    if CAPTURE is not None:
+        CAPTURE.append((words0.clone(), p, rounds))
+    if p == MIN_PAD:
+        out, _ = closure_word(words0.view(-1, 32), rounds)
+        return out.view(words0.shape)
+    words = words0.clone()
+    _squaring(words, p, rounds, unpack, or_threshold_pack)
+    return words
+
+
+def closure_block_plain(words0: torch.Tensor, p: int):
+    """closure_block through the plain versions on any device. Returns
+    (closed words, rounds run: a [b] tensor in the one-word bucket, an
+    int otherwise)."""
+    _check_words(words0, p)
+    rounds = rounds_for(p)
+    if p == MIN_PAD:
+        out, taken = closure_word_plain(words0.view(-1, 32), rounds)
+        return out.view(words0.shape), taken
+    words = words0.clone()
+    ran = _squaring(words, p, rounds, unpack_plain, or_threshold_pack_plain)
+    return words, ran
+
+
+def _reach(adjs, dev, block, budget) -> list:
+    adjs = [np.asarray(a, dtype=bool) for a in adjs]
+    for a in adjs:
+        if a.ndim != 2 or a.shape[0] != a.shape[1]:
+            raise ValueError(f"adjacency must be square, got {a.shape}")
+    out: list = [None] * len(adjs)
+    buckets: dict = {}
+    for i, a in enumerate(adjs):
+        if a.shape[0] == 0:
+            out[i] = np.zeros((0, 0), dtype=bool)
+            continue
+        buckets.setdefault(pad_size(a.shape[0]), []).append(i)
+    for p, idxs in sorted(buckets.items()):
+        if budget is not None and time.monotonic() >= budget:
+            raise DeadlineExpired(
+                f"deadline passed before the pad-{p} bucket's closure")
+        words0 = torch.from_numpy(_pack([adjs[i] for i in idxs], p)).to(dev)
+        closed = block(words0, p).cpu().numpy()
+        for j, i in enumerate(idxs):
+            out[i] = _unpack(closed[j], adjs[i].shape[0])
+    return out
+
+
+def reach_batch(adjs, device=None, budget: float | None = None) -> list:
+    """Closure of each bool adjacency matrix in `adjs`, aligned with the
+    input. Matrices are bucketed by pad size, each bucket one batched
+    fixpoint through the kernels (device None = CUDA, raising when it is
+    absent; "cpu" runs the plain versions). `budget` is an absolute
+    time.monotonic() deadline, checked before each bucket: past it this
+    raises DeadlineExpired."""
+    return _reach(adjs, resolve(device), closure_block, budget)
+
+
+def reach_batch_plain(adjs, device="cpu") -> list:
+    """reach_batch through the plain versions on `device`."""
+    return _reach(adjs, resolve(device),
+                  lambda w, p: closure_block_plain(w, p)[0], None)
+
+
+def reach(adj: np.ndarray, device=None) -> np.ndarray:
+    """Irreflexive-path closure of one bool adjacency matrix."""
+    return reach_batch([adj], device=device)[0]
+
+
+def probe(device=None) -> bool:
+    """A 2-cycle inside one pad bucket, closed on `device`."""
+    a = np.zeros((3, 3), dtype=bool)
+    a[0, 1] = a[1, 0] = True
+    r = reach(a, device=device)
+    return bool(r[0, 0] and r[0, 1] and not r[2, 2])

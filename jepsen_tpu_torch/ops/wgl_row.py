@@ -49,7 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import KernelError, resolve
 from ..history import Entries, entries as make_entries
 from ..models import jit as mjit
 from .wgl_host import WGLResult, recover_invalid
@@ -276,7 +276,7 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
             MODEL_IDS[jm.name], cache_bits, _nw(n_pad), int(jm.init_state),
             plan.lanes, plan.bytes, stream.cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"wgl_row kernel launch failed: cudaError {rc}")
+            raise KernelError(f"wgl_row kernel launch failed: cudaError {rc}")
         if TIMED is not None:
             ev[1].record(stream)
             TIMED.append(ev)

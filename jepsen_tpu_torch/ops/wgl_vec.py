@@ -49,7 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import KernelError, resolve
 from ..history import Entries, entries as make_entries
 from ..models import jit as mjit
 from . import pad_size as _pad_size
@@ -438,7 +438,7 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
             int(jm.init_state) if _is_scalar(jm) else 0,
             plan.lanes, plan.bytes, stream.cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"wgl_vec kernel launch failed: cudaError {rc}")
+            raise KernelError(f"wgl_vec kernel launch failed: cudaError {rc}")
         if TIMED is not None:
             ev[1].record(stream)
             TIMED.append(ev)

@@ -1,1 +1,2 @@
-"""Seeded workload generators of the port (register histories)."""
+"""Seeded workload generators of the port (register, queue and
+list-append histories)."""

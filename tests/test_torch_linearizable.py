@@ -309,7 +309,8 @@ def test_default_device_is_cuda():
 
 
 def test_port_imports_no_jax():
-    """A CPU check through jepsen_tpu_torch loads neither jax nor any
+    """CPU checks through jepsen_tpu_torch (linearizable and cycle) load
+    neither jax nor any
     module of the JAX package (jepsen_tpu_torch's own name shares the
     jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -328,6 +329,11 @@ def test_port_imports_no_jax():
         r = linearizable(CASRegister(), device="cpu").check(
             {}, register_history(n_process=3, n_ops=1300, seed=1), {})
         assert r["valid"] is True and len(wgl_row.CAPTURE) == 1, r
+        from jepsen_tpu_torch.checker import cycle
+        from jepsen_tpu_torch.workloads import list_append
+        r = cycle.checker(device="cpu").check(
+            {}, list_append.simulate(400, seed=0), {})
+        assert r["anomaly-types"] == ["G1c", "G-single"], r
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
