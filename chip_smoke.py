@@ -4,13 +4,17 @@
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. It builds the port's kernel sources
-(jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu and closure.cu, one
-nvcc each, started together), holds each WGL kernel bit for bit against
-its plain PyTorch version on the card, then drives the port's main
-paths — `independent.checker(linearizable(CASRegister(), ...))` over
-keyed register histories at the sizes the reference workload checks
-(short lanes through wgl_vec, long lanes through wgl_row, and a history
-mixing both), and one long single history — and checks the verdicts.
+(jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu and
+closure.cu, one nvcc each, started together), holds each WGL kernel bit
+for bit against its plain PyTorch version on the card, then drives the
+port's main paths — `independent.checker(linearizable(CASRegister(),
+...))` over keyed register histories at the sizes the reference workload
+checks (short lanes through wgl_vec, long lanes through wgl_row, and a
+history mixing both), and one long single history; through wgl_search
+the 50k-op stress history (and it with a planted impossible read), a
+10k-op single history and 16 long fifo-queue keys; and one 10k-op
+unordered-queue history split P-compositionally into micro-lanes on
+wgl_vec — and checks the verdicts (against the host search's).
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and every search it launched is replayed through
 the kernel and the plain version (lanes that ran past PLAIN_STEP_LIMIT
@@ -133,6 +137,7 @@ class Kernel:
         self.cells = {}  # main-path cell -> its launches' figures
         self.widest = {}  # main-path cell -> its widest captured launch
         self.lanes_sweep = None
+        self.extra = {}  # kernel-specific fields of its row
 
     def reset(self) -> None:
         """Launch count to 0; time and capture every launch."""
@@ -160,7 +165,7 @@ class Kernel:
             "library_ms": None, "shape": self.shape,
             "matches_plain": self.max_abs_err == 0,
             "compared_launches": self.compared, "cells": self.cells,
-            "lanes_sweep": self.lanes_sweep}
+            "lanes_sweep": self.lanes_sweep, **self.extra}
 
 
 def bound(packed, n_pad, small, key_words) -> tuple:
@@ -185,6 +190,8 @@ def compare(kernel, launch) -> dict:
     its plain version (`compare_vec` or `compare_row`)."""
     if kernel.name == "wgl_row":
         return compare_row(kernel.mod, launch, kernel)
+    if kernel.name == "wgl_search":
+        return compare_search(kernel.mod, launch, kernel)
     return compare_vec(kernel.mod, launch, kernel)
 
 
@@ -334,6 +341,100 @@ def compare_row(wr, launch, kernel) -> dict:
                     wr.search_plain(sub, sub_steps, jm, n_pad, cache_bits))
         torch.cuda.synchronize()
         out.update(long_lanes=len(lcols), long_cap=LONG_CAP,
+                   long_s=time.perf_counter() - t0)
+    return out
+
+
+# bytes one wgl_search step must move at the least, from the kernel's own
+# reads and writes: the node's map words (2), the entry's six columns, its
+# Zobrist word, the 8 probe fingerprints, the four list words read and
+# the four written, in int32 words
+SEARCH_STEP_BYTES = 4 * (2 + 6 + 1 + 8 + 4 + 4)
+# steps x state words the plain version's FNV fold may take in one
+# comparison of a wgl_search launch (its graph holds 3 nodes a state word
+# a step): a fifo launch with n_state 1024 is compared in full up to
+# 12,500 steps a lane, and lanes past that under that many steps
+SEARCH_FOLD_WORK = 12_800_000
+
+
+def search_plain_limit(jm, n_state: int) -> int:
+    """Steps past which a wgl_search lane is compared under a cap: the
+    common PLAIN_STEP_LIMIT, lower where the plain version folds a wide
+    state word by word each step."""
+    if not jm.state_in_key or n_state <= 1:
+        return PLAIN_STEP_LIMIT
+    return min(PLAIN_STEP_LIMIT, SEARCH_FOLD_WORK // n_state)
+
+
+def bound_search(ws, packed, launch, small) -> tuple:
+    """(seconds for the bytes, seconds for the operations) of one
+    wgl_search launch: the packed lanes, the Zobrist table and the step
+    budgets read once and the (3, lanes) result written once; SEARCH_STEP
+    _BYTES a step this run took; and every key the run must have
+    inserted — at least one per level of each lane's final depth — written
+    once (key words each). Operations: this run's steps times (one key's
+    words + STEP_OPS) int32 operations, over the int32 rate."""
+    _, _, jm, n_pad, n_state, _ = launch
+    lanes = packed.shape[0]
+    kw = ws.key_words(jm, n_pad, n_state)
+    steps = int(small[1].sum())
+    nbytes = (4 * (packed.numel() + n_pad + lanes + 3 * lanes)
+              + SEARCH_STEP_BYTES * steps + 4 * kw * int(small[2].sum()))
+    ops = steps * (kw + STEP_OPS)
+    return nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+
+
+def compare_search(ws, launch, kernel) -> dict:
+    """Replay one captured wgl_search `search` (wgl_search.CAPTURE): the
+    kernel, timed, and the plain version on the same inputs on the card.
+    Verdict, steps and depth must be bit-identical on every compared
+    lane, or this raises. Lanes whose kernel search took more steps than
+    `search_plain_limit` are left out of the full plain run and run again
+    through both under that many steps."""
+    import torch
+
+    packed, msteps, jm, n_pad, n_state, cache_bits = launch
+    k_ms, small_k = kernel_ms(ws, lambda: ws.search(*launch))
+    lanes = packed.shape[0]
+    limit = search_plain_limit(jm, n_state)
+    long = small_k[1] > limit
+    cols = (~long).nonzero()[:, 0]
+    n_cmp = len(cols)
+    small = small_k
+    if n_cmp == lanes:
+        sub, sub_steps = packed, msteps
+    else:
+        sub = packed[cols].contiguous()
+        sub_steps = msteps[cols].contiguous()
+        small = small_k[:, cols]
+    p_ms = None
+    if n_cmp:
+        p_ms, small_p = cuda_ms(lambda: ws.search_plain(
+            sub, sub_steps, jm, n_pad, n_state, cache_bits))
+        check_equal(kernel, jm.name, small, small_p)
+    t_b, t_o = bound_search(ws, packed, launch, small_k)
+    b_ms, b_by = bound_ms(t_b, t_o)
+    lay = ws._layout(jm, n_pad, n_state, cache_bits)
+    out = {"model": jm.name, "lanes": lanes, "n_pad": n_pad,
+           "n_state": n_state, "cache_bits": cache_bits,
+           "cap": int(msteps.max()), "kernel_ms": k_ms, "plain_ms": p_ms,
+           "plain_lanes": n_cmp, "bound_ms": b_ms, "bound_by": b_by,
+           "t_bytes": t_b, "t_ops": t_o, "steps": int(small_k[1].sum()),
+           "max_lane_steps": int(small_k[1].max()),
+           "scratch_bytes": 4 * lay.words * lanes,
+           "smem_bytes": 0, "lanes_per_block": 1,
+           "verdicts": small_k[0].tolist() if lanes <= 16 else None}
+    if bool(long.any()):
+        lcols = long.nonzero()[:, 0]
+        t0 = time.perf_counter()
+        sub = packed[lcols].contiguous()
+        sub_steps = torch.full_like(msteps[lcols], limit)
+        check_equal(kernel, f"{jm.name} capped",
+                    ws.search(sub, sub_steps, jm, n_pad, n_state, cache_bits),
+                    ws.search_plain(sub, sub_steps, jm, n_pad, n_state,
+                                    cache_bits))
+        torch.cuda.synchronize()
+        out.update(long_lanes=len(lcols), long_cap=limit,
                    long_s=time.perf_counter() - t0)
     return out
 
@@ -492,7 +593,8 @@ def run_path(kernels, fn):
 
 def wgl(kernels) -> list:
     """The WGL search kernels of `kernels`."""
-    return [k for k in kernels if k.name in ("wgl_vec", "wgl_row")]
+    return [k for k in kernels
+            if k.name in ("wgl_vec", "wgl_row", "wgl_search")]
 
 
 def replay(kernels, seen, cell: str) -> dict:
@@ -526,6 +628,7 @@ def replay(kernels, seen, cell: str) -> dict:
                 / max(1, p["max_lane_steps"]),
                 "smem_bytes": p["smem_bytes"],
                 "lanes_per_block": p["lanes_per_block"],
+                "scratch_bytes": p.get("scratch_bytes"),
                 "bound_ms": p["bound_ms"]} for p in passes]}
         k.widest[cell] = max(captured, key=lambda c: c[0].shape[-1])
         if k.shape is None:
@@ -533,7 +636,7 @@ def replay(kernels, seen, cell: str) -> dict:
             k.shape = (f"{lanes} lanes in {len(passes)} launches, n_pad "
                        f"{captured[0][3]}: every search of the {cell} cell")
             k.ms = sum(p["kernel_ms"] for p in passes)
-            k.plain_ms = sum(p["plain_ms"] for p in passes)
+            k.plain_ms = sum(p["plain_ms"] or 0.0 for p in passes)
             k.bound_ms, k.bound_by = b_ms, b_by
     return out
 
@@ -664,6 +767,262 @@ def phase_single(args, kernels):
           "launches": launches, "kernel_ms": seen["wgl_row"][1],
           "steps": res["steps"], "valid": res["valid"],
           "kernel_vs_plain": passes, "matches_plain": True})
+
+
+def phase_search_vs_plain(args, kernel):
+    """wgl_search == plain on the card, bit for bit on verdict, steps and
+    depth: all five models, n_pad from 8 to 32768 (a 4-invocation batch,
+    lanes of ~4,600, ~9,000 and ~20,900 entries), an unordered-queue lane
+    past 1024 entries, fifo lanes whose rings are past 64 (n_state 256 to
+    1024), planted and corrupt reads, a memo of 8 slots and a lane cut by
+    its step budget. Each batch goes through `wgl_search.analysis_batch`;
+    every search it launched is replayed through `compare`."""
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.workloads.queue import mutex_history, queue_history
+    from jepsen_tpu_torch.workloads.register import register_history
+
+    ws = kernel.mod
+    s = args.seed * 7919 + 9000
+
+    def reg(n, i, **kw):
+        return register_history(n_process=5, n_ops=n, seed=s + i, **kw)
+
+    def q(n, i, **kw):
+        return queue_history(n_process=5, n_ops=n, seed=s + i, **kw)
+
+    batches = [
+        ("cas-register", models.CASRegister, 20_000, 13,
+         [reg(64, i, corrupt=0.2) for i in range(64)]),
+        ("cas-register-n8", models.CASRegister, 20_000, 13,
+         [reg(2, 100 + i, corrupt=0.3) for i in range(32)]),
+        ("cas-register-memo8", models.CASRegister, 20_000, 3,
+         [reg(64, 150 + i, corrupt=0.2) for i in range(32)]),
+        ("register", models.Register, 20_000, 13,
+         [reg(64, 200 + i, cas=False, corrupt=0.1 if i % 4 else 0.0)
+          for i in range(32)]),
+        ("mutex", models.Mutex, 20_000, 13,
+         [mutex_history(n_process=5, n_ops=48, seed=s + 300 + i,
+                        corrupt=0.1 if i % 4 == 0 else 0.0)
+          for i in range(32)]),
+        ("unordered-queue", models.UnorderedQueue, 20_000, 13,
+         [q(40, 400 + i, corrupt=0.1 if i % 4 == 0 else 0.0)
+          for i in range(32)]),
+        # one lane of ~1150 entries: past wgl_vec's 1024
+        ("unordered-queue-long", models.UnorderedQueue, 20_000, 13,
+         [q(1200, 500, n_values=300), q(300, 501, n_values=50)]),
+        ("fifo-queue", models.FIFOQueue, 20_000, 13,
+         [q(24, 600 + i, fifo=True, corrupt=0.1 if i % 4 == 0 else 0.0)
+          for i in range(32)]),
+        # 70-1000 enqueues a lane: rings past wgl_vec's 64
+        ("fifo-queue-ring", models.FIFOQueue, 20_000, 13,
+         [q(n, 700 + i, fifo=True)
+          for i, n in enumerate((150, 300, 600, 1980))]),
+        ("cas-register-n8192", models.CASRegister, 4_000_000, 13,
+         [reg(5600, 800), planted(reg(5600, 801))]),
+        ("register-n16384", models.Register, 4_000_000, 13,
+         [reg(11000, 802, cas=False)]),
+        ("cas-register-n32768", models.CASRegister, 4_000_000, 13,
+         [register_history(n_process=10, n_ops=25000, seed=s + 803)]),
+        # a long valid lane under a budget it cannot finish in: unknown
+        ("cas-register-cut", models.CASRegister, 500, 13, [reg(2000, 804)]),
+    ]
+    for name, model, max_steps, cache_bits, hists in batches:
+        ws.CAPTURE = []
+        results = ws.analysis_batch(model(), hists, max_steps=max_steps,
+                                    cache_bits=cache_bits, device="cuda")
+        launches, ws.CAPTURE = ws.CAPTURE, None
+        passes = [compare(kernel, launch) for launch in launches]
+        counts = verdict_counts(r.valid for r in results)
+        if name == "cas-register-cut":
+            assert counts["unknown"] == 1, counts
+        if name.startswith("cas-register-n"):
+            assert results[0].valid is True, (name, counts)
+        emit({"phase": "search_vs_plain", "model": name,
+              "max_steps": max_steps, "cache_bits": cache_bits,
+              "history_ops": [len(h) for h in hists][:8],
+              "n_pad": launches[0][3], "n_state": launches[0][4],
+              "passes": passes, "matches_plain": True, "verdicts": counts})
+
+
+def search_cell(kernels, name, chk, hist):
+    """`chk.check({}, hist, {})` as a main path that must launch
+    wgl_search once and nothing else; every launch replayed through
+    `compare`. Returns the result, the wall and the replayed passes."""
+    res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
+    launches = {k: v[0] for k, v in seen.items()}
+    assert launches == {k.name: int(k.name == "wgl_search")
+                        for k in kernels}, (name, launches)
+    passes = replay(kernels, seen, name)
+    return res, wall, seen, passes
+
+
+def search_line(name, kernels, seen, passes, wall, **fields) -> dict:
+    """The printed line of a wgl_search cell: wall, kernel ms, steps and
+    µs a step of its longest lane, scratch bytes, device idle."""
+    k = next(k for k in kernels if k.name == "wgl_search")
+    cell = k.cells[name]
+    kms = cell["kernel_ms"]
+    return {"phase": name, **fields, "wall_s": wall,
+            "launches": {n: v[0] for n, v in seen.items() if v[0]},
+            "kernel_ms": kms, "path_kernel_ms": seen["wgl_search"][1],
+            "max_lane_steps": cell["max_lane_steps"],
+            "us_per_step": cell["us_per_step"],
+            "scratch_bytes": sum(p["scratch_bytes"] for p in
+                                 passes["wgl_search"]),
+            "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"],
+            "device_idle": 1 - kms / 1000 / wall,
+            "kernel_vs_plain": passes, "matches_plain": True}
+
+
+# the JAX package's stress-50k budget (bench.py: max_steps 4,000,000),
+# given to the checker as the time limit that buys that many steps
+STRESS_MAX_STEPS = 4_000_000
+
+
+def phase_main_stress(args, kernels):
+    """BASELINE config 5 (bench.py stress-50k): one CAS-register history
+    of 10 clients and 25,000 invocations (~50,000 ops, ~20,900 entries,
+    n_pad 32768) through `linearizable(CASRegister()).check` under
+    "auto", budget 4,000,000 steps: one wgl_search launch and nothing
+    else, the host search's verdict; then the same history with one
+    impossible read planted at its first read: invalid, with the host
+    search's op."""
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import wgl_host
+    from jepsen_tpu_torch.ops.common import STEPS_PER_SEC_ESTIMATE
+    from jepsen_tpu_torch.workloads.register import register_history
+
+    t0 = time.perf_counter()
+    hist = register_history(n_process=10, n_ops=25000, seed=args.seed)
+    gen_s = time.perf_counter() - t0
+    chk = linearizable(CASRegister(),
+                       time_limit=STRESS_MAX_STEPS / STEPS_PER_SEC_ESTIMATE)
+    assert chk._max_steps() == STRESS_MAX_STEPS
+    for name, h in (("main_stress_50k", hist),
+                    ("main_stress_50k_planted", planted(hist))):
+        res, wall, seen, passes = search_cell(kernels, name, chk, h)
+        t1 = time.perf_counter()
+        hr = wgl_host.analysis(CASRegister(), h)
+        host_s = time.perf_counter() - t1
+        assert res["valid"] == hr.valid, (name, res["valid"], hr.valid)
+        if name.endswith("planted"):
+            assert res["valid"] is False
+            assert res["op"] == hr.op.to_dict(), (res["op"], hr.op)
+        emit(search_line(name, kernels, seen, passes, wall, ops=len(h),
+                         history_gen_s=gen_s, valid=res["valid"],
+                         steps=res["steps"], op=res.get("op"),
+                         host_valid=hr.valid, host_steps=hr.steps,
+                         host_s=host_s))
+
+
+def phase_main_single_10k(args, kernels):
+    """BASELINE.md's north-star history as ONE history: a CAS register,
+    5 clients, 6,000 invocations (~5,000 entries, n_pad 8192) through
+    `linearizable(CASRegister()).check` under "auto": one wgl_search
+    launch, the host search's verdict."""
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import wgl_host
+    from jepsen_tpu_torch.workloads.register import register_history
+
+    hist = register_history(n_process=5, n_ops=6000, seed=args.seed)
+    name = "main_single_10k"
+    res, wall, seen, passes = search_cell(
+        kernels, name, linearizable(CASRegister()), hist)
+    t1 = time.perf_counter()
+    hr = wgl_host.analysis(CASRegister(), hist)
+    host_s = time.perf_counter() - t1
+    assert res["valid"] == hr.valid, (res["valid"], hr.valid)
+    emit(search_line(name, kernels, seen, passes, wall, ops=len(hist),
+                     valid=res["valid"], steps=res["steps"],
+                     host_valid=hr.valid, host_s=host_s))
+
+
+# queue_history(n_process=5, n_ops=1980, fifo=True) seeds (at --seed 0):
+# the first 16 whose lane keeps n_state at 1024 (at most 1022 enqueues)
+# and whose host search ends within 100,000 steps; 1,912-1,980 entries a
+# key. Every such history is invalid: a crashed dequeue's value stays at
+# the front of the queue.
+FIFO_SEEDS = (0, 1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 14, 15, 16, 17, 18)
+
+
+def phase_main_fifo_long(args, kernels):
+    """`independent.checker(linearizable(FIFOQueue()))` over 16 keys of
+    ~1,900-2,000 entries (n_pad 2048, past wgl_vec's 1024; rings of ~1,000
+    slots, n_state 1024): the whole batch in one wgl_search launch, every
+    key's verdict the host search's."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.history import entries
+    from jepsen_tpu_torch.models import FIFOQueue
+    from jepsen_tpu_torch.ops import wgl_host
+    from jepsen_tpu_torch.workloads.queue import queue_history
+    from jepsen_tpu_torch.workloads.register import interleave_keys
+
+    per_key = [queue_history(n_process=5, n_ops=1980, fifo=True,
+                             seed=1000 * args.seed + s) for s in FIFO_SEEDS]
+    hist = interleave_keys(per_key, 5)
+    name = "main_fifo_long"
+    chk = independent.checker(linearizable(FIFOQueue()))
+    res, wall, seen, passes = search_cell(kernels, name, chk, hist)
+    results = res["results"]
+    t1 = time.perf_counter()
+    subs = independent._split(hist, list(range(len(per_key))))
+    sizes = []
+    for k in range(len(per_key)):
+        es = entries(subs[k])
+        sizes.append(len(es))
+        hr = wgl_host.analysis(FIFOQueue(), es)
+        assert results[k]["valid"] == hr.valid, (k, results[k]["valid"],
+                                                  hr.valid)
+        if hr.valid is False:
+            assert results[k]["op"] == hr.op.to_dict(), k
+    host_s = time.perf_counter() - t1
+    emit(search_line(name, kernels, seen, passes, wall, keys=len(per_key),
+                     ops=len(hist), entries_per_key=sizes,
+                     n_state=passes["wgl_search"][0]["n_state"],
+                     verdicts=verdict_counts(r["valid"]
+                                             for r in results.values()),
+                     host_sample=len(per_key), host_s=host_s))
+
+
+def phase_main_queue_pcomp(args, kernels):
+    """BASELINE config 4 as ONE history (bench.py queue-10k-single-pcomp):
+    an unordered queue, 5 clients, 5,000 invocations over 2,000 values,
+    through `linearizable(UnorderedQueue()).check` under "auto": split by
+    value into micro-lanes, every one routed to wgl_vec (none to the
+    host), valid."""
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.history import entries
+    from jepsen_tpu_torch.models import UnorderedQueue
+    from jepsen_tpu_torch.ops import pcomp
+    from jepsen_tpu_torch.workloads.queue import queue_history
+
+    hist = queue_history(n_process=5, n_ops=5000, n_values=2000,
+                         seed=args.seed)
+    chk = linearizable(UnorderedQueue())
+    lanes = pcomp.split(UnorderedQueue(), entries(hist))
+    routes = chk._route(UnorderedQueue(), [es for _, es in lanes])
+    assert set(routes) == {"gpu_vec"}, set(routes)
+    res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
+    launches = {k: v[0] for k, v in seen.items()}
+    assert all((n > 0) == (k == "wgl_vec") for k, n in launches.items()), \
+        launches
+    assert res["valid"] is True, res
+    captured = seen["wgl_vec"][2]
+    real = int(((captured[0][0][-1] & 0xFFFF) > 0).sum())
+    assert real == sum(len(es) > 0 for _, es in lanes), (real, len(lanes))
+    passes = replay(kernels, seen, "main_queue_pcomp")
+    kms = seen["wgl_vec"][1]
+    emit({"phase": "main_queue_pcomp", "ops": len(hist),
+          "micro_lanes": len(lanes),
+          "longest_lane": max(len(es) for _, es in lanes),
+          "routes": {r: routes.count(r) for r in set(routes)},
+          "wall_s": wall, "launches": launches, "kernel_ms": kms,
+          "device_idle": 1 - kms / 1000 / wall, "valid": res["valid"],
+          "steps": res["steps"], "kernel_vs_plain": passes,
+          "matches_plain": True})
 
 
 def phase_lanes_per_block(kernel) -> None:
@@ -1054,7 +1413,7 @@ def run(args) -> int:
         return 2
     sys.path.insert(0, HERE)
     from jepsen_tpu_torch.device import describe
-    from jepsen_tpu_torch.ops import closure, wgl_row, wgl_vec
+    from jepsen_tpu_torch.ops import closure, wgl_row, wgl_search, wgl_vec
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -1064,6 +1423,7 @@ def run(args) -> int:
 
     vec = Kernel("wgl_vec", wgl_vec, "jepsen_tpu/ops/wgl_pallas_vec.py:163")
     row = Kernel("wgl_row", wgl_row, "jepsen_tpu/ops/wgl_pallas.py:84")
+    search = Kernel("wgl_search", wgl_search, "jepsen_tpu/ops/wgl_tpu.py:160")
     k3 = "jepsen_tpu/ops/closure_tpu.py"
     ck = {"closure_word": ClosureKernel("closure_word", closure, f"{k3}:98"),
           "unpack": ClosureKernel("unpack", closure, f"{k3}:85"),
@@ -1071,11 +1431,12 @@ def run(args) -> int:
                                              f"{k3}:89"),
           "matmul": ClosureKernel("matmul", closure, f"{k3}:88",
                                   library=True)}
-    kernels = [vec, row, *ck.values()]
+    kernels = [vec, row, search, *ck.values()]
     build_all(kernels)
 
     phase_kernel_vs_plain(args, vec)
     phase_row_vs_plain(args, row)
+    phase_search_vs_plain(args, search)
     # ops per key count invocations; each is two history events, so 64
     # and 1000 give the ~128- and ~2000-event keys of the reference sizes
     main_path(args, kernels, "main_register", 4096, 64, 8, host_sample=64)
@@ -1092,6 +1453,16 @@ def run(args) -> int:
     phase_mixed(args, kernels)
     phase_single(args, kernels)
     phase_lanes_per_block(vec)
+    # past wgl_row's 4064 entries and wgl_vec's fifo ring: wgl_search
+    phase_main_stress(args, kernels)
+    phase_main_single_10k(args, kernels)
+    phase_main_fifo_long(args, kernels)
+    phase_main_queue_pcomp(args, kernels)
+    first = search.cells["main_stress_50k"]
+    search.extra = {
+        "max_lane_steps": first["max_lane_steps"],
+        "us_per_step": first["us_per_step"],
+        "scratch_bytes": first["per_launch"][0]["scratch_bytes"]}
 
     phase_closure_vs_plain(args, ck)
     # the JAX package's list-append-5k bench history (bench.py:836): 2505

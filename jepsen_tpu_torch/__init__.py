@@ -1,14 +1,24 @@
 """jepsen_tpu_torch: the Jepsen linearizability checker on PyTorch and CUDA.
 
 A port of `jepsen_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100.
-This first slice covers the per-key linearizability check users run
-through `independent.checker(linearizable(model))`:
+Its main path is the per-key linearizability check users run through
+`independent.checker(linearizable(model))`:
 
     independent.IndependentChecker.check
       -> checker.linearizable.Linearizable.check_batch
-        -> ops.wgl_vec.analysis_batch      (encode + bit-pack the lanes)
-          -> ops.wgl_vec.search            (the hand-written CUDA kernel,
-                                            ops/csrc/wgl_vec.cu)
+        -> ops.pcomp.split                 (under "auto", where the model
+                                            decomposes: micro-lanes)
+        -> per lane, chosen before any launch:
+           ops.wgl_vec.analysis_batch      (csrc/wgl_vec.cu, <= 1024
+                                            entries)
+           ops.wgl_row.analysis_batch      (csrc/wgl_row.cu, scalar
+                                            models, <= 4064 entries)
+           ops.wgl_search.analysis_batch   (csrc/wgl_search.cu, any
+                                            length, vector state)
+           ops.wgl_host.analysis           (no int32 encoding)
+
+beside the transactional cycle checker (`checker.cycle`, closures in
+ops/csrc/closure.cu).
 
 The package imports torch and numpy only — never jax and nothing of
 `jepsen_tpu`; what it needs from there it keeps as its own copy.

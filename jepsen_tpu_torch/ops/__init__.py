@@ -6,9 +6,14 @@ wgl_host — Wing-Gong-Lowe linearizability search on the host (the
 wgl_vec  — the same search for a batch of lanes, one lane per CUDA
            thread (csrc/wgl_vec.cu), with a plain PyTorch version for
            CPU tensors.
-wgl_search — the encodings of the probed-memo search (K2/K5's lanes).
+wgl_search — the probed-memo search for lanes of any length and a
+           vector model state, one lane per CUDA warp
+           (csrc/wgl_search.cu, K2's counterpart), with a plain PyTorch
+           version; also the lane encodings wgl_row shares.
 wgl_row  — that search for lanes of up to 4064 entries, one lane per
            CUDA warp (csrc/wgl_row.cu), with a plain PyTorch version.
+pcomp    — P-compositional decomposition of a history into micro-lanes
+           (the unordered queue by value, multi-register by key).
 """
 
 #: the smallest shape bucket the search pads a history to

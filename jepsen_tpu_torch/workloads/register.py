@@ -98,12 +98,21 @@ def keyed_history(n_keys, n_ops, n_process=5, n_values=3, bad_every=0,
             if reads:
                 i = reads[0] if bad_read == "first" else rng.choice(reads)
                 h[i] = h[i].with_(value=n_values)
-        base = k * n_process
-        per_key.append([o.with_(process=o.process + base,
-                                value=KVTuple(k, o.value)) for o in h])
+        per_key.append(h)
+    return interleave_keys(per_key, n_process)
+
+
+def interleave_keys(per_key, n_process) -> list[Op]:
+    """One history of the histories `per_key` (key k's ops by processes
+    below `n_process`): key k's processes move up by k * n_process, its
+    values become KVTuple(k, value), and the keys' ops are interleaved
+    round-robin, indexed and timed in that order."""
+    per_key = [[o.with_(process=o.process + k * n_process,
+                        value=KVTuple(k, o.value)) for o in h]
+               for k, h in enumerate(per_key)]
     out = []
-    pos = [0] * n_keys
-    live = list(range(n_keys))
+    pos = [0] * len(per_key)
+    live = [k for k in range(len(per_key)) if per_key[k]]
     while live:
         nxt = []
         for k in live:

@@ -23,7 +23,7 @@ from jepsen_tpu_torch import models as tmodels
 from jepsen_tpu_torch.checker.linearizable import linearizable
 from jepsen_tpu_torch.device import CudaUnavailable, resolve
 from jepsen_tpu_torch.history import entries as make_entries
-from jepsen_tpu_torch.ops import wgl_host, wgl_row, wgl_vec
+from jepsen_tpu_torch.ops import wgl_host, wgl_row, wgl_search, wgl_vec
 from jepsen_tpu_torch.workloads.register import keyed_history, register_history
 
 from helpers import random_queue_history, random_register_history
@@ -207,9 +207,9 @@ def mixed_history(seed):
 
 def test_auto_routes_each_lane():
     """"auto" decides per lane for the scalar models, before anything
-    launches: gpu_vec up to 1024 entries, gpu_row up to 4064, the host
-    past that or without an int32 encoding. The queue models keep the
-    whole-batch rule."""
+    launches: gpu_vec up to 1024 entries, gpu_row up to 4064, gpu_search
+    past that, the host without an int32 encoding. The queue models keep
+    the whole-batch rule."""
     short = make_entries(register_history(n_process=3, n_ops=10, seed=0))
     long = make_entries(register_history(n_process=3, n_ops=1300, seed=1))
     huge = make_entries(register_history(n_process=5, n_ops=4100, cas=False,
@@ -220,7 +220,7 @@ def test_auto_routes_each_lane():
     assert len(short) <= 1024 < len(long) <= 4064 < len(huge)
     chk = linearizable(tmodels.CASRegister(), device="cpu")
     assert chk._route(tmodels.Register(), [short, long, huge, big]) == [
-        "gpu_vec", "gpu_row", "host", "host"]
+        "gpu_vec", "gpu_row", "gpu_search", "host"]
     q = make_entries(random_queue_history(n_process=2, n_ops=6, seed=0))
     assert linearizable(tmodels.UnorderedQueue(), device="cpu")._route(
         tmodels.UnorderedQueue(), [q, q]) == ["gpu_vec", "gpu_vec"]
@@ -309,7 +309,8 @@ def test_default_device_is_cuda():
 
 
 def test_port_imports_no_jax():
-    """CPU checks through jepsen_tpu_torch (linearizable and cycle) load
+    """CPU checks through jepsen_tpu_torch (linearizable on gpu_vec,
+    gpu_row, gpu_search and the P-compositional split, and cycle) load
     neither jax nor any
     module of the JAX package (jepsen_tpu_torch's own name shares the
     jepsen_tpu prefix, so match whole package names)."""
@@ -329,6 +330,20 @@ def test_port_imports_no_jax():
         r = linearizable(CASRegister(), device="cpu").check(
             {}, register_history(n_process=3, n_ops=1300, seed=1), {})
         assert r["valid"] is True and len(wgl_row.CAPTURE) == 1, r
+        from jepsen_tpu_torch.models import FIFOQueue, UnorderedQueue
+        from jepsen_tpu_torch.ops import wgl_search
+        from jepsen_tpu_torch.workloads.queue import queue_history
+        wgl_search.CAPTURE = []
+        r = linearizable(FIFOQueue(), algorithm="gpu_search",
+                         device="cpu").check(
+            {}, queue_history(n_process=3, n_ops=30, fifo=True, seed=2), {})
+        assert r["valid"] in (True, False) and len(wgl_search.CAPTURE) == 1
+        from jepsen_tpu_torch.ops import wgl_vec
+        wgl_vec.CAPTURE = []
+        r = linearizable(UnorderedQueue(), device="cpu").check(
+            {}, queue_history(n_process=3, n_ops=80, n_values=20, seed=3),
+            {})
+        assert r["valid"] is True and len(wgl_vec.CAPTURE) == 1, r
         from jepsen_tpu_torch.checker import cycle
         from jepsen_tpu_torch.workloads import list_append
         r = cycle.checker(device="cpu").check(
@@ -344,3 +359,199 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def capture(*mods):
+    """Set CAPTURE = [] on each engine module; restore None after."""
+    class _Cap:
+        def __enter__(self):
+            for m in mods:
+                m.CAPTURE = []
+            return self
+
+        def __exit__(self, *exc):
+            self.got = [m.CAPTURE for m in mods]
+            for m in mods:
+                m.CAPTURE = None
+    return _Cap()
+
+
+def same_result(tr, jr):
+    keys = ("valid", "op", "final_paths")
+    assert {k: normalise(tr).get(k) for k in keys} == \
+        {k: normalise(jr).get(k) for k in keys}
+
+
+def queue_like(name, seed, n_ops, corrupt=0.0, **kw):
+    return random_queue_history(n_process=3, n_ops=n_ops, corrupt=corrupt,
+                                seed=seed, fifo=name == "fifo-queue", **kw)
+
+
+def register_like(name, seed, n_ops, corrupt=0.0):
+    if name == "mutex":
+        from jepsen_tpu_torch.workloads.queue import mutex_history
+        return [jhist.Op.from_dict(o.to_dict()) for o in mutex_history(
+            n_process=3, n_ops=n_ops, corrupt=corrupt, seed=seed)]
+    return random_register_history(n_process=3, n_ops=n_ops, corrupt=corrupt,
+                                   cas=name == "cas-register", seed=seed)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_gpu_search_matches_jax_tpu(name, seed):
+    """algorithm="gpu_search" against the JAX package's "tpu" (K2), one
+    history at a time and as a keyed batch: valid, op and final_paths
+    equal; the whole batch goes to wgl_search in one search."""
+    make = queue_like if name.endswith("queue") else register_like
+    jm, tm = MODELS[name]
+    for corrupt in (0.0, 0.3):
+        jh = make(name, seed, 20, corrupt)
+        with capture(wgl_search) as cap:
+            tr = linearizable(tm(), algorithm="gpu_search",
+                              device="cpu").check({}, to_port(jh), {})
+        assert len(cap.got[0]) == 1
+        jr = jlinearizable(jm(), algorithm="tpu").check({}, jh, {})
+        same_result(tr, jr)
+    items = [(to_port(make(name, seed + 10 * i, 16, 0.3 * (i % 2))), {})
+             for i in range(4)]
+    with capture(wgl_search) as cap:
+        trs = linearizable(tm(), algorithm="gpu_search",
+                           device="cpu").check_batch({}, items)
+    assert len(cap.got[0]) == 1 and cap.got[0][0][0].shape[0] == 4
+    jrs = jlinearizable(jm(), algorithm="tpu").check_batch(
+        {}, [([jhist.Op.from_dict(o.to_dict()) for o in h], o)
+             for h, o in items])
+    for t, j in zip(trs, jrs):
+        same_result(t, j)
+
+
+def to_port(hist):
+    return carry.history_from_dicts([o.to_dict() for o in hist])
+
+
+def test_auto_sends_long_scalar_lanes_to_gpu_search():
+    """One cas-register history of ~4,600 entries (past wgl_row's 4064)
+    under "auto": one wgl_search launch, nothing else; the verdict and
+    counterexample are the JAX package's K2 check's, also with an
+    impossible read planted at the first read."""
+    jh = random_register_history(n_process=5, n_ops=5600, seed=11)
+    assert len(make_entries(to_port(jh))) > wgl_row.MAX_PAD
+    reads = [i for i, o in enumerate(jh) if o.type == "ok" and o.f == "read"]
+    bad = list(jh)
+    bad[reads[0]] = bad[reads[0]].with_(value=99)
+    for h in (jh, bad):
+        with capture(wgl_vec, wgl_row, wgl_search) as cap:
+            tr = linearizable(tmodels.CASRegister(), device="cpu").check(
+                {}, to_port(h), {})
+        assert [len(c) for c in cap.got] == [0, 0, 1]
+        jr = jlinearizable(jmodels.CASRegister(), algorithm="tpu").check(
+            {}, h, {})
+        same_result(tr, jr)
+    assert tr["valid"] is False
+
+
+def test_auto_sends_wide_fifo_rings_to_gpu_search():
+    """A fifo-queue batch with a lane of more than 64 enqueues (past
+    wgl_vec's ring) goes to wgl_search whole under "auto", with the
+    verdicts of the JAX package's K2 check."""
+    hists = [queue_like("fifo-queue", s, n) for s, n in
+             ((1, 12), (2, 180), (3, 20))]
+    assert sum(o.f == "enqueue" and o.type == "invoke"
+               for o in hists[1]) > 64
+    items = [(to_port(h), {}) for h in hists]
+    with capture(wgl_vec, wgl_search) as cap:
+        trs = linearizable(tmodels.FIFOQueue(), device="cpu").check_batch(
+            {}, items)
+    assert len(cap.got[0]) == 0 and len(cap.got[1]) == 1
+    assert linearizable(tmodels.FIFOQueue())._route(
+        tmodels.FIFOQueue(), [make_entries(h) for h, _ in items]) == \
+        ["gpu_search"] * 3
+    jrs = jlinearizable(jmodels.FIFOQueue(), algorithm="tpu").check_batch(
+        {}, [(h, {}) for h in hists])
+    for t, j in zip(trs, jrs):
+        same_result(t, j)
+
+
+@pytest.mark.parametrize("corrupt", [0.0, 0.1])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pcomp_queue_matches_jax(seed, corrupt):
+    """One unordered-queue history of 300 invocations over 60 values
+    under "auto": split by value into micro-lanes that all run in one
+    wgl_vec search (no host route), with the JAX package's auto
+    verdict, op and final_paths."""
+    jh = random_queue_history(n_process=5, n_ops=300, n_values=60,
+                              corrupt=corrupt, seed=seed)
+    with capture(wgl_vec, wgl_row, wgl_search) as cap:
+        tr = linearizable(tmodels.UnorderedQueue(), device="cpu").check(
+            {}, to_port(jh), {})
+    assert [len(c) for c in cap.got] == [1, 0, 0]
+    assert cap.got[0][0][0].shape[1] >= 40  # lanes: one a value
+    jr = jlinearizable(jmodels.UnorderedQueue()).check({}, jh, {})
+    same_result(tr, jr)
+    if not corrupt:
+        assert tr["valid"] is True
+
+
+def test_pcomp_batch_flattens_every_item():
+    """independent.checker over keyed queue histories: every key's
+    micro-lanes in one wgl_vec search, each key's verdict recombined from
+    its own lanes; the dicts' verdicts, ops and final paths equal the JAX
+    package's."""
+    per_key = [random_queue_history(n_process=3, n_ops=60, n_values=15,
+                                    corrupt=0.15 * (k % 2), seed=40 + k)
+               for k in range(4)]
+    hist = []
+    for k, h in enumerate(per_key):
+        for o in h:
+            hist.append(o.with_(process=o.process + 10 * k,
+                                value=jind.KVTuple(k, o.value)))
+    for i, o in enumerate(hist):
+        o.index = i
+    with capture(wgl_vec) as cap:
+        tr = independent.checker(linearizable(
+            tmodels.UnorderedQueue(), device="cpu")).check(
+                {}, to_port(hist), {})
+    assert len(cap.got[0]) == 1
+    jr = jind.checker(jlinearizable(jmodels.UnorderedQueue())).check(
+        {}, hist, {})
+    assert tr["failures"] == jr["failures"] and tr["valid"] == jr["valid"]
+    for k in range(4):
+        same_result(tr["results"][k], jr["results"][k])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_pcomp_multi_register_matches_jax(seed):
+    """Single-key multi-register txns under "auto": split by key into
+    Register lanes on wgl_vec; the JAX package's auto verdict. A history
+    with a two-key txn does not split: the host search, in both."""
+    import random as _random
+    rng = _random.Random(seed)
+    dicts, regs = [], {}
+    for i in range(30):
+        k = rng.choice("xyz")
+        if rng.random() < 0.5:
+            v = rng.randrange(4)
+            regs[k] = v
+            micros = [["w", k, v]]
+        else:
+            v = regs.get(k)
+            if v is not None and rng.random() < 0.15:
+                v += 1
+            micros = [["r", k, v]]
+        for kind in ("invoke", "ok"):
+            dicts.append({"process": i % 3, "type": kind, "f": "txn",
+                          "value": micros, "index": len(dicts),
+                          "time": len(dicts)})
+    jh = [jhist.Op.from_dict(d) for d in dicts]
+    with capture(wgl_vec) as cap:
+        tr = linearizable(tmodels.MultiRegister(), device="cpu").check(
+            {}, to_port(jh), {})
+    assert len(cap.got[0]) == 1
+    same_result(tr, jlinearizable(jmodels.MultiRegister()).check({}, jh, {}))
+    dicts[0]["value"] = dicts[1]["value"] = [["w", "x", 0], ["w", "y", 0]]
+    jh = [jhist.Op.from_dict(d) for d in dicts]
+    with capture(wgl_vec) as cap:
+        tr = linearizable(tmodels.MultiRegister(), device="cpu").check(
+            {}, to_port(jh), {})
+    assert cap.got == [[]]
+    same_result(tr, jlinearizable(jmodels.MultiRegister()).check({}, jh, {}))
