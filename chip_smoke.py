@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of jepsen_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only crossover]
 
 Run from the root of a checkout. It builds the port's kernel sources
-(jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu and
-closure.cu, one nvcc each, started together), holds each WGL kernel bit
+(jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
+closure.cu and sim.cu, one nvcc each) and the native search
+(wgl_native.cpp, g++), all started together, holds each WGL kernel bit
 for bit against its plain PyTorch version on the card, then drives the
 port's main paths — `independent.checker(linearizable(CASRegister(),
 ...))` over keyed register histories at the sizes the reference workload
@@ -14,7 +15,18 @@ history mixing both), and one long single history; through wgl_search
 the 50k-op stress history (and it with a planted impossible read), a
 10k-op single history and 16 long fifo-queue keys; and one 10k-op
 unordered-queue history split P-compositionally into micro-lanes on
-wgl_vec — and checks the verdicts (against the host search's).
+wgl_vec — and checks the verdicts (against the host search's). Cells
+that exist to drive a kernel name its engine (or set every bar of
+"auto" to 1, the card half of the policy); beside each, the same check
+under "auto" with the measured bars (GPU_BATCH_MIN) is its own main path,
+and register-late under "auto" must leave no key unknown, with the
+measured bars and with every bar at 1 (the native engine finishes what
+K1's bounded memo gives up). A launch identical to one an earlier path
+made is compared once. The crossover phase measures the bar of each
+(card engine, model kind) against the native engine (`--only crossover`:
+that phase alone, at the depth whose bars GPU_BATCH_MIN holds); the
+corpus phase runs every case of the verdict corpus through each card
+engine that takes it and through "auto".
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and every search it launched is replayed through
 the kernel and the plain version (lanes that ran past PLAIN_STEP_LIMIT
@@ -27,20 +39,25 @@ and the cycle checker's main path, `cycle.checker().check`, on
 list-append histories of 5,000 ops (its dict equal to the host DFS
 engine's), 20,000 ops and 5,000 ops with realtime edges, every bucket
 fixpoint it ran replayed round by round through the kernels and their
-plain versions. Every phase prints one JSON line; the last lines are
-the kernel table (per kernel and main-path cell: kernel ms, launches,
-for the WGL kernels the longest lane's steps and µs a step and each
-launch's shared bytes and lanes a block, for the closure kernels each
-bucket's rounds, the bound; the product's launches and ms beside), the
-card's name and power limit (nvidia-smi), and {"ok": true, "device":
-...}. Any failed check raises, so the exit code is not 0. Without CUDA,
-or outside a checkout, it exits 2 and prints no result. It imports
-nothing of jax or jepsen_tpu.
+plain versions. Then the fuzz path: 1024 seeded clusters simulated in one
+sim launch and scored through the closure kernels (scores equal to the
+host DFS engine's), 16,384 clusters for throughput, and the 8 committed
+anomaly traces (their types and coverage reproduced), every sim launch
+held bit for bit against its plain version. Every phase prints one JSON
+line; the last lines are the kernel table (per kernel and main-path
+cell: kernel ms, launches, for the WGL kernels the longest lane's steps
+and µs a step and each launch's shared bytes and lanes a block, for the
+closure kernels each bucket's rounds, the bound; the product's launches
+and ms beside), the card's name and power limit (nvidia-smi), and
+{"ok": true, "device": ...}. Any failed check raises, so the exit code
+is not 0. Without CUDA, or outside a checkout, it exits 2 and prints no
+result. It imports nothing of jax or jepsen_tpu.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -591,23 +608,96 @@ def run_path(kernels, fn):
     return res, wall, seen
 
 
+def lin_module():
+    """jepsen_tpu_torch.checker.linearizable (the package's `linearizable`
+    attribute is the function of that name)."""
+    import importlib
+
+    return importlib.import_module("jepsen_tpu_torch.checker.linearizable")
+
+
+@contextlib.contextmanager
+def card_bars(bar: int):
+    """Every card engine's bar set to `bar` for the duration: with 1,
+    "auto" sends every group of lanes to its card engine whole (the card
+    half of the policy), as the kernel-driving cells need."""
+    lin = lin_module()
+    saved = lin.GPU_BATCH_MIN
+    lin.GPU_BATCH_MIN = {k: bar for k in saved}
+    try:
+        yield
+    finally:
+        lin.GPU_BATCH_MIN = saved
+
+
+def auto_beside(kernels, cell: str, fn) -> tuple:
+    """fn(), a check under "auto" with the measured bars, as a main path
+    of its own (counts reset before, read after, every launch replayed
+    through `compare`): its result, and the fields its cell's line
+    records beside the kernel-driving run."""
+    lin = lin_module()
+    f0 = lin.NATIVE_FINISH
+    res, wall, seen = run_path(kernels, fn)
+    passes = replay(kernels, seen, cell)
+    return res, {"auto_wall_s": wall,
+                 "auto_launches": {k: v[0] for k, v in seen.items() if v[0]},
+                 "auto_native_finish": lin.NATIVE_FINISH - f0,
+                 "auto_kernel_vs_plain": passes}
+
+
 def wgl(kernels) -> list:
     """The WGL search kernels of `kernels`."""
     return [k for k in kernels
             if k.name in ("wgl_vec", "wgl_row", "wgl_search")]
 
 
+# (kernel, launch digest) -> (cell, compare() result) of every launch
+# replayed so far: a launch with the same arguments as one an earlier path
+# made (the same lanes, budget and plan) is not compared twice
+COMPARED: dict = {}
+
+
+def launch_digest(launch) -> str:
+    """A digest of one captured launch's arguments."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    h = hashlib.sha1()
+    for a in launch:
+        if torch.is_tensor(a):
+            a = a.detach().cpu().numpy()
+        if isinstance(a, np.ndarray):
+            h.update(f"{a.dtype}{a.shape}".encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+        else:
+            h.update(repr(a).encode())
+    return h.hexdigest()
+
+
+def compare_once(k, launch, cell: str) -> dict:
+    """compare(k, launch), or the result of the identical launch an
+    earlier path made, marked `same_launch_as` that path."""
+    key = (k.name, launch_digest(launch))
+    if key not in COMPARED:
+        COMPARED[key] = (cell, compare(k, launch))
+    first, p = COMPARED[key]
+    return p if first == cell else {**p, "same_launch_as": first}
+
+
 def replay(kernels, seen, cell: str) -> dict:
-    """Every launch a path made, replayed through `compare`. Each kernel
-    the path launched gets a `cells` entry for it: the path's launches
-    and their own kernel time, and per replayed launch its kernel time,
-    its longest lane's steps and µs a step of that lane, its shared
-    memory plan and its bound. The first path that launches a kernel
-    also sets that kernel's top-level figures."""
+    """Every launch a path made, replayed through `compare` (once for
+    identical launches: `compare_once`). Each kernel the path launched
+    gets a `cells` entry for it: the path's launches and their own kernel
+    time, and per replayed launch its kernel time, its longest lane's
+    steps and µs a step of that lane, its shared memory plan and its
+    bound. The first path that launches a kernel also sets that kernel's
+    top-level figures."""
     out = {}
     for k in wgl(kernels):
         launched, path_ms, captured = seen[k.name]
-        passes = [compare(k, launch) for launch in captured]
+        passes = [compare_once(k, launch, cell) for launch in captured]
         out[k.name] = passes
         if not passes:
             continue
@@ -643,10 +733,11 @@ def replay(kernels, seen, cell: str) -> dict:
 
 def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
               bad_read: str = "first", algorithm: str = "gpu_vec",
-              expect=("wgl_vec",)):
+              expect=("wgl_vec",), bars=None):
     """The port's main path over one keyed history, then every search it
     launched replayed through `compare`. `expect` names the kernels the
-    path must launch; the others must not launch."""
+    path must launch; the others must not launch. `bars`: every bar of
+    "auto" set to it for the path (`card_bars`), else the measured ones."""
     from jepsen_tpu_torch import independent
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.models import CASRegister
@@ -659,17 +750,25 @@ def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
     gen_s = time.perf_counter() - t0
     chk = independent.checker(linearizable(CASRegister(),
                                            algorithm=algorithm))
-    res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
+    lin = lin_module()
+    finished0 = lin.NATIVE_FINISH
+    with card_bars(bars) if bars is not None else contextlib.nullcontext():
+        res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
+    native_finish = lin.NATIVE_FINISH - finished0
     for k in kernels:
         launched = seen[k.name][0]
-        assert (launched > 0) == (k.name in expect), (name, k.name, launched)
+        if expect is not None:
+            assert (launched > 0) == (k.name in expect), (name, k.name,
+                                                          launched)
     kernel_ms = sum(v[1] for v in seen.values())
 
     results = res["results"]
     assert len(results) == n_keys, (len(results), n_keys)
     # planted-bad keys are refuted (a late plant may instead run out of
-    # budget: unknown); every other key is linearizable by construction
-    bad_ok = (False,) if bad_read == "first" else (False, "unknown")
+    # a card engine's budget: unknown; never under "auto", whose native
+    # finish takes such lanes); every other key is linearizable
+    bad_ok = (False,) if bad_read == "first" or algorithm == "auto" \
+        else (False, "unknown")
     for k, r in results.items():
         assert "error" not in r, (k, r.get("error"))
         if bad_every and k % bad_every == 0:
@@ -694,13 +793,16 @@ def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
     steps = sum(r["steps"] for r in results.values())
 
     passes = replay(kernels, seen, name)
+    if algorithm == "auto":
+        assert "unknown" not in {r["valid"] for r in results.values()}
     emit({"phase": name, "algorithm": algorithm, "keys": n_keys,
+          "bars": bars or "measured", "native_finish": native_finish,
           "invocations_per_key": n_ops,
           "bad_every": bad_every, "bad_read": bad_read,
           "ops": len(hist), "history_gen_s": gen_s, "wall_s": wall,
           "kernel_ms": kernel_ms,
           "launches": {k: v[0] for k, v in seen.items()},
-          "device_idle": 1 - kernel_ms / 1000 / wall,
+          "device_idle": 1 - kernel_ms / 1000 / wall if wall > 0 else None,
           "total_steps": steps,
           "steps_per_s": steps / wall if wall > 0 else None,
           "kernel_steps_per_s": steps / (kernel_ms / 1000)
@@ -712,9 +814,11 @@ def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
 
 def phase_mixed(args, kernels):
     """One keyed history of 1024 short keys (64 invocations) and 16 long
-    ones (2000): one `check` under "auto" launches both kernels, and the
-    short keys' result dicts equal those of the same keys checked alone
-    through gpu_vec."""
+    ones (2000): one `check` under "auto" with every bar at 1 (the card
+    half of the policy) launches both kernels, and the short keys'
+    result dicts equal those of the same keys checked alone through
+    gpu_vec. The same check under "auto" with the measured bars is
+    recorded beside it, with the same verdicts."""
     from jepsen_tpu_torch import independent
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.models import CASRegister
@@ -724,7 +828,8 @@ def phase_mixed(args, kernels):
     hist = keyed_history(n_short + n_long, [64] * n_short + [2000] * n_long,
                          n_process=5, bad_every=8, seed=args.seed)
     chk = independent.checker(linearizable(CASRegister()))
-    res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
+    with card_bars(1):
+        res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
     assert all((v[0] > 0) == (k in ("wgl_vec", "wgl_row"))
                for k, v in seen.items()), {k: v[0] for k, v in seen.items()}
     results = res["results"]
@@ -736,7 +841,12 @@ def phase_mixed(args, kernels):
     same = all(results[k] == alone[k] for k in range(n_short))
     assert same, "short keys' results changed beside the long keys"
     passes = replay(kernels, seen, "mixed")
-    emit({"phase": "mixed", "keys": [n_short, n_long],
+    auto, beside = auto_beside(kernels, "mixed_auto",
+                               lambda: chk.check({}, hist, {}))
+    assert {k: r["valid"] for k, r in auto["results"].items()} \
+        == {k: r["valid"] for k, r in results.items()}
+    emit({"phase": "mixed", "bars": "1 (the card half of auto)",
+          **beside, "keys": [n_short, n_long],
           "invocations_per_key": [64, 2000], "ops": len(hist),
           "wall_s": wall, "launches": {k: v[0] for k, v in seen.items()},
           "kernel_ms": {k: v[1] for k, v in seen.items()},
@@ -747,15 +857,15 @@ def phase_mixed(args, kernels):
 
 def phase_single(args, kernels):
     """One register history of 3000 invocations (~2500 entries) through
-    `linearizable(CASRegister()).check`: routed to wgl_row, valid, and
-    the host search agrees."""
+    `linearizable(CASRegister(), algorithm="gpu_row").check`: valid, and
+    the host search agrees; beside it the same check under "auto"."""
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops import wgl_host
     from jepsen_tpu_torch.workloads.register import register_history
 
     hist = register_history(n_process=5, n_ops=3000, seed=args.seed)
-    chk = linearizable(CASRegister())
+    chk = linearizable(CASRegister(), algorithm="gpu_row")
     res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
     launches = {k: v[0] for k, v in seen.items()}
     assert launches == {k.name: int(k.name == "wgl_row") for k in kernels}, \
@@ -763,7 +873,12 @@ def phase_single(args, kernels):
     assert res["valid"] is True, res
     assert wgl_host.analysis(CASRegister(), hist).valid is True
     passes = replay(kernels, seen, "single")
-    emit({"phase": "single_history", "ops": len(hist), "wall_s": wall,
+    auto, beside = auto_beside(
+        kernels, "single_auto",
+        lambda: linearizable(CASRegister()).check({}, hist, {}))
+    assert auto["valid"] is True, auto
+    emit({"phase": "single_history", **beside, "ops": len(hist),
+          "wall_s": wall,
           "launches": launches, "kernel_ms": seen["wgl_row"][1],
           "steps": res["steps"], "valid": res["valid"],
           "kernel_vs_plain": passes, "matches_plain": True})
@@ -882,11 +997,12 @@ STRESS_MAX_STEPS = 4_000_000
 def phase_main_stress(args, kernels):
     """BASELINE config 5 (bench.py stress-50k): one CAS-register history
     of 10 clients and 25,000 invocations (~50,000 ops, ~20,900 entries,
-    n_pad 32768) through `linearizable(CASRegister()).check` under
-    "auto", budget 4,000,000 steps: one wgl_search launch and nothing
-    else, the host search's verdict; then the same history with one
-    impossible read planted at its first read: invalid, with the host
-    search's op."""
+    n_pad 32768) through `linearizable(CASRegister(),
+    algorithm="gpu_search").check`, budget 4,000,000 steps: one
+    wgl_search launch and nothing else, the host search's verdict; then
+    the same history with one impossible read planted at its first read:
+    invalid, with the host search's op. Beside each, the same check under
+    "auto"."""
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops import wgl_host
@@ -896,12 +1012,18 @@ def phase_main_stress(args, kernels):
     t0 = time.perf_counter()
     hist = register_history(n_process=10, n_ops=25000, seed=args.seed)
     gen_s = time.perf_counter() - t0
-    chk = linearizable(CASRegister(),
-                       time_limit=STRESS_MAX_STEPS / STEPS_PER_SEC_ESTIMATE)
+    limit = STRESS_MAX_STEPS / STEPS_PER_SEC_ESTIMATE
+    chk = linearizable(CASRegister(), algorithm="gpu_search",
+                       time_limit=limit)
     assert chk._max_steps() == STRESS_MAX_STEPS
     for name, h in (("main_stress_50k", hist),
                     ("main_stress_50k_planted", planted(hist))):
         res, wall, seen, passes = search_cell(kernels, name, chk, h)
+        auto, beside = auto_beside(
+            kernels, f"{name}_auto",
+            lambda: linearizable(CASRegister(), time_limit=limit).check(
+                {}, h, {}))
+        assert auto["valid"] == res["valid"], (name, auto["valid"])
         t1 = time.perf_counter()
         hr = wgl_host.analysis(CASRegister(), h)
         host_s = time.perf_counter() - t1
@@ -909,8 +1031,9 @@ def phase_main_stress(args, kernels):
         if name.endswith("planted"):
             assert res["valid"] is False
             assert res["op"] == hr.op.to_dict(), (res["op"], hr.op)
-        emit(search_line(name, kernels, seen, passes, wall, ops=len(h),
-                         history_gen_s=gen_s, valid=res["valid"],
+        emit(search_line(name, kernels, seen, passes, wall, **beside,
+                         ops=len(h), history_gen_s=gen_s,
+                         valid=res["valid"],
                          steps=res["steps"], op=res.get("op"),
                          host_valid=hr.valid, host_steps=hr.steps,
                          host_s=host_s))
@@ -919,8 +1042,8 @@ def phase_main_stress(args, kernels):
 def phase_main_single_10k(args, kernels):
     """BASELINE.md's north-star history as ONE history: a CAS register,
     5 clients, 6,000 invocations (~5,000 entries, n_pad 8192) through
-    `linearizable(CASRegister()).check` under "auto": one wgl_search
-    launch, the host search's verdict."""
+    `linearizable(CASRegister(), algorithm="gpu_search").check`: one
+    wgl_search launch, the host search's verdict; beside it, "auto"."""
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops import wgl_host
@@ -929,13 +1052,18 @@ def phase_main_single_10k(args, kernels):
     hist = register_history(n_process=5, n_ops=6000, seed=args.seed)
     name = "main_single_10k"
     res, wall, seen, passes = search_cell(
-        kernels, name, linearizable(CASRegister()), hist)
+        kernels, name, linearizable(CASRegister(), algorithm="gpu_search"),
+        hist)
+    auto, beside = auto_beside(
+        kernels, f"{name}_auto",
+        lambda: linearizable(CASRegister()).check({}, hist, {}))
+    assert auto["valid"] == res["valid"], auto
     t1 = time.perf_counter()
     hr = wgl_host.analysis(CASRegister(), hist)
     host_s = time.perf_counter() - t1
     assert res["valid"] == hr.valid, (res["valid"], hr.valid)
-    emit(search_line(name, kernels, seen, passes, wall, ops=len(hist),
-                     valid=res["valid"], steps=res["steps"],
+    emit(search_line(name, kernels, seen, passes, wall, **beside,
+                     ops=len(hist), valid=res["valid"], steps=res["steps"],
                      host_valid=hr.valid, host_s=host_s))
 
 
@@ -948,10 +1076,11 @@ FIFO_SEEDS = (0, 1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 14, 15, 16, 17, 18)
 
 
 def phase_main_fifo_long(args, kernels):
-    """`independent.checker(linearizable(FIFOQueue()))` over 16 keys of
-    ~1,900-2,000 entries (n_pad 2048, past wgl_vec's 1024; rings of ~1,000
-    slots, n_state 1024): the whole batch in one wgl_search launch, every
-    key's verdict the host search's."""
+    """`independent.checker(linearizable(FIFOQueue(),
+    algorithm="gpu_search"))` over 16 keys of ~1,900-2,000 entries (n_pad
+    2048, past wgl_vec's 1024; rings of ~1,000 slots, n_state 1024): the
+    whole batch in one wgl_search launch, every key's verdict the host
+    search's; beside it, "auto"."""
     from jepsen_tpu_torch import independent
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.history import entries
@@ -964,9 +1093,16 @@ def phase_main_fifo_long(args, kernels):
                              seed=1000 * args.seed + s) for s in FIFO_SEEDS]
     hist = interleave_keys(per_key, 5)
     name = "main_fifo_long"
-    chk = independent.checker(linearizable(FIFOQueue()))
+    chk = independent.checker(linearizable(FIFOQueue(),
+                                           algorithm="gpu_search"))
     res, wall, seen, passes = search_cell(kernels, name, chk, hist)
     results = res["results"]
+    auto, beside = auto_beside(
+        kernels, f"{name}_auto",
+        lambda: independent.checker(linearizable(FIFOQueue())).check(
+            {}, hist, {}))
+    assert {k: r["valid"] for k, r in auto["results"].items()} \
+        == {k: r["valid"] for k, r in results.items()}
     t1 = time.perf_counter()
     subs = independent._split(hist, list(range(len(per_key))))
     sizes = []
@@ -979,7 +1115,8 @@ def phase_main_fifo_long(args, kernels):
         if hr.valid is False:
             assert results[k]["op"] == hr.op.to_dict(), k
     host_s = time.perf_counter() - t1
-    emit(search_line(name, kernels, seen, passes, wall, keys=len(per_key),
+    emit(search_line(name, kernels, seen, passes, wall, **beside,
+                     keys=len(per_key),
                      ops=len(hist), entries_per_key=sizes,
                      n_state=passes["wgl_search"][0]["n_state"],
                      verdicts=verdict_counts(r["valid"]
@@ -990,9 +1127,10 @@ def phase_main_fifo_long(args, kernels):
 def phase_main_queue_pcomp(args, kernels):
     """BASELINE config 4 as ONE history (bench.py queue-10k-single-pcomp):
     an unordered queue, 5 clients, 5,000 invocations over 2,000 values,
-    through `linearizable(UnorderedQueue()).check` under "auto": split by
-    value into micro-lanes, every one routed to wgl_vec (none to the
-    host), valid."""
+    through `linearizable(UnorderedQueue()).check` under "auto" with every
+    bar at 1 (the card half of the policy): split by value into
+    micro-lanes, every one routed to wgl_vec (none to the host), valid.
+    Beside it, the same check with the measured bars."""
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.history import entries
     from jepsen_tpu_torch.models import UnorderedQueue
@@ -1005,7 +1143,8 @@ def phase_main_queue_pcomp(args, kernels):
     lanes = pcomp.split(UnorderedQueue(), entries(hist))
     routes = chk._route(UnorderedQueue(), [es for _, es in lanes])
     assert set(routes) == {"gpu_vec"}, set(routes)
-    res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
+    with card_bars(1):
+        res, wall, seen = run_path(kernels, lambda: chk.check({}, hist, {}))
     launches = {k: v[0] for k, v in seen.items()}
     assert all((n > 0) == (k == "wgl_vec") for k, n in launches.items()), \
         launches
@@ -1014,8 +1153,12 @@ def phase_main_queue_pcomp(args, kernels):
     real = int(((captured[0][0][-1] & 0xFFFF) > 0).sum())
     assert real == sum(len(es) > 0 for _, es in lanes), (real, len(lanes))
     passes = replay(kernels, seen, "main_queue_pcomp")
+    auto, beside = auto_beside(kernels, "main_queue_pcomp_auto",
+                               lambda: chk.check({}, hist, {}))
+    assert auto["valid"] is True, auto
     kms = seen["wgl_vec"][1]
-    emit({"phase": "main_queue_pcomp", "ops": len(hist),
+    emit({"phase": "main_queue_pcomp", "bars": "1 (the card half of auto)",
+          **beside, "ops": len(hist),
           "micro_lanes": len(lanes),
           "longest_lane": max(len(es) for _, es in lanes),
           "routes": {r: routes.count(r) for r in set(routes)},
@@ -1380,17 +1523,468 @@ def phase_cycle(args, kernels, ck, name, n_ops, realtime=False,
           "host_s": host_s, "matches_plain": True})
 
 
+# -- the "auto" policy: crossover bars and whole-corpus parity ----------
+
+# lanes of K2's scalar crossover batch: main_single_10k-sized histories
+CROSSOVER_K2_LANES = 16
+# seeds of the queue crossover pools (each pool keeps its hard lanes) and
+# timed runs of each engine call (the median is kept): the measurement of
+# `--only crossover`, whose bars GPU_BATCH_MIN holds (the median of three
+# runs), and the shallower pass of the whole smoke run, which prints its
+# bars beside the constants
+CROSSOVER_QUEUE_SEEDS = 64
+CROSSOVER_REPS = 7
+SMOKE_CROSSOVER_QUEUE_SEEDS = 16
+SMOKE_CROSSOVER_REPS = 3
+
+
+def timed(fn, reps: int):
+    """Median wall seconds of fn() over `reps` calls (each ending in a
+    device sync), and the last result."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2], out
+
+
+def crossover_lanes(args, queue_seeds: int = CROSSOVER_QUEUE_SEEDS) -> dict:
+    """Per (card engine, model kind) key of GPU_BATCH_MIN, its model and
+    hard lanes of the engine's own range and that kind: lanes that
+    survive the native triage at TRIAGE_MAX_STEPS, and that `_route`
+    sends to that engine.
+      gpu_vec/scalar      register-late's keys (4096 keys of 64
+                          invocations, each impossible read at a random
+                          read);
+      gpu_row/scalar      main_long's keys (64 keys of 3000);
+      gpu_search/scalar   main_single_10k-sized histories;
+      gpu_search/fifo     main_fifo_long's 16 keys (~2000 entries);
+      gpu_vec/fifo        70-invocation fifo histories (rings <= 64);
+      gpu_vec/unordered   800-invocation unordered-queue histories, 2 %
+                          of dequeues corrupt;
+      gpu_search/unordered  2500-invocation ones, 1 % corrupt."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.history import entries
+    from jepsen_tpu_torch.models import CASRegister, FIFOQueue, UnorderedQueue
+    from jepsen_tpu_torch.ops import wgl_native
+    from jepsen_tpu_torch.workloads.queue import queue_history
+    from jepsen_tpu_torch.workloads.register import (keyed_history,
+                                                     register_history)
+
+    lin = lin_module()
+
+    def keyed(n_keys, n_ops, **kw):
+        hist = keyed_history(n_keys, n_ops, n_process=5, bad_every=8,
+                             seed=args.seed, **kw)
+        subs = independent._split(hist, list(range(n_keys)))
+        return [entries(subs[k]) for k in range(n_keys)]
+
+    def queues(n_ops, fifo, corrupt=0.0, seeds=None):
+        seeds = range(queue_seeds) if seeds is None else seeds
+        return [entries(queue_history(n_process=5, n_ops=n_ops, fifo=fifo,
+                                      corrupt=corrupt,
+                                      seed=1000 * args.seed + s))
+                for s in seeds]
+
+    pools = {
+        ("gpu_vec", "scalar"): (CASRegister(),
+                                keyed(4096, 64, bad_read="random")),
+        ("gpu_row", "scalar"): (CASRegister(), keyed(64, 3000)),
+        ("gpu_search", "scalar"): (CASRegister(), [entries(register_history(
+            n_process=5, n_ops=6000, seed=args.seed * 7919 + 9000 + i))
+            for i in range(CROSSOVER_K2_LANES)]),
+        ("gpu_search", "fifo-queue"): (FIFOQueue(), queues(
+            1980, True, seeds=FIFO_SEEDS)),
+        ("gpu_vec", "fifo-queue"): (FIFOQueue(), queues(70, True)),
+        ("gpu_vec", "unordered-queue"): (UnorderedQueue(),
+                                         queues(800, False, 0.02)),
+        ("gpu_search", "unordered-queue"): (UnorderedQueue(),
+                                            queues(2500, False, 0.01)),
+    }
+    assert set(pools) == set(lin.GPU_BATCH_MIN), set(lin.GPU_BATCH_MIN)
+    out = {}
+    for key, (model, ess) in pools.items():
+        tri = wgl_native.analysis_batch(model, ess,
+                                        max_steps=lin.TRIAGE_MAX_STEPS)
+        hard = [es for es, r in zip(ess, tri) if r.valid == "unknown"]
+        routes = lin.Linearizable(model)._route(model, hard)
+        assert set(routes) == {key[0]}, (key, set(routes))
+        assert lin.bar_kind(model) == key[1], key
+        out[key] = (model, hard)
+    return out
+
+
+def phase_crossover(args, reps: int = CROSSOVER_REPS,
+                    queue_seeds: int = CROSSOVER_QUEUE_SEEDS) -> dict:
+    """The bars of "auto", measured: for each (card engine, model kind)
+    key, the engine's whole `analysis_batch` (encode, launch, download:
+    what "auto" pays) timed at 1 hard lane and at the full batch of its
+    hard lanes, fitted as t_rt + L * slope_card; native's pooled
+    `analysis_batch` on the same lanes gives slope_native. The bar is
+    ceil(t_rt / (slope_native - slope_card)) where the card's slope is
+    lower, else None (native always). Prints the measured bars beside
+    GPU_BATCH_MIN."""
+    import math
+
+    from jepsen_tpu_torch.ops import wgl_native
+
+    lin = lin_module()
+    rows = {}
+    bars = {}
+    for (engine, kind), (model, lanes) in crossover_lanes(
+            args, queue_seeds).items():
+        mod = lin.ENGINES[engine]
+        n = len(lanes)
+        assert n >= 2, (engine, kind, n)
+
+        def card(ess):
+            return mod.analysis_batch(model, ess, device="cuda")
+
+        t1, _ = timed(lambda: card(lanes[:1]), reps)
+        tl, rs = timed(lambda: card(lanes), reps)
+        tn, rn = timed(lambda: wgl_native.analysis_batch(model, lanes), reps)
+        # a card unknown is one native finishes; a definite card verdict
+        # must be native's
+        assert all(a.valid == b.valid for a, b in zip(rs, rn)
+                   if a.valid != "unknown"), (engine, kind)
+        slope_card = (tl - t1) / (n - 1)
+        t_rt = t1 - slope_card
+        slope_native = tn / n
+        bar = (max(1, math.ceil(t_rt / (slope_native - slope_card)))
+               if slope_native > slope_card else None)
+        name = f"{engine}/{kind}"
+        bars[name] = bar
+        rows[name] = {"lanes": n, "longest": max(len(es) for es in lanes),
+                      "t_1_s": t1, "t_full_s": tl, "native_full_s": tn,
+                      "t_rt_s": t_rt, "slope_card_s": slope_card,
+                      "slope_native_s": slope_native, "bar": bar,
+                      "constant": lin.GPU_BATCH_MIN[(engine, kind)],
+                      "card_verdicts": verdict_counts(r.valid for r in rs),
+                      "native_verdicts": verdict_counts(r.valid
+                                                        for r in rn)}
+    emit({"phase": "crossover", "cpu_count": os.cpu_count(),
+          "native_workers": min(os.cpu_count() or 1,
+                                wgl_native.MAX_WORKERS),
+          "triage_max_steps": lin.TRIAGE_MAX_STEPS, "reps": reps,
+          "queue_seeds": queue_seeds,
+          "engines": rows, "measured_bars": bars,
+          "GPU_BATCH_MIN": {f"{e}/{k}": b
+                            for (e, k), b in lin.GPU_BATCH_MIN.items()}})
+    return bars
+
+
+CORPUS = os.path.join("tests", "fixtures", "linearizability_corpus.jsonl")
+
+
+def phase_corpus(args) -> None:
+    """Every case of the verdict corpus through each card engine that
+    takes it (gpu_vec, gpu_row, gpu_search: one analysis_batch per model
+    and engine, default budget), through the native engine and through
+    "auto" (one check a case): each verdict is the corpus's — a card
+    engine may instead answer "unknown" where its bounded memo runs out
+    (counted apart, with the cases named, as tools/replay_parity.py skips
+    deep cases for pallas_vec), "auto" and native never — and each
+    invalid case's op is the host search's (for "auto" on a history it
+    splits P-compositionally: the host search over the one lane of the
+    split that holds the op refutes that lane at that op). Cases whose
+    expected verdict is "unknown" are budgets of other engines and are
+    counted as skipped, as PARITY.json counts them. Prints the counts
+    beside PARITY.json's (pallas_vec 229, tpu 238, native 263)."""
+    from jepsen_tpu_torch import carry, models
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.history import entries
+    from jepsen_tpu_torch.models import jit as mjit
+    from jepsen_tpu_torch.ops import pcomp, wgl_host, wgl_native
+
+    lin = lin_module()
+    model_of = {"cas-register": models.CASRegister,
+                "register": models.Register, "mutex": models.Mutex,
+                "unordered-queue": models.UnorderedQueue,
+                "fifo-queue": models.FIFOQueue,
+                "multi-register": models.MultiRegister}
+    with open(os.path.join(HERE, CORPUS)) as fh:
+        cases = [json.loads(line) for line in fh if line.strip()]
+    with open(os.path.join(HERE, "PARITY.json")) as fh:
+        parity = json.load(fh)["engines"]
+    tally = {e: {"checked": 0, "matched": 0, "unknown": 0, "skipped": 0,
+                 "ops_equal": 0, "mismatches": [], "unknown_cases": []}
+             for e in (*lin.ENGINES, "native", "auto")}
+    lanes = {e: {} for e in lin.ENGINES}
+    prepared = []
+    for case in cases:
+        model = model_of[case["model"]]()
+        hist = carry.history_from_dicts(case["history"])
+        es = entries(hist)
+        jm = mjit.for_model(model)
+        definite = case["expected"] != "unknown"
+        host = wgl_host.analysis(model, es) if definite else None
+        prepared.append((case, model, hist, es, host))
+        for e, mod in lin.ENGINES.items():
+            if definite and jm is not None and mod.batch_eligible(jm, [es]):
+                lanes[e].setdefault(case["model"], []).append(
+                    len(prepared) - 1)
+            else:
+                tally[e]["skipped"] += 1
+
+    def record(e, i, r, ref=None) -> None:
+        """One engine's verdict on case i: the corpus's, or "unknown"
+        from a card engine whose bounded memo or step budget ran out
+        (counted, not a contradiction); an invalid verdict's op is the
+        host search's (`ref`'s when given)."""
+        case, _, _, _, host = prepared[i]
+        ref = host if ref is None else ref
+        t = tally[e]
+        t["checked"] += 1
+        if r["valid"] == case["expected"]:
+            t["matched"] += 1
+        elif r["valid"] == "unknown" and e in lin.ENGINES:
+            t["unknown"] += 1
+            t["unknown_cases"].append(case["name"])
+        else:
+            t["mismatches"].append((case["name"], r["valid"]))
+        if r["valid"] is False and ref.valid is False \
+                and r.get("op") == ref.op.to_dict():
+            t["ops_equal"] += 1
+        elif r["valid"] is False:
+            t["mismatches"].append((case["name"], "op"))
+
+    def split_ref(model, es, r):
+        """For an invalid "auto" result on a history that splits
+        P-compositionally, the host search over the lane of the split
+        that holds r's op (which must refute that lane at that op); None
+        when the history takes the whole search or r is not invalid."""
+        if r["valid"] is not False or not pcomp.eligible(model):
+            return None
+        lanes = pcomp.split(model, es)
+        if lanes is None:
+            return None
+        (lane,) = [(m, e) for m, e in lanes
+                   if any(o.index == r["op"]["index"] for o in e.invokes)]
+        return wgl_host.analysis(*lane)
+
+    t0 = time.perf_counter()
+    for e, by_model in lanes.items():
+        for name, idx in by_model.items():
+            rs = lin.ENGINES[e].analysis_batch(
+                model_of[name](), [prepared[i][3] for i in idx],
+                device="cuda")
+            for i, r in zip(idx, rs):
+                record(e, i, lin.Linearizable()._result(r))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i, (case, model, hist, es, host) in enumerate(prepared):
+        if host is None:
+            tally["auto"]["skipped"] += 1
+            tally["native"]["skipped"] += 1
+            continue
+        r = linearizable(model).check({}, hist, {})
+        record("auto", i, r, split_ref(model, es, r))
+        if wgl_native.eligible(model, es):
+            record("native", i, lin.Linearizable()._result(
+                wgl_native.analysis(model, es)))
+        else:
+            tally["native"]["skipped"] += 1
+    auto_s = time.perf_counter() - t0
+    reference = {"gpu_vec": ("pallas_vec", parity["pallas_vec"]["checked"]),
+                 "gpu_search": ("tpu", parity["tpu"]["checked"]),
+                 "native": ("native", parity["native"]["checked"])}
+    emit({"phase": "corpus", "cases": len(cases), "card_s": card_s,
+          "auto_s": auto_s, "engines": tally,
+          "reference_checked": reference})
+    for e, t in tally.items():
+        assert not t["mismatches"], (e, t["mismatches"][:8])
+        assert t["checked"] + t["skipped"] == len(cases), e
+
+
+# -- the fuzz simulator (K4's counterpart) ---------------------------------
+
+# bytes of one cluster's seven outputs per mop (kind, key, eff, pos, rlen)
+# and per slot (coord, failed)
+SIM_MOP_BYTES = 5 * 4
+SIM_SLOT_BYTES = 4 + 1
+
+
+def sim_bound(spec, S: int) -> tuple:
+    """(seconds for the bytes, seconds for the operations) of one launch
+    over S clusters: the schedules and seeds read once, the seven
+    outputs written once, over HBM bandwidth; per cluster the M^2 rank
+    and M^2 visibility loop steps and the M*N*F cascade steps, over the
+    int32 rate."""
+    M = spec.slots * spec.mops
+    nbytes = S * (4 * (6 * spec.faults + 1) + SIM_SLOT_BYTES * spec.slots
+                  + SIM_MOP_BYTES * M)
+    ops = S * (2 * M * M + M * spec.nodes * spec.faults)
+    return nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+
+
+def fuzz_batch(seed: int, n: int):
+    """The JAX package's bench batch (bench.py fuzz lane): DEFAULT_SPEC,
+    random_schedule(seed + i), wseed (i * 2654435761 + seed) mod 2^31."""
+    import numpy as np
+
+    from jepsen_tpu_torch.fuzz.schedule import DEFAULT_SPEC, random_schedule
+
+    scheds = np.stack([random_schedule(seed + i, DEFAULT_SPEC)
+                       for i in range(n)])
+    wseeds = (np.arange(n, dtype=np.int64) * 2654435761 + seed) & 0x7FFFFFFF
+    return scheds, wseeds
+
+
+def sim_vs_plain(kernel, scheds, wseeds, spec, chunk: int = 1024) -> dict:
+    """The kernel's launch on a batch replayed on the card and held bit
+    for bit, on all seven outputs, against sim_plain on the same tensors,
+    in chunks of `chunk` clusters; the kernel's median ms on the whole
+    batch, the plain version's ms summed over the chunks, and the
+    bound."""
+    import torch
+
+    sm = kernel.mod
+    s = torch.from_numpy(scheds).cuda()
+    w = torch.from_numpy(wseeds.astype("int32")).cuda()
+    ms, out = kernel_ms(sm, lambda: sm.sim(s, w, spec))
+    plain_ms = 0.0
+    for a in range(0, s.shape[0], chunk):
+        p_ms, want = cuda_ms(lambda: sm.sim_plain(s[a:a + chunk],
+                                                  w[a:a + chunk], spec))
+        plain_ms += p_ms
+        held(kernel, f"clusters {a}..{a + chunk}",
+             [out[k][a:a + chunk] for k in sm.OUTPUTS],
+             [want[k] for k in sm.OUTPUTS])
+    b_ms, b_by = bound_ms(*sim_bound(spec, s.shape[0]))
+    return {"clusters": s.shape[0], "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "matches_plain": True}
+
+
+def set_sim_row(kernel, cell, figs) -> None:
+    if kernel.ms is None:
+        kernel.ms, kernel.plain_ms = figs["kernel_ms"], figs["plain_ms"]
+        kernel.bound_ms, kernel.bound_by = figs["bound_ms"], figs["bound_by"]
+        kernel.shape = (f"[{figs['clusters']}, 8, 6] schedules: the {cell} "
+                        "cell's launch")
+    kernel.cells[cell] = figs
+
+
+def phase_fuzz(args, kernels, ck, kernel, name: str, n: int,
+               score: bool) -> None:
+    """The fuzz path on n seeded clusters (`fuzz_batch`): simulate_batch
+    on the card (one sim launch), and with `score` the scoring through
+    the cycle checker's closures on the card, as one main path; the
+    launch replayed against the plain version bit for bit, the closure
+    launches round by round, and the card's scores equal to the host
+    DFS engine's scores (anomaly types, cycle counts and coverage keys:
+    whole dicts)."""
+    from jepsen_tpu_torch.fuzz import score_batch, simulate_batch
+    from jepsen_tpu_torch.fuzz.schedule import DEFAULT_SPEC
+
+    scheds, wseeds = fuzz_batch(args.seed, n)
+    phases = {}
+
+    def path():
+        t0 = time.perf_counter()
+        res = simulate_batch(scheds, wseeds)
+        phases["simulate_s"] = time.perf_counter() - t0
+        if not score:
+            return res, None
+        t0 = time.perf_counter()
+        sc = score_batch(res, DEFAULT_SPEC, scheds=scheds)
+        phases["score_s"] = time.perf_counter() - t0
+        return res, sc
+
+    (res, sc), wall, seen = run_path(kernels, path)
+    launches = {k: v[0] for k, v in seen.items() if v[0]}
+    assert launches.get("sim") == 1, launches
+    assert len(res) == n
+    figs = sim_vs_plain(kernel, scheds, wseeds, DEFAULT_SPEC)
+    figs["launches"] = seen["sim"][0]
+    figs["path_kernel_ms"] = seen["sim"][1]
+    set_sim_row(kernel, name, figs)
+    line = {"phase": name, "clusters": n, "wall_s": wall, **phases,
+            "clusters_per_s": n / phases["simulate_s"],
+            "launches": launches, "sim": figs}
+    device_ms = figs["kernel_ms"]
+    if score:
+        t0 = time.perf_counter()
+        host = score_batch(res, DEFAULT_SPEC, scheds=scheds, engine="host")
+        line["host_score_s"] = time.perf_counter() - t0
+        assert sc == host, "card scores != host DFS scores"
+        buckets = replay_closure(ck, seen["unpack"][2])
+        closure_cell(ck, name, seen, buckets)
+        device_ms += sum(bk[k]["ms"] for bk in buckets
+                         for k in ("closure_word", "unpack", "matmul",
+                                   "or_threshold_pack") if k in bk)
+        types: dict = {}
+        for x in sc:
+            for t in x["anomaly-types"]:
+                types[t] = types.get(t, 0) + 1
+        line.update(anomalous=sum(not x["valid"] for x in sc),
+                    anomaly_types=types,
+                    coverage_keys=len({x["coverage"] for x in sc}),
+                    host_equal=True, closure_buckets=buckets)
+    line["device_ms"] = device_ms
+    line["device_idle"] = 1 - device_ms / 1000 / wall
+    emit(line)
+
+
+def phase_fuzz_fixtures(args, kernels, kernel) -> None:
+    """The 8 committed anomaly traces (tests/fixtures/fuzz_anomalies.jsonl)
+    in one simulate_batch on the card (held against the plain version),
+    then scored on the card: each trace's anomaly types, cycle count and
+    coverage key are the fixture's."""
+    import numpy as np
+
+    from jepsen_tpu_torch.fuzz import score_batch, simulate_batch
+    from jepsen_tpu_torch.fuzz.schedule import (DEFAULT_SPEC, SimSpec,
+                                                schedule_from_lists)
+
+    with open(os.path.join(HERE, "tests", "fixtures",
+                           "fuzz_anomalies.jsonl")) as fh:
+        cases = [json.loads(line) for line in fh if line.strip()]
+    assert all(SimSpec(**c["spec"]) == DEFAULT_SPEC for c in cases)
+    scheds = np.stack([schedule_from_lists(c["schedule"]) for c in cases])
+    wseeds = np.array([c["wseed"] for c in cases], dtype=np.int64)
+
+    def path():
+        res = simulate_batch(scheds, wseeds)
+        return score_batch(res, DEFAULT_SPEC, scheds=scheds)
+
+    sc, wall, seen = run_path(kernels, path)
+    assert seen["sim"][0] == 1
+    for c, x in zip(cases, sc):
+        assert x["anomaly-types"] == c["types"], (c["id"], x)
+        assert x["coverage"] == c["coverage"], (c["id"], x["coverage"])
+        assert x["cycle-count"] == c["cycle-count"], c["id"]
+    figs = sim_vs_plain(kernel, scheds, (wseeds & 0x7FFFFFFF), DEFAULT_SPEC)
+    figs["launches"] = seen["sim"][0]
+    kernel.cells["fuzz_fixtures"] = figs
+    emit({"phase": "fuzz_fixtures", "cases": len(cases), "wall_s": wall,
+          "launches": {k: v[0] for k, v in seen.items() if v[0]},
+          "types": [x["anomaly-types"] for x in sc], "sim": figs,
+          "matches_fixtures": True})
+
+
 def build_all(kernels) -> None:
-    """Build every kernel source at once (one nvcc each, started
-    together) and print each build's seconds and ptxas registers and
-    spills."""
+    """Build every kernel source at once (one nvcc each, and g++ for the
+    native search, started together) and print each build's seconds and
+    ptxas registers and spills."""
     from jepsen_tpu_torch.ops import _build
+
+    from jepsen_tpu_torch.ops import wgl_native
 
     mods = {k.mod.__name__.rsplit(".", 1)[1]: k.mod for k in kernels}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as ex:
+    with ThreadPoolExecutor(len(mods) + 1) as ex:
+        native = ex.submit(wgl_native.build)
         list(ex.map(lambda m: m.build("cuda"), mods.values()))
+        native.result()
     wall = time.perf_counter() - t0
+    emit({"phase": "build", "source": "wgl_native.cpp", "wall_s": wall,
+          "compiler": "g++", "seconds": _build.BUILD_SECONDS.get(
+              "wgl_native")})
     for name, mod in mods.items():
         log = _build.BUILD_LOG.get(name, "")
         emit({"phase": "build", "source": f"{name}.cu", "wall_s": wall,
@@ -1413,6 +2007,7 @@ def run(args) -> int:
         return 2
     sys.path.insert(0, HERE)
     from jepsen_tpu_torch.device import describe
+    from jepsen_tpu_torch.fuzz import sim as sim_mod
     from jepsen_tpu_torch.ops import closure, wgl_row, wgl_search, wgl_vec
 
     smi = nvidia_smi()
@@ -1431,8 +2026,13 @@ def run(args) -> int:
                                              f"{k3}:89"),
           "matmul": ClosureKernel("matmul", closure, f"{k3}:88",
                                   library=True)}
-    kernels = [vec, row, search, *ck.values()]
+    sim = Kernel("sim", sim_mod, "jepsen_tpu/fuzz/sim.py:115")
+    kernels = [vec, row, search, *ck.values(), sim]
     build_all(kernels)
+    if args.only == "crossover":
+        phase_crossover(args)
+        print(smi, flush=True)
+        return 0
 
     phase_kernel_vs_plain(args, vec)
     phase_row_vs_plain(args, row)
@@ -1445,11 +2045,22 @@ def run(args) -> int:
     # memo costs steps and verdicts may go unknown
     main_path(args, kernels, "main_register_late", 4096, 64, 8,
               host_sample=64, bad_read="random")
+    # the same under "auto" with the measured bars (native triage and
+    # finish below gpu_vec's bar), and with every bar at 1 (gpu_vec whole,
+    # then the native finish of its unknowns): no unknown either way
+    main_path(args, kernels, "main_register_late_auto", 4096, 64, 8,
+              host_sample=64, bad_read="random", algorithm="auto",
+              expect=None)
+    main_path(args, kernels, "main_register_late_card", 4096, 64, 8,
+              host_sample=64, bad_read="random", algorithm="auto",
+              expect=("wgl_vec",), bars=1)
     main_path(args, kernels, "main_widest", 512, 1000, 0, host_sample=8)
     # keys of ~2500 entries (a register test not split by key): past
-    # wgl_vec's 1024, so "auto" sends every lane to wgl_row
+    # wgl_vec's 1024, so wgl_row; beside it the same under "auto"
     main_path(args, kernels, "main_long", 64, 3000, 8, host_sample=8,
-              algorithm="auto", expect=("wgl_row",))
+              algorithm="gpu_row", expect=("wgl_row",))
+    main_path(args, kernels, "main_long_auto", 64, 3000, 8, host_sample=8,
+              algorithm="auto", expect=None)
     phase_mixed(args, kernels)
     phase_single(args, kernels)
     phase_lanes_per_block(vec)
@@ -1464,6 +2075,9 @@ def run(args) -> int:
         "us_per_step": first["us_per_step"],
         "scratch_bytes": first["per_launch"][0]["scratch_bytes"]}
 
+    phase_crossover(args, SMOKE_CROSSOVER_REPS, SMOKE_CROSSOVER_QUEUE_SEEDS)
+    phase_corpus(args)
+
     phase_closure_vs_plain(args, ck)
     # the JAX package's list-append-5k bench history (bench.py:836): 2505
     # txns, one component of 2496 and two of 2-3 (the injections)
@@ -1475,6 +2089,13 @@ def run(args) -> int:
     phase_cycle(args, kernels, ck, "cycle_append_rt", 5000, realtime=True,
                 components=1,
                 expect=("unpack", "or_threshold_pack", "matmul"))
+
+    # the fuzz path: the JAX package's bench batch of 1024 clusters,
+    # simulated and scored on the card; 16,384 clusters for throughput;
+    # the committed anomaly traces
+    phase_fuzz(args, kernels, ck, sim, "fuzz_sim_1024", 1024, score=True)
+    phase_fuzz(args, kernels, ck, sim, "fuzz_sim_16384", 16384, score=False)
+    phase_fuzz_fixtures(args, kernels, sim)
 
     mm = ck["matmul"]
     emit({"kernels": [k.row() for k in kernels if not k.library],
@@ -1491,6 +2112,9 @@ def run(args) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("crossover",),
+                    help="build, run this phase alone and print its line "
+                    "and the nvidia-smi line (no smoke result)")
     return run(ap.parse_args())
 
 

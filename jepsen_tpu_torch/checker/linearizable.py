@@ -15,45 +15,121 @@ Algorithms:
              (the counterpart of the JAX package's "tpu", jepsen_tpu/
              ops/wgl_tpu.py). Every model with a kernel encoding; the
              whole batch in one call.
+  "native"   ops/wgl_native.py — the C++ search on the host (the same
+             algorithm and search order as "host", no bound on its
+             memo), for the models with an int32 encoding; lanes over a
+             thread pool.
   "host"     ops/wgl_host.py — the Python search (knossos.wgl analog).
   "auto"     first the P-compositional split (ops/pcomp.py) where the
-             model declares one and every history decomposes (the
-             unordered queue by value, single-key multi-register txns
-             by key): every item's micro-lanes flatten into one batch
-             per sub-model, and each item's verdict recombines from its
-             own lanes. Then per lane for the scalar models: gpu_vec for
-             the lanes it takes, gpu_row for the other int32-encodable
-             lanes up to 4064 entries, gpu_search for the longer ones,
-             host for the rest; the queue models go to gpu_vec when the
-             whole batch is eligible, else to gpu_search (else host).
-             The routes are chosen from eligibility BEFORE anything
-             launches, each engine gets its lanes in one call, and a
-             failing kernel raises: nothing falls back.
+             model declares one and every history decomposes: every
+             item's micro-lanes flatten into one batch per sub-model,
+             and each item's verdict recombines from its own lanes.
+             Then the batched policy of the JAX package
+             (`jepsen_tpu/checker/linearizable.py` `_auto_results`),
+             with the card in the TPU's place (`_auto_results` below):
+             `_route` names each lane's card engine; a group of lanes
+             of one engine at or past that engine's bar for the
+             model's kind (GPU_BATCH_MIN) goes to the card whole; the rest are
+             triaged by the native engine at TRIAGE_MAX_STEPS, and
+             their hard tail is finished by native with no step budget,
+             or goes to its card engine when the tail of its group
+             reaches the bar. Lanes native cannot take go to their card
+             engine, else to the host search. A lane a card engine left
+             "unknown" (its bounded memo or step budget ran out) that
+             native takes is finished by native (NATIVE_FINISH counts
+             them). Every route is decided from eligibility and from
+             results, never from a failure: a kernel or a native
+             library that fails raises. A single `check` is a batch of
+             one.
+
+`test["deadline"]` (an absolute time.monotonic() instant) is checked
+before every engine call: past it, the lanes that call would have taken
+come back {"valid": "unknown", "error": "deadline"}; a call that started
+is not interrupted. The micro-lanes of one check share one time_limit.
 
 Results have the JAX package's shape: valid, op + final_paths for an
-invalid history (truncated to TRUNCATE ops), cache_size, steps.
+invalid history (truncated to TRUNCATE ops), error for an unknown one
+that has a reason, cache_size, steps.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
+from ..device import resolve
 from ..history import entries as make_entries
 from ..models import Model
 from ..models import jit as mjit
-from ..ops import pcomp, wgl_host, wgl_row, wgl_search, wgl_vec
+from ..ops import pcomp, wgl_host, wgl_native, wgl_row, wgl_search, wgl_vec
 from ..ops.common import STEPS_PER_SEC_ESTIMATE
 from . import Checker
 
 TRUNCATE = 10
-ALGORITHMS = ("auto", "gpu_vec", "gpu_row", "gpu_search", "host")
+ALGORITHMS = ("auto", "gpu_vec", "gpu_row", "gpu_search", "native", "host")
 ENGINES = {"gpu_vec": wgl_vec, "gpu_row": wgl_row, "gpu_search": wgl_search}
+
+#: the native triage's step budget under "auto" (the JAX package's
+#: TRIAGE_MAX_STEPS): a typical valid lane resolves well inside it
+TRIAGE_MAX_STEPS = 2_000
+
+#: the model kinds the bars are keyed by beside the card engine: each
+#: queue model apart; the models with a one-word state (cas-register,
+#: register, mutex) as one, "scalar"
+QUEUE_KINDS = ("unordered-queue", "fifo-queue")
+
+#: per (card engine, model kind) that "auto" can route, the fewest lanes
+#: of one batch (or of its hard tail) that "auto" sends to the card rather
+#: than to the native engine: ceil(t_rt / (slope_native - slope_card))
+#: from `chip_smoke.py --only crossover`, on hard lanes of that engine's
+#: range and that kind, the median of three runs (None: the card's
+#: per-lane slope is not below native's, so native always; in the
+#: median None ranks above every number). Measured on NVIDIA H100 80GB
+#: HBM3, power limit 700.00 W, with os.cpu_count() 8 on its host; the
+#: three runs' bars in the comment.
+GPU_BATCH_MIN = {
+    ("gpu_vec", "scalar"): 4849,              # 17880, 3840, 4849
+    ("gpu_vec", "unordered-queue"): None,     # None, None, None
+    ("gpu_vec", "fifo-queue"): None,          # None, None, None
+    ("gpu_row", "scalar"): 4,                 # 5, 4, 3
+    ("gpu_search", "scalar"): 7,              # 7, 10, 5
+    ("gpu_search", "unordered-queue"): 1,     # 1, 1, 1
+    ("gpu_search", "fifo-queue"): 1,          # 1, 1, None
+}
+
+#: lanes a card engine returned "unknown" without an error that the
+#: native engine then finished under "auto", since the process started
+#: (chip_smoke.py sets it to 0 before a path and reads it after)
+NATIVE_FINISH = 0
+
+
+def bar_kind(model) -> str:
+    """The model kind of GPU_BATCH_MIN's keys: a queue model's kernel
+    name, else "scalar"."""
+    name = getattr(mjit.for_model(model), "name", None)
+    return name if name in QUEUE_KINDS else "scalar"
+
+
+def _card_present(device) -> bool:
+    """Does the checker's device resolve to the card? (None means CUDA
+    and raises CudaUnavailable without it; "cpu" is a host without a
+    card, whose card engines run their plain versions.)"""
+    return resolve(device).type == "cuda"
+
+
+def _expired(budget) -> bool:
+    return budget is not None and time.monotonic() >= budget
+
+
+def _deadline_result():
+    return wgl_host.WGLResult(valid="unknown", error="deadline")
 
 
 def _combine_lanes(rs: list):
     """One WGLResult for a P-compositionally decomposed history: valid
     iff every lane is (locality); an invalid lane's counterexample is the
-    history's (its ops are real ops of the full history); steps sum."""
+    history's (its ops are real ops of the full history); steps sum; an
+    unknown lane's error survives."""
     steps = sum(getattr(r, "steps", 0) or 0 for r in rs)
     for r in rs:
         if r.valid is False:
@@ -61,7 +137,9 @@ def _combine_lanes(rs: list):
                 valid=False, op=r.op,
                 best_linearization=r.best_linearization, steps=steps)
     if any(r.valid == "unknown" for r in rs):
-        return wgl_host.WGLResult(valid="unknown", steps=steps)
+        error = next((r.error for r in rs
+                      if r.valid == "unknown" and r.error), None)
+        return wgl_host.WGLResult(valid="unknown", steps=steps, error=error)
     return wgl_host.WGLResult(valid=True, steps=steps)
 
 
@@ -94,7 +172,9 @@ class Linearizable(Checker):
         return max(1000, int(self.time_limit * STEPS_PER_SEC_ESTIMATE))
 
     def _route(self, model, ess) -> list[str]:
-        """The engine of each lane, decided before anything launches."""
+        """The engine of each lane, decided before anything launches:
+        under "auto", the card engine that takes it (or the host), by
+        which "auto" groups lanes and holds them against GPU_BATCH_MIN."""
         if self.algorithm != "auto":
             return [self.algorithm] * len(ess)
         jm = mjit.for_model(model)
@@ -111,24 +191,132 @@ class Linearizable(Checker):
                 else "gpu_search" if wgl_search.batch_eligible(jm, [es])
                 else "host" for es in ess]
 
-    def _results(self, model, ess) -> list:
+    @staticmethod
+    def _budget(test):
+        """The caller's absolute time.monotonic() verdict budget,
+        `test["deadline"]`, or None."""
+        b = (test or {}).get("deadline")
+        return None if b is None else float(b)
+
+    def _deadline(self):
+        """One wall-clock deadline for the micro-lanes of one check: they
+        share one time_limit (per-lane limits would multiply it by the
+        lane count)."""
+        return (None if self.time_limit is None
+                else time.monotonic() + self.time_limit)
+
+    def _lane_limit(self, deadline, budget):
+        """The time limit of a host or native search: the shared
+        deadline's remainder when there is one, else time_limit; capped
+        by the budget's remainder."""
+        now = time.monotonic()
+        lim = (self.time_limit if deadline is None
+               else max(0.001, deadline - now))
+        if budget is not None:
+            rem = max(0.001, budget - now)
+            lim = rem if lim is None else min(lim, rem)
+        return lim
+
+    def _call(self, engine, model, ess, budget=None, time_limit=None,
+              max_steps=None, jms=None) -> list:
+        """One engine call over `ess`; when the budget has passed, none:
+        every lane comes back unknown with error "deadline". The card
+        engines take time_limit as a step budget; native and the host
+        search take `time_limit` (and native `max_steps`, and `jms`, the
+        lanes' JitModels where they are already resolved)."""
+        if not ess:
+            return []
+        if _expired(budget):
+            return [_deadline_result() for _ in ess]
+        if engine in ENGINES:
+            return ENGINES[engine].analysis_batch(
+                model, ess, max_steps=self._max_steps(), device=self.device)
+        if engine == "native":
+            return wgl_native.analysis_batch(
+                model, ess, max_steps=max_steps, time_limit=time_limit,
+                jms=jms)
+        return [wgl_host.analysis(model, es, time_limit=time_limit)
+                for es in ess]
+
+    def _results(self, model, ess, deadline=None, budget=None) -> list:
+        if self.algorithm == "auto":
+            return self._auto_results(model, ess, deadline, budget)
+        return self._call(self.algorithm, model, ess, budget,
+                          self._lane_limit(deadline, budget))
+
+    def _auto_results(self, model, ess, deadline=None, budget=None) -> list:
+        """The batched "auto" policy (module docstring): whole groups to
+        the card at their bar, native triage and finish for the rest, the
+        hard tail of a group to the card at its bar, lanes native cannot
+        take to their card engine or the host, and card unknowns that
+        native takes finished by native."""
+        global NATIVE_FINISH
+        card = _card_present(self.device)
+        kind = bar_kind(model)
         routes = self._route(model, ess)
-        out: list = [None] * len(ess)
-        for engine in ("gpu_vec", "gpu_row", "gpu_search", "host"):
-            idx = [i for i, r in enumerate(routes) if r == engine]
-            if not idx:
-                continue
-            sub = [ess[i] for i in idx]
-            if engine == "host":
-                rs = [wgl_host.analysis(model, es, time_limit=self.time_limit)
-                      for es in sub]
+        n = len(ess)
+
+        def bar(engine):
+            b = GPU_BATCH_MIN.get((engine, kind))
+            return b if card and b is not None else None
+
+        def at_bar(engine, idx) -> bool:
+            b = bar(engine)
+            return b is not None and len(idx) >= b
+
+        to_card: dict = {e: [] for e in ENGINES}
+        for e in ENGINES:
+            idx = [i for i in range(n) if routes[i] == e]
+            if idx and at_bar(e, idx):
+                to_card[e] = idx
+        taken = {i for idx in to_card.values() for i in idx}
+        # each lane's native encoding, resolved once for every native call
+        jms = [wgl_native.resolve(model, es) for es in ess]
+        left = [i for i in range(n) if i not in taken]
+        native_ok = [i for i in left if jms[i] is not None]
+        others = [i for i in left if jms[i] is None]
+        out: list = [None] * n
+        hard = []
+        for i, r in zip(native_ok, self._call(
+                "native", model, [ess[i] for i in native_ok], budget,
+                self._lane_limit(deadline, budget),
+                max_steps=TRIAGE_MAX_STEPS, jms=[jms[i] for i in native_ok])):
+            if r.valid == "unknown" and not r.error:
+                hard.append(i)
             else:
-                rs = ENGINES[engine].analysis_batch(
-                    model, sub, max_steps=self._max_steps(),
-                    device=self.device)
-            for i, r in zip(idx, rs):
                 out[i] = r
+        finish = [i for i in hard if routes[i] not in ENGINES]
+        for e in ENGINES:
+            tail = [i for i in hard if routes[i] == e]
+            if tail and at_bar(e, tail):
+                to_card[e] += tail
+            else:
+                finish += tail
+        self._fill(out, finish, "native", model, ess, deadline, budget, jms)
+        host = []
+        for i in others:
+            (to_card[routes[i]] if routes[i] in ENGINES else host).append(i)
+        for e, idx in to_card.items():
+            self._fill(out, sorted(idx), e, model, ess, deadline, budget)
+        self._fill(out, host, "host", model, ess, deadline, budget)
+        # a card engine's unknown without an error ran out of its memo or
+        # its step budget: native finishes the lanes it takes
+        redo = [i for idx in to_card.values() for i in idx
+                if out[i].valid == "unknown" and not out[i].error
+                and jms[i] is not None]
+        NATIVE_FINISH += len(redo)
+        self._fill(out, sorted(redo), "native", model, ess, deadline, budget,
+                   jms)
         return out
+
+    def _fill(self, out, idx, engine, model, ess, deadline, budget,
+              jms=None) -> None:
+        """out[i] for every i of idx, from one call of `engine`."""
+        for i, r in zip(idx, self._call(
+                engine, model, [ess[i] for i in idx], budget,
+                self._lane_limit(deadline, budget),
+                jms=None if jms is None else [jms[i] for i in idx])):
+            out[i] = r
 
     def _split(self, model, ess):
         """Under "auto", every history's P-compositional lanes flattened
@@ -148,29 +336,33 @@ class Linearizable(Checker):
             flat.extend(lanes)
         return flat, spans
 
-    def _component_results(self, comp_lanes) -> list:
+    def _component_results(self, comp_lanes, budget=None) -> list:
         """WGLResults for a flat list of (sub_model, Entries) lanes, one
-        batch (routed as any batch) per distinct sub-model."""
+        batch (routed as any batch) per distinct sub-model, all under
+        one shared deadline."""
+        deadline = self._deadline()
         out: list = [None] * len(comp_lanes)
         for m, idxs in pcomp.group_lanes(comp_lanes).items():
-            rs = self._results(m, [comp_lanes[i][1] for i in idxs])
+            rs = self._results(m, [comp_lanes[i][1] for i in idxs],
+                               deadline, budget)
             for i, r in zip(idxs, rs):
                 out[i] = r
         return out
 
-    def _check_all(self, model, ess) -> list:
+    def _check_all(self, model, ess, budget=None) -> list:
         """One WGLResult per history: through the P-compositional split
         when it applies, else through the per-lane routes."""
         split = self._split(model, ess)
         if split is None:
-            return self._results(model, ess)
+            return self._results(model, ess, budget=budget)
         flat, spans = split
-        rs = self._component_results(flat)
+        rs = self._component_results(flat, budget)
         return [_combine_lanes(rs[a:b]) for a, b in spans]
 
     def check(self, test, history, opts=None) -> dict:
         model = self._model(test)
-        (r,) = self._check_all(model, [make_entries(list(history))])
+        (r,) = self._check_all(model, [make_entries(list(history))],
+                               self._budget(test))
         return self._result(r)
 
     def check_batch(self, test, items) -> list[dict]:
@@ -181,7 +373,8 @@ class Linearizable(Checker):
         ess = [make_entries(list(h)) for h, _ in items]
         if not ess:
             return []
-        return [self._result(r) for r in self._check_all(model, ess)]
+        return [self._result(r)
+                for r in self._check_all(model, ess, self._budget(test))]
 
     def _result(self, r) -> dict:
         d: dict[str, Any] = {"valid": r.valid}
@@ -192,6 +385,8 @@ class Linearizable(Checker):
                 d["final_paths"] = [
                     [o.to_dict() for o in r.best_linearization[:TRUNCATE]]
                 ]
+        if r.valid == "unknown" and r.error:
+            d["error"] = r.error
         d["cache_size"] = r.cache_size
         d["steps"] = r.steps
         return d

@@ -93,6 +93,14 @@ class Op:
         )
 
 
+def invoke_op(process, f, value=None, **kw) -> Op:
+    return Op(process, "invoke", f, value, **kw)
+
+
+def ok_op(process, f, value=None, **kw) -> Op:
+    return Op(process, "ok", f, value, **kw)
+
+
 def op(d) -> Op:
     return d if isinstance(d, Op) else Op.from_dict(d)
 

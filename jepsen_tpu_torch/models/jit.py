@@ -91,6 +91,14 @@ class JitModel:
                 return False
         return True
 
+    def init_vec(self, width: int) -> np.ndarray:
+        """The initial state as a vector of `width` int32 words (the
+        scalar models use word 0)."""
+        assert width >= 1
+        out = np.zeros(width, np.int32)
+        out[0] = self.init_state
+        return out
+
     def encode_entry(self, fname, val, codec) -> tuple:
         """-> (f_code, v1, v2) for one entry. Ops the host model can
         NEVER linearize (unknown :f, or a cas with unknown arguments)
@@ -299,6 +307,9 @@ class QueueJitModel:
         except AttributeError:
             pass
         return ok
+
+    def init_vec(self, width: int) -> np.ndarray:
+        return np.zeros(width, np.int32)
 
     def encode_entry(self, fname, val, codec) -> tuple:
         if fname not in self.fs:

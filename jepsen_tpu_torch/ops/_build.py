@@ -12,6 +12,11 @@ edited source or another card builds anew and an unchanged one is
 reused. A failed build raises with nvcc's stderr: nothing falls back.
 Different sources build at the same time when called from different
 threads (one lock per library).
+
+Host sources (`csrc/*.cpp`, the native search engine) take the g++
+route through `load_host`, into the same cache keyed the same way:
+
+    g++ -O2 -shared -fPIC -o <build dir>/<name>-<digest>.so csrc/<name>.cpp
 """
 
 from __future__ import annotations
@@ -66,14 +71,31 @@ def flags(capability: tuple) -> list:
         "-Xptxas", "-v"]
 
 
+#: g++ flags of a host library
+HOST_FLAGS = ["-O2", "-shared", "-fPIC"]
+
+
 def load(name: str, capability: tuple, signatures: dict) -> ctypes.CDLL:
     """The library built from csrc/<name>.cu for `capability`, building
     it if needed. `signatures` maps each C entry point to (argtypes,
     restype)."""
-    src_path = os.path.join(CSRC, f"{name}.cu")
+    return _load(name, f"{name}.cu", [nvcc_path()], flags(capability),
+                 capability, signatures)
+
+
+def load_host(name: str, signatures: dict) -> ctypes.CDLL:
+    """The host library built from csrc/<name>.cpp with g++, building it
+    if needed; raises BuildError when g++ is missing or fails."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise BuildError("g++ not found (the native engine needs it)")
+    return _load(name, f"{name}.cpp", [gxx], HOST_FLAGS, None, signatures)
+
+
+def _load(name, source, compiler, fl, capability, signatures):
+    src_path = os.path.join(CSRC, source)
     with open(src_path, "rb") as fh:
         src = fh.read()
-    fl = flags(capability)
     digest = hashlib.sha256(
         src + repr((fl, capability)).encode()).hexdigest()[:16]
     so_path = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
@@ -88,15 +110,15 @@ def load(name: str, capability: tuple, signatures: dict) -> ctypes.CDLL:
         else:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so_path}.{os.getpid()}.tmp"
-            cmd = [nvcc_path()] + fl + ["-o", tmp, src_path]
+            cmd = compiler + fl + ["-o", tmp, src_path]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             BUILD_SECONDS[name] = time.perf_counter() - t0
             BUILD_LOG[name] = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise BuildError(
-                    f"nvcc failed ({proc.returncode}) building {name}:\n"
-                    + proc.stderr)
+                    f"{os.path.basename(compiler[0])} failed "
+                    f"({proc.returncode}) building {name}:\n" + proc.stderr)
             os.replace(tmp, so_path)
         lib = ctypes.CDLL(so_path)
         for fn_name, (argtypes, restype) in signatures.items():

@@ -38,6 +38,7 @@ class WGLResult:
     final_state: Any = None
     cache_size: int = 0
     steps: int = 0
+    error: str | None = None  # why an "unknown" verdict degraded
 
     def to_dict(self) -> dict:
         d = {"valid": self.valid}
@@ -189,7 +190,12 @@ def check(model: Model, history, **kw) -> dict:
 def recover_invalid(model: Model, es) -> WGLResult:
     """Re-run the search on the host for a lane a kernel already proved
     invalid, to recover its counterexample (`op`, best linearization);
-    the verdicts agree by construction. The JAX package prefers its
-    native C++ engine here and falls back to the Python search; the port
-    has no native engine yet, so this is the Python search."""
+    the verdicts agree by construction. A lane the native engine takes
+    (ops/wgl_native.resolve) goes there, any other to the Python search.
+    The choice is made from eligibility: a native failure raises."""
+    from . import wgl_native
+
+    jm = wgl_native.resolve(model, es)
+    if jm is not None:
+        return wgl_native.analysis_batch(model, [es], jms=[jm])[0]
     return analysis(model, es)

@@ -3,6 +3,7 @@ package: `independent.checker(linearizable(...))` result dicts, the
 verdict corpus, the host search, the import boundary and the device
 rule. Verdicts and step counts are exact (tolerance zero)."""
 
+import importlib
 import json
 import os
 import subprocess
@@ -28,6 +29,8 @@ from jepsen_tpu_torch.workloads.register import keyed_history, register_history
 
 from helpers import random_queue_history, random_register_history
 
+# the module (jepsen_tpu_torch.checker's `linearizable` is the function)
+lin_mod = importlib.import_module("jepsen_tpu_torch.checker.linearizable")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(REPO, "tests", "fixtures",
                       "linearizability_corpus.jsonl")
@@ -38,6 +41,18 @@ MODELS = {
     "unordered-queue": (jmodels.UnorderedQueue, tmodels.UnorderedQueue),
     "fifo-queue": (jmodels.FIFOQueue, tmodels.FIFOQueue),
 }
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """Steer "auto" to the card half of its policy on the CPU: the card
+    counts as present and every engine's bar is 1, so every group of
+    lanes goes to its card engine (`_route`) whole, with no native
+    triage (the JAX package's tests steer its policy the same way:
+    tests/test_calibrate.py monkeypatches the bar and `_tpu_backend`)."""
+    monkeypatch.setattr(lin_mod, "_card_present", lambda device: True)
+    monkeypatch.setattr(lin_mod, "GPU_BATCH_MIN",
+                        {k: 1 for k in lin_mod.GPU_BATCH_MIN})
 
 
 def normalise(d):
@@ -58,7 +73,7 @@ def jax_keyed(hist):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_independent_results_match_jax(seed):
+def test_independent_results_match_jax(seed, card):
     """The slice end to end: the same keyed history through the JAX
     package's independent pallas check and the port's gpu_vec check
     (plain version on the CPU) gives the same result dicts."""
@@ -179,7 +194,7 @@ def test_host_search_matches_jax(seed):
         assert normalise(td) == normalise(jd)
 
 
-def test_auto_routes_ineligible_lanes_to_host():
+def test_auto_routes_ineligible_lanes_to_host(card):
     """A payload with no int32 encoding makes the batch ineligible:
     "auto" takes the host search (decided before any launch) and still
     gets the verdicts right; "gpu_vec" refuses it."""
@@ -205,7 +220,7 @@ def mixed_history(seed):
                          seed=seed)
 
 
-def test_auto_routes_each_lane():
+def test_auto_routes_each_lane(card):
     """"auto" decides per lane for the scalar models, before anything
     launches: gpu_vec up to 1024 entries, gpu_row up to 4064, gpu_search
     past that, the host without an int32 encoding. The queue models keep
@@ -229,7 +244,7 @@ def test_auto_routes_each_lane():
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_mixed_keys_match_jax_host(seed):
+def test_mixed_keys_match_jax_host(seed, card):
     """Short and long keys in one keyed history: the port's auto check
     (gpu_vec and gpu_row, plain versions on the CPU) gives the JAX
     package's host check's verdicts and counterexamples, and the short
@@ -260,7 +275,7 @@ def test_mixed_keys_match_jax_host(seed):
         assert tr["results"][k] == alone["results"][k]
 
 
-def test_single_long_history_routes_to_gpu_row():
+def test_single_long_history_routes_to_gpu_row(card):
     hist = register_history(n_process=5, n_ops=1500, seed=3)
     assert 1024 < len(make_entries(hist)) <= wgl_row.MAX_PAD
     wgl_row.CAPTURE = []
@@ -277,7 +292,7 @@ def test_single_long_history_routes_to_gpu_row():
     assert wgl_host.analysis(tmodels.CASRegister(), hist).valid is True
 
 
-def test_row_kernel_failure_propagates(monkeypatch):
+def test_row_kernel_failure_propagates(monkeypatch, card):
     """A failing gpu_row engine raises through the check: its lanes do
     not fall back to the host search."""
     def boom(*a, **kw):
@@ -309,21 +324,34 @@ def test_default_device_is_cuda():
 
 
 def test_port_imports_no_jax():
-    """CPU checks through jepsen_tpu_torch (linearizable on gpu_vec,
-    gpu_row, gpu_search and the P-compositional split, and cycle) load
-    neither jax nor any
+    """CPU checks through jepsen_tpu_torch (linearizable on native and
+    under "auto", on gpu_vec, gpu_row, gpu_search and the
+    P-compositional split with "auto" steered to the card engines, and
+    cycle; the fuzz simulator and its scoring) load neither jax nor any
     module of the JAX package (jepsen_tpu_torch's own name shares the
     jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
         import sys
         from jepsen_tpu_torch import independent
+        import importlib
         from jepsen_tpu_torch.checker.linearizable import linearizable
+        lin_mod = importlib.import_module(
+            "jepsen_tpu_torch.checker.linearizable")
         from jepsen_tpu_torch.models import CASRegister
+        from jepsen_tpu_torch.ops import wgl_native
         from jepsen_tpu_torch.workloads.register import keyed_history
         h = keyed_history(4, 6, n_process=2, bad_every=2, seed=0)
-        r = independent.checker(linearizable(
-            CASRegister(), device="cpu")).check({}, h, {})
-        assert r["valid"] is False, r
+        for alg in ("auto", "native"):
+            r = independent.checker(linearizable(
+                CASRegister(), algorithm=alg, device="cpu")).check({}, h, {})
+            assert r["valid"] is False, r
+        from jepsen_tpu_torch.fuzz import (random_schedule, score_batch,
+                                           simulate_batch)
+        res = simulate_batch([random_schedule(i) for i in range(4)],
+                             list(range(4)), device="cpu")
+        assert len(score_batch(res, engine="host")) == 4
+        lin_mod._card_present = lambda device: True
+        lin_mod.GPU_BATCH_MIN = {k: 1 for k in lin_mod.GPU_BATCH_MIN}
         from jepsen_tpu_torch.ops import wgl_row
         from jepsen_tpu_torch.workloads.register import register_history
         wgl_row.CAPTURE = []
@@ -429,7 +457,7 @@ def to_port(hist):
     return carry.history_from_dicts([o.to_dict() for o in hist])
 
 
-def test_auto_sends_long_scalar_lanes_to_gpu_search():
+def test_auto_sends_long_scalar_lanes_to_gpu_search(card):
     """One cas-register history of ~4,600 entries (past wgl_row's 4064)
     under "auto": one wgl_search launch, nothing else; the verdict and
     counterexample are the JAX package's K2 check's, also with an
@@ -450,7 +478,7 @@ def test_auto_sends_long_scalar_lanes_to_gpu_search():
     assert tr["valid"] is False
 
 
-def test_auto_sends_wide_fifo_rings_to_gpu_search():
+def test_auto_sends_wide_fifo_rings_to_gpu_search(card):
     """A fifo-queue batch with a lane of more than 64 enqueues (past
     wgl_vec's ring) goes to wgl_search whole under "auto", with the
     verdicts of the JAX package's K2 check."""
@@ -474,7 +502,7 @@ def test_auto_sends_wide_fifo_rings_to_gpu_search():
 
 @pytest.mark.parametrize("corrupt", [0.0, 0.1])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_pcomp_queue_matches_jax(seed, corrupt):
+def test_pcomp_queue_matches_jax(seed, corrupt, card):
     """One unordered-queue history of 300 invocations over 60 values
     under "auto": split by value into micro-lanes that all run in one
     wgl_vec search (no host route), with the JAX package's auto
@@ -492,7 +520,7 @@ def test_pcomp_queue_matches_jax(seed, corrupt):
         assert tr["valid"] is True
 
 
-def test_pcomp_batch_flattens_every_item():
+def test_pcomp_batch_flattens_every_item(card):
     """independent.checker over keyed queue histories: every key's
     micro-lanes in one wgl_vec search, each key's verdict recombined from
     its own lanes; the dicts' verdicts, ops and final paths equal the JAX
@@ -520,7 +548,7 @@ def test_pcomp_batch_flattens_every_item():
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_pcomp_multi_register_matches_jax(seed):
+def test_pcomp_multi_register_matches_jax(seed, card):
     """Single-key multi-register txns under "auto": split by key into
     Register lanes on wgl_vec; the JAX package's auto verdict. A history
     with a two-key txn does not split: the host search, in both."""
