@@ -13,7 +13,8 @@ port's main paths — `independent.checker(linearizable(CASRegister(),
 checks (short lanes through wgl_vec, long lanes through wgl_row, and a
 history mixing both), and one long single history; through wgl_search
 the 50k-op stress history (and it with a planted impossible read), a
-10k-op single history and 16 long fifo-queue keys; and one 10k-op
+10k-op single history, 16 long fifo-queue keys and the 4096 register
+keys (one launch of 4096 lanes); and one 10k-op
 unordered-queue history split P-compositionally into micro-lanes on
 wgl_vec — and checks the verdicts (against the host search's). Cells
 that exist to drive a kernel name its engine (or set every bar of
@@ -32,7 +33,11 @@ and read just after, and every search it launched is replayed through
 the kernel and the plain version (lanes that ran past PLAIN_STEP_LIMIT
 steps under the common LONG_CAP). wgl_vec's widest main-path launches
 run again at other lanes-a-block counts beside its plan's
-(SWEEP_LANES), bit for bit equal. Then the closure kernels
+(SWEEP_LANES), bit for bit equal; wgl_search is held against its plain
+version at every tier of its shared-memory plan (the n_pads on each side
+of each tier boundary, all five models, memos of 8192 and of 8 slots,
+and of 2^17 slots, whose fingerprints stay in device memory), and a plan
+past the device's shared-memory limit must raise. Then the closure kernels
 (closure_word, unpack, or_threshold_pack; the product is torch.matmul)
 against their plain versions on seeded digraphs of 7 to 10,000 nodes,
 and the cycle checker's main path, `cycle.checker().check`, on
@@ -46,7 +51,9 @@ anomaly traces (their types and coverage reproduced), every sim launch
 held bit for bit against its plain version. Every phase prints one JSON
 line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
-and µs a step and each launch's shared bytes and lanes a block, for the
+and µs a step and each launch's shared bytes and lanes a block (for
+wgl_search also the tables in shared memory, scratch bytes and the share
+of the bound reached, by main-path shape), for the
 closure kernels each bucket's rounds, the bound; the product's launches
 and ms beside), the card's name and power limit (nvidia-smi), and
 {"ok": true, "device": ...}. Any failed check raises, so the exit code
@@ -363,10 +370,10 @@ def compare_row(wr, launch, kernel) -> dict:
 
 
 # bytes one wgl_search step must move at the least, from the kernel's own
-# reads and writes: the node's map words (2), the entry's six columns, its
-# Zobrist word, the 8 probe fingerprints, the four list words read and
-# the four written, in int32 words
-SEARCH_STEP_BYTES = 4 * (2 + 6 + 1 + 8 + 4 + 4)
+# reads and writes: the node's map words (2), the entry's six columns, the
+# four list words read and the four written, in int32 words, and the 8
+# probe fingerprints (uint16); the Zobrist word is computed, not read
+SEARCH_STEP_BYTES = 4 * (2 + 6 + 4 + 4) + 2 * 8
 # steps x state words the plain version's FNV fold may take in one
 # comparison of a wgl_search launch (its graph holds 3 nodes a state word
 # a step): a fifo launch with n_state 1024 is compared in full up to
@@ -385,19 +392,23 @@ def search_plain_limit(jm, n_state: int) -> int:
 
 def bound_search(ws, packed, launch, small) -> tuple:
     """(seconds for the bytes, seconds for the operations) of one
-    wgl_search launch: the packed lanes, the Zobrist table and the step
-    budgets read once and the (3, lanes) result written once; SEARCH_STEP
-    _BYTES a step this run took; and every key the run must have
-    inserted — at least one per level of each lane's final depth — written
-    once (key words each). Operations: this run's steps times (one key's
-    words + STEP_OPS) int32 operations, over the int32 rate."""
+    wgl_search launch, both from the work this run's data needs at the
+    least: the packed lanes and the step budgets read once and the (3,
+    lanes) result written once; SEARCH_STEP_BYTES a step this run took;
+    and every key the run must have inserted — at least one per level of
+    each lane's final depth — written once, at the words such a key
+    holds (a fifo key's bitset and count words, its live window not
+    counted). Operations: STEP_OPS int32 operations a step and one a word
+    of those keys, over the int32 rate."""
     _, _, jm, n_pad, n_state, _ = launch
     lanes = packed.shape[0]
     kw = ws.key_words(jm, n_pad, n_state)
+    kw_min = ws._nw(n_pad) + 1 if jm.name == "fifo-queue" else kw
     steps = int(small[1].sum())
-    nbytes = (4 * (packed.numel() + n_pad + lanes + 3 * lanes)
-              + SEARCH_STEP_BYTES * steps + 4 * kw * int(small[2].sum()))
-    ops = steps * (kw + STEP_OPS)
+    key_words = kw_min * int(small[2].sum())
+    nbytes = (4 * (packed.numel() + lanes + 3 * lanes)
+              + SEARCH_STEP_BYTES * steps + 4 * key_words)
+    ops = steps * STEP_OPS + key_words
     return nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
 
 
@@ -431,15 +442,20 @@ def compare_search(ws, launch, kernel) -> dict:
         check_equal(kernel, jm.name, small, small_p)
     t_b, t_o = bound_search(ws, packed, launch, small_k)
     b_ms, b_by = bound_ms(t_b, t_o)
-    lay = ws._layout(jm, n_pad, n_state, cache_bits)
+    plan = ws.launch_plan(packed, jm, n_pad, n_state, cache_bits)
+    lay = ws._layout(jm, n_pad, n_state, cache_bits,
+                     ws._smem_max(packed.device))
+    top = int(small_k[1].max())
     out = {"model": jm.name, "lanes": lanes, "n_pad": n_pad,
            "n_state": n_state, "cache_bits": cache_bits,
            "cap": int(msteps.max()), "kernel_ms": k_ms, "plain_ms": p_ms,
            "plain_lanes": n_cmp, "bound_ms": b_ms, "bound_by": b_by,
-           "t_bytes": t_b, "t_ops": t_o, "steps": int(small_k[1].sum()),
-           "max_lane_steps": int(small_k[1].max()),
+           "bound_share": b_ms / k_ms, "t_bytes": t_b, "t_ops": t_o,
+           "steps": int(small_k[1].sum()), "max_lane_steps": top,
+           "us_per_step": 1000 * k_ms / max(1, top),
            "scratch_bytes": 4 * lay.words * lanes,
-           "smem_bytes": 0, "lanes_per_block": 1,
+           "smem_bytes": plan.bytes, "lanes_per_block": 1,
+           "smem_tables": list(plan.smem),
            "verdicts": small_k[0].tolist() if lanes <= 16 else None}
     if bool(long.any()):
         lcols = long.nonzero()[:, 0]
@@ -718,8 +734,11 @@ def replay(kernels, seen, cell: str) -> dict:
                 / max(1, p["max_lane_steps"]),
                 "smem_bytes": p["smem_bytes"],
                 "lanes_per_block": p["lanes_per_block"],
+                "smem_tables": p.get("smem_tables"),
                 "scratch_bytes": p.get("scratch_bytes"),
-                "bound_ms": p["bound_ms"]} for p in passes]}
+                "bound_ms": p["bound_ms"],
+                "bound_share": p["bound_ms"] / p["kernel_ms"]}
+                for p in passes]}
         k.widest[cell] = max(captured, key=lambda c: c[0].shape[-1])
         if k.shape is None:
             lanes = sum(p["lanes"] for p in passes)
@@ -957,6 +976,115 @@ def phase_search_vs_plain(args, kernel):
               "history_ops": [len(h) for h in hists][:8],
               "n_pad": launches[0][3], "n_state": launches[0][4],
               "passes": passes, "matches_plain": True, "verdicts": counts})
+
+
+def phase_search_tiers(args, kernel):
+    """wgl_search == plain on the card at every tier of its shared-memory
+    plan: small seeded lanes of all five models packed at the n_pads on
+    each side of each tier boundary (`search_tier_pads`), at cache_bits
+    13 and 3, and at 17 (the fingerprints in device memory); fifo lanes whose states share bitsets and counts but differ
+    in their live windows; and a plan past the device's shared-memory
+    limit, which must raise KernelError."""
+    import torch
+
+    from jepsen_tpu_torch import models
+    from jepsen_tpu_torch.device import KernelError
+    from jepsen_tpu_torch.history import entries
+    from jepsen_tpu_torch.models import jit as mjit
+    from jepsen_tpu_torch.workloads.queue import mutex_history, queue_history
+    from jepsen_tpu_torch.workloads.register import register_history
+
+    ws = kernel.mod
+    s = args.seed * 7919 + 9000
+
+    def reg(n, i, **kw):
+        return register_history(n_process=4, n_ops=n, seed=s + i, **kw)
+
+    def q(n, i, n_process=4, **kw):
+        return queue_history(n_process=n_process, n_ops=n, seed=s + i, **kw)
+
+    for name, model in (("cas-register", models.CASRegister),
+                        ("register", models.Register),
+                        ("mutex", models.Mutex),
+                        ("unordered-queue", models.UnorderedQueue),
+                        ("fifo-queue", models.FIFOQueue)):
+        jm = mjit.for_model(model())
+        hists = [q(20, 900 + i, fifo=name == "fifo-queue",
+                   corrupt=0.2 if i % 2 else 0.0)
+                 if name.endswith("queue") else
+                 mutex_history(n_process=4, n_ops=20, seed=s + 900 + i,
+                               corrupt=0.2 if i % 2 else 0.0)
+                 if name == "mutex" else
+                 reg(20, 900 + i, cas=name == "cas-register",
+                     corrupt=0.2 if i % 2 else 0.0) for i in range(4)]
+        ess = [entries(h) for h in hists]
+        n_state = ws.state_width(jm, ess)
+        least = ws.pad_size(max(len(es) for es in ess))
+        for cache_bits in (13, 3, 17):
+            rows = []
+            pads = search_tier_pads(ws, jm, n_state, cache_bits, least)
+            if cache_bits == 17:
+                # the fingerprints (256 KB) in device memory; 2^17 key
+                # rows a lane, so up to n_pad 8192 (0.5 GB of rows for
+                # the four lanes, in the kernel and the plain version)
+                pads = [n for n in pads if n <= 8192]
+            for n_pad in pads:
+                packed = torch.from_numpy(ws._pack(ess, jm, n_pad)).cuda()
+                msteps = torch.full((len(ess),), 20_000, dtype=torch.int32,
+                                    device="cuda")
+                rows.append(compare(kernel, (packed, msteps, jm, n_pad,
+                                             n_state, cache_bits)))
+            emit({"phase": "search_tiers", "model": name,
+                  "cache_bits": cache_bits, "n_state": n_state,
+                  "passes": rows, "matches_plain": True})
+
+    # fifo lanes with many concurrent enqueues: states whose bitsets and
+    # counts agree but whose live windows differ, at a memo of 8192 and of
+    # 8 slots (partial key rows written over stale ones)
+    hists = [q(60, 950 + i, fifo=True, n_process=8) for i in range(8)]
+    for cache_bits in (13, 3):
+        ws.CAPTURE = []
+        ws.analysis_batch(models.FIFOQueue(), hists, max_steps=20_000,
+                          cache_bits=cache_bits, device="cuda")
+        launches, ws.CAPTURE = ws.CAPTURE, None
+        emit({"phase": "search_vs_plain", "model": "fifo-queue-windows",
+              "cache_bits": cache_bits,
+              "passes": [compare(kernel, launch) for launch in launches],
+              "matches_plain": True})
+
+    # a launch the device cannot take raises: a plan for 1 MiB of shared
+    # memory a block (n_pad 16384: every table of a lane, ~510 KB), past
+    # the opt-in limit
+    jm = mjit.for_model(models.CASRegister())
+    packed = torch.from_numpy(ws._pack([entries(reg(20, 990))], jm,
+                                       16384)).cuda()
+    msteps = torch.full((1,), 20_000, dtype=torch.int32, device="cuda")
+    saved = ws._smem_max
+    ws._smem_max = lambda dev: 1 << 20
+    try:
+        ws.search(packed, msteps, jm, 16384, 1)
+    except KernelError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a plan past the shared-memory limit launched")
+    finally:
+        ws._smem_max = saved
+    emit({"phase": "search_refuses", "error": refused})
+
+
+def search_tier_pads(ws, jm, n_state: int, cache_bits: int,
+                     least: int = 8) -> list:
+    """The power-of-two n_pads from `least` to 65536 on each side of
+    every boundary between the plan's tiers (a tier: the n_pads whose
+    plan puts the same tables in shared memory), and the first and
+    last."""
+    pads = [1 << k for k in range(least.bit_length() - 1, 17)]
+    tiers = [ws._smem_plan(jm, n, n_state, cache_bits).smem for n in pads]
+    keep = {pads[0], pads[-1]}
+    for i in range(1, len(pads)):
+        if tiers[i] != tiers[i - 1]:
+            keep |= {pads[i - 1], pads[i]}
+    return sorted(keep)
 
 
 def search_cell(kernels, name, chk, hist):
@@ -2037,6 +2165,7 @@ def run(args) -> int:
     phase_kernel_vs_plain(args, vec)
     phase_row_vs_plain(args, row)
     phase_search_vs_plain(args, search)
+    phase_search_tiers(args, search)
     # ops per key count invocations; each is two history events, so 64
     # and 1000 give the ~128- and ~2000-event keys of the reference sizes
     main_path(args, kernels, "main_register", 4096, 64, 8, host_sample=64)
@@ -2068,12 +2197,29 @@ def run(args) -> int:
     phase_main_stress(args, kernels)
     phase_main_single_10k(args, kernels)
     phase_main_fifo_long(args, kernels)
+    # the register cell's 4096 keys through gpu_search: one K2 launch of
+    # many more lanes than the card has SMs, one block a lane
+    main_path(args, kernels, "main_register_search", 4096, 64, 8,
+              host_sample=64, algorithm="gpu_search",
+              expect=("wgl_search",))
     phase_main_queue_pcomp(args, kernels)
     first = search.cells["main_stress_50k"]
     search.extra = {
         "max_lane_steps": first["max_lane_steps"],
         "us_per_step": first["us_per_step"],
-        "scratch_bytes": first["per_launch"][0]["scratch_bytes"]}
+        "scratch_bytes": first["per_launch"][0]["scratch_bytes"],
+        # µs a step of the longest lane and the plan, at each main-path
+        # shape
+        "by_shape": {cell: {
+            "us_per_step": search.cells[cell]["us_per_step"],
+            "max_lane_steps": search.cells[cell]["max_lane_steps"],
+            "kernel_ms": search.cells[cell]["kernel_ms"],
+            "bound_ms": search.cells[cell]["bound_ms"],
+            **{k: search.cells[cell]["per_launch"][0][k]
+               for k in ("n_pad", "lanes", "smem_bytes", "lanes_per_block",
+                         "smem_tables", "scratch_bytes", "bound_share")}}
+            for cell in ("main_stress_50k", "main_single_10k",
+                         "main_fifo_long")}}
 
     phase_crossover(args, SMOKE_CROSSOVER_REPS, SMOKE_CROSSOVER_QUEUE_SEEDS)
     phase_corpus(args)

@@ -43,9 +43,14 @@ Algorithms:
              one.
 
 `test["deadline"]` (an absolute time.monotonic() instant) is checked
-before every engine call: past it, the lanes that call would have taken
-come back {"valid": "unknown", "error": "deadline"}; a call that started
-is not interrupted. The micro-lanes of one check share one time_limit.
+before every engine call but `auto`'s native triage: past it, the lanes
+that call would have taken come back {"valid": "unknown", "error":
+"deadline"}; a call that started is not interrupted. The triage runs as
+the JAX package's does, with no budget check and no time limit, only
+TRIAGE_MAX_STEPS, so past the budget a batch still resolves its easy
+lanes. The JAX package checks one history that does not split in one
+budget-checked engine call, so `check` of such a history checks the
+budget first. The micro-lanes of one check share one time_limit.
 
 Results have the JAX package's shape: valid, op + final_paths for an
 invalid history (truncated to TRUNCATE ops), error for an unknown one
@@ -277,9 +282,9 @@ class Linearizable(Checker):
         others = [i for i in left if jms[i] is None]
         out: list = [None] * n
         hard = []
+        # the triage, as the JAX package's: no budget, no time limit
         for i, r in zip(native_ok, self._call(
-                "native", model, [ess[i] for i in native_ok], budget,
-                self._lane_limit(deadline, budget),
+                "native", model, [ess[i] for i in native_ok],
                 max_steps=TRIAGE_MAX_STEPS, jms=[jms[i] for i in native_ok])):
             if r.valid == "unknown" and not r.error:
                 hard.append(i)
@@ -361,8 +366,13 @@ class Linearizable(Checker):
 
     def check(self, test, history, opts=None) -> dict:
         model = self._model(test)
-        (r,) = self._check_all(model, [make_entries(list(history))],
-                               self._budget(test))
+        es = make_entries(list(history))
+        budget = self._budget(test)
+        if _expired(budget) and self._split(model, [es]) is None:
+            # the JAX package checks one history that does not split in
+            # one budget-checked engine call, triage or not
+            return self._result(_deadline_result())
+        (r,) = self._check_all(model, [es], budget)
         return self._result(r)
 
     def check_batch(self, test, items) -> list[dict]:

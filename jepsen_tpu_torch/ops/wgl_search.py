@@ -40,14 +40,22 @@ basis), the FNV fold of the canonical state words when they are in the
 key, an avalanche.
 
 `search` is the kernel's wrapper: one launch over the lanes of a packed
-tensor, each lane's list, stack, state, bitset and memo in one scratch
-tensor in device memory (`_layout` words a lane); `lanes_per_launch`
-keeps a launch's scratch under SCRATCH_BUDGET bytes, and
-`analysis_batch` splits a batch into launches of that many lanes (the
-lanes are independent, so the results are the same). On a CPU tensor
-`search` runs `search_plain`, a lockstep PyTorch version of the same
-search over all lanes. Both return, per lane, wgl_tpu's verdict, steps
-and depth.
+tensor, one block (one warp) a lane. Each lane's tables sit where
+`_smem_plan` puts them: ranked by the reads a search step makes of them
+(TABLES), each goes into the lane's dynamic shared memory while the
+block's budget lasts, and the rest into the lane's slice of one scratch
+tensor in device memory, after which come
+the memo's key rows (`_layout`; v1 and v2 are read from the packed
+input in place when they are not in shared memory). The plan is a pure
+function of (model, n_pad, n_state, cache_bits) and the device's
+shared-memory limit, decided here before the launch and passed to it
+whole (`_plan_words`); the launch checks its bounds and alignment.
+`lanes_per_launch` keeps a launch's scratch under SCRATCH_BUDGET bytes,
+and `analysis_batch` splits a batch into launches of that many lanes
+(the lanes are independent, so the results are the same). On a CPU
+tensor `search` runs `search_plain`, a lockstep PyTorch version of the
+same search over all lanes. Both return, per lane, wgl_tpu's verdict,
+steps and depth.
 """
 
 from __future__ import annotations
@@ -226,49 +234,149 @@ def _round4(x: int) -> int:
     return (x + 3) & ~3
 
 
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+SMEM_MAX = 232448        # shared bytes a block may opt into on an H100:
+#                          the plan's limit off the card
+
+#: one lane's tables, ranked by the reads a search step makes of them (as
+#: wgl_search.cu's `Table`): the bitset (every key built or compared, and
+#: always in shared memory), the memo fingerprints (8 a lift), the queue
+#: state (the fifo's fold reads its whole live window), the node map and
+#: nxt (every step), the entries' facts and v1 (every call), prv (every
+#: lift and pop), v2 (a matching CAS), the undo stack's call nodes and
+#: its states (a pop's refill of the top, which the kernel keeps in
+#: registers)
+TABLES = ("lin", "fp", "state", "nmap", "nxt", "fact", "v1", "prv", "v2",
+          "stack", "stack_s")
+
+
+def _widths(n_pad: int) -> tuple:
+    """Bytes of a node map word (entry << 1 | is_call) and of a node id:
+    2 while they fit 16 bits, else 4. The kernel is instantiated for the
+    pair the launch passes."""
+    return (2 if n_pad <= 32768 else 4, 2 if _m_pad(n_pad) <= 65536 else 4)
+
+
+def _table_bytes(jm, n_pad: int, n_state: int, cache_bits: int) -> dict:
+    """Bytes of each of a lane's tables (0: the model has none), each a
+    multiple of 16: the bitset as uint32 words, one uint16 fingerprint a
+    memo slot, the queue state as int32, the node map (entry << 1 |
+    is_call) uint16 up to n_pad 32768, nxt, prv and the stack's call
+    nodes uint16 while node ids fit (m_pad <= 65536), else uint32; facts
+    (f | crashed << 2 | ret node << 3), v1, v2 (cas-register) and the
+    stack's states (the scalar models) int32 a row."""
+    m_pad = _m_pad(n_pad)
+    ent, node = _widths(n_pad)
+    scalar = not jm.has_unstep
+    return {
+        "lin": 4 * _round4(_nw(n_pad)),
+        "fp": _round16(2 << cache_bits),
+        "state": 0 if scalar else 4 * _round4(n_state),
+        "nmap": _round16(ent * m_pad),
+        "nxt": _round16(node * m_pad),
+        "fact": _round16(4 * n_pad),
+        "v1": _round16(4 * n_pad),
+        "prv": _round16(node * m_pad),
+        "v2": _round16(4 * n_pad) if jm.name == "cas-register" else 0,
+        "stack": _round16(node * n_pad),
+        "stack_s": _round16(4 * n_pad) if scalar else 0,
+    }
+
+
+class SmemPlan(NamedTuple):
+    """A launch's shared memory: `bytes` of tables a block (one lane);
+    `smem` names the tables in shared memory (in rank order) and `mask`
+    has bit k set for TABLES[k] among them."""
+    bytes: int
+    smem: tuple
+    mask: int
+
+
+def _smem_plan(jm, n_pad: int, n_state: int, cache_bits: int,
+               smem_max: int = SMEM_MAX) -> SmemPlan:
+    """The shared-memory plan of a launch: TABLES in rank order, each
+    placed in the lane's shared memory when it still fits `smem_max`
+    bytes (else it stays in device memory, and the next one is tried).
+    Raises ValueError when not even the bitset fits."""
+    sizes = _table_bytes(jm, n_pad, n_state, cache_bits)
+    if sizes["lin"] > smem_max:
+        raise ValueError(
+            f"wgl_search: n_pad {n_pad} needs {sizes['lin']} bytes of "
+            f"shared memory for its bitset, over {smem_max}")
+    used, placed, mask = 0, [], 0
+    for k, name in enumerate(TABLES):
+        b = sizes[name]
+        if b and used + b <= smem_max:
+            used += b
+            placed.append(name)
+            mask |= 1 << k
+    return SmemPlan(used, tuple(placed), mask)
+
+
 class Layout(NamedTuple):
-    """Word offsets of one lane's scratch (wgl_search.cu's `layout`):
-    memo fingerprints (one a slot, 0 when unused), the bitset, the
-    vector state, the list nxt and prv, the undo stack's entries and,
-    without an inverse step, its states; then the memo key rows.
-    `words` in all."""
-    fp: int
-    lin: int
-    state: int
-    nxt: int
-    prv: int
-    stack_e: int
-    stack_s: int
+    """Where one lane's tables live: `smem` maps each table in shared
+    memory to its byte offset in the lane's shared block, `scratch` each
+    table left in device memory to its byte offset in the lane's scratch
+    (v1 and v2 are read in place from the packed input instead, so they
+    are in neither), `keys` the byte offset of the memo key rows
+    (2^cache_bits rows of `key_words`), `words` the lane's scratch in
+    int32 words."""
+    smem: dict
+    scratch: dict
     keys: int
     words: int
 
 
-def _layout(jm, n_pad: int, n_state: int, cache_bits: int) -> Layout:
-    slots = 1 << cache_bits
-    m_pad = _m_pad(n_pad)
-    lin = slots
-    state = lin + _round4(_nw(n_pad))
-    nxt = state + _round4(n_state)
-    prv = nxt + m_pad
-    stack_e = prv + m_pad
-    stack_s = stack_e + n_pad
-    keys = stack_s + (0 if jm.has_unstep else n_pad)
-    words = keys + slots * key_words(jm, n_pad, n_state)
-    return Layout(0, lin, state, nxt, prv, stack_e, stack_s, keys,
-                  _round4(words))
+def _layout(jm, n_pad: int, n_state: int, cache_bits: int,
+            smem_max: int = SMEM_MAX) -> Layout:
+    sizes = _table_bytes(jm, n_pad, n_state, cache_bits)
+    plan = _smem_plan(jm, n_pad, n_state, cache_bits, smem_max)
+    smem, scratch, s_off, g_off = {}, {}, 0, 0
+    for name in TABLES:
+        b = sizes[name]
+        if not b:
+            continue
+        if name in plan.smem:
+            smem[name] = s_off
+            s_off += b
+        elif name not in ("v1", "v2"):
+            scratch[name] = g_off
+            g_off += b
+    keys = 4 * (1 << cache_bits) * key_words(jm, n_pad, n_state)
+    return Layout(smem, scratch, g_off, _round4((g_off + keys) // 4))
 
 
-def lanes_per_launch(jm, n_pad: int, n_state: int, cache_bits: int) -> int:
+def lanes_per_launch(jm, n_pad: int, n_state: int, cache_bits: int,
+                     smem_max: int = SMEM_MAX) -> int:
     """Lanes one launch takes under SCRATCH_BUDGET bytes of scratch;
     raises ValueError when one lane alone needs more."""
     budget = SCRATCH_BUDGET
-    lane = 4 * _layout(jm, n_pad, n_state, cache_bits).words
+    lane = 4 * _layout(jm, n_pad, n_state, cache_bits, smem_max).words
     if lane > budget:
         raise ValueError(
             f"wgl_search: one lane at n_pad {n_pad}, n_state {n_state}, "
             f"cache_bits {cache_bits} needs {lane} bytes of scratch, over "
             f"the {budget}-byte budget")
     return budget // lane
+
+
+def _smem_max(dev) -> int:
+    """The shared bytes a block may opt into on `dev` (SMEM_MAX off the
+    card)."""
+    if dev.type != "cuda":
+        return SMEM_MAX
+    return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+
+def launch_plan(packed: torch.Tensor, jm, n_pad: int, n_state: int,
+                cache_bits: int) -> SmemPlan:
+    """The plan `search` launches `packed` (on a CUDA device) with: the
+    one for the device's own shared-memory limit."""
+    return _smem_plan(jm, n_pad, n_state, cache_bits,
+                      _smem_max(packed.device))
 
 
 def _check_inputs(packed, msteps, jm, n_pad: int, n_state: int,
@@ -299,9 +407,23 @@ def _check_inputs(packed, msteps, jm, n_pad: int, n_state: int,
 
 
 _SIG = {"wgl_search_launch": (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_longlong,
-                                                  ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p],
     ctypes.c_int)}
+
+
+def _plan_words(n_pad: int, plan: SmemPlan, lay: Layout):
+    """The plan as the kernel's launch takes it (wgl_search.cu's `Plan`
+    words), one int64 each: the shared-memory mask; the byte offset of
+    each of TABLES (in the lane's shared block where the mask has its
+    bit, else in the lane's scratch; -1 for a table the model lacks or
+    v1/v2 read in place); shared bytes a lane; the key rows' offset in
+    the scratch; the lane's scratch words; the node map's and node ids'
+    bytes (`_widths`). The launch checks their bounds and alignment."""
+    offs = [lay.smem.get(t, lay.scratch.get(t, -1)) for t in TABLES]
+    words = [plan.mask, *offs, plan.bytes, lay.keys, lay.words,
+             *_widths(n_pad)]
+    return (ctypes.c_longlong * len(words))(*words)
 
 
 def build(device=None):
@@ -326,6 +448,19 @@ def _init_state(jm) -> int:
     return int(jm.init_state) if not jm.has_unstep else 0
 
 
+def _launch(lib, packed, msteps, small, scratch, jm, n_pad: int,
+            n_state: int, cache_bits: int, plan: SmemPlan, lay: Layout,
+            stream=None) -> int:
+    """`lib.wgl_search_launch` over the lanes of `packed` into `small`,
+    with `scratch` of `lay.words` int32 a lane and `plan`; its return
+    code (0, or the CUDA error)."""
+    return lib.wgl_search_launch(
+        packed.data_ptr(), msteps.data_ptr(), small.data_ptr(),
+        scratch.data_ptr(), packed.shape[0], n_pad, _m_pad(n_pad),
+        packed.shape[1], MODEL_IDS[jm.name], n_state, cache_bits, _nw(n_pad),
+        _init_state(jm), _plan_words(n_pad, plan, lay), stream)
+
+
 def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
            n_state: int, cache_bits: int = DEFAULT_CACHE_BITS
            ) -> torch.Tensor:
@@ -335,10 +470,13 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
     lanes) int32 on packed's device: verdict, steps, depth.
 
     CUDA tensors launch the kernel (built at first use) on the current
-    stream, one warp a lane, with a scratch tensor of `_layout` words a
-    lane; this raises ValueError when that is over SCRATCH_BUDGET bytes
-    (`analysis_batch` splits a batch by `lanes_per_launch`), and
-    KernelError when the launch fails. CPU tensors run `search_plain`."""
+    stream, one block (one warp) a lane, its shared memory as
+    `launch_plan` plans it, with a scratch tensor of `_layout` words a
+    lane; this raises ValueError when that
+    is over SCRATCH_BUDGET bytes (`analysis_batch` splits a batch by
+    `lanes_per_launch`), and KernelError when the launch fails (a plan
+    over the device's shared memory included). CPU tensors run
+    `search_plain`."""
     global LAUNCHES
     _check_inputs(packed, msteps, jm, n_pad, n_state, cache_bits)
     if CAPTURE is not None:
@@ -347,35 +485,31 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
         return search_plain(packed, msteps, jm, n_pad, n_state, cache_bits)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
-    lanes = packed.shape[0]
-    if lanes > lanes_per_launch(jm, n_pad, n_state, cache_bits):
-        raise ValueError(f"wgl_search: {lanes} lanes are over one launch's "
-                         f"scratch budget ({SCRATCH_BUDGET} bytes)")
+    n = packed.shape[0]
     dev = packed.device
-    lay = _layout(jm, n_pad, n_state, cache_bits)
+    smem_max = _smem_max(dev)
+    if n > lanes_per_launch(jm, n_pad, n_state, cache_bits, smem_max):
+        raise ValueError(f"wgl_search: {n} lanes are over one launch's "
+                         f"scratch budget ({SCRATCH_BUDGET} bytes)")
+    plan = launch_plan(packed, jm, n_pad, n_state, cache_bits)
+    lay = _layout(jm, n_pad, n_state, cache_bits, smem_max)
     with torch.cuda.device(dev):
         lib = build(dev)
-        small = torch.empty((3, lanes), dtype=torch.int32, device=dev)
-        # ztab and scratch are freed when this returns, while the kernel
-        # may still run: the caching allocator hands their memory only
-        # to work queued after the kernel on this same stream. The
-        # kernel clears what it reads before writing (fingerprints,
-        # bitset, state) and copies the list in, so scratch starts
-        # uninitialised.
-        ztab = _ztab(n_pad, dev)
-        scratch = torch.empty((max(1, lanes) * lay.words,),
-                              dtype=torch.int32, device=dev)
+        small = torch.empty((3, n), dtype=torch.int32, device=dev)
+        # scratch is freed when this returns, while the kernel may still
+        # run: the caching allocator hands its memory only to work queued
+        # after the kernel on this same stream. The kernel fills every
+        # table before it reads it (the key rows excepted: a row is read
+        # only behind a matching fingerprint), so it starts uninitialised.
+        scratch = torch.empty((max(1, n) * lay.words,), dtype=torch.int32,
+                              device=dev)
         stream = torch.cuda.current_stream(dev)
         if TIMED is not None:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record(stream)
-        rc = lib.wgl_search_launch(
-            packed.data_ptr(), ztab.data_ptr(), msteps.data_ptr(),
-            small.data_ptr(), scratch.data_ptr(),
-            lanes, n_pad, _m_pad(n_pad), packed.shape[1],
-            MODEL_IDS[jm.name], n_state, cache_bits, _nw(n_pad),
-            _init_state(jm), lay.words, stream.cuda_stream)
+        rc = _launch(lib, packed, msteps, small, scratch, jm, n_pad,
+                     n_state, cache_bits, plan, lay, stream.cuda_stream)
         if rc != 0:
             raise KernelError(
                 f"wgl_search kernel launch failed: cudaError {rc}")
@@ -688,7 +822,7 @@ def analysis_batch(model, entries_list, max_steps: int | None = None,
         max_steps = DEFAULT_MAX_STEPS
     n_pad = pad_size(max(len(es) for es in entries_list))
     n_state = state_width(jm, entries_list)
-    per = lanes_per_launch(jm, n_pad, n_state, cache_bits)
+    per = lanes_per_launch(jm, n_pad, n_state, cache_bits, _smem_max(dev))
     packed = torch.from_numpy(_pack(entries_list, jm, n_pad)).to(dev)
     msteps = torch.full((len(entries_list),), max_steps, dtype=torch.int32,
                         device=dev)

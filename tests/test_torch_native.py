@@ -26,6 +26,7 @@ from jepsen_tpu_torch.ops import _build, wgl_host, wgl_native, wgl_vec
 from jepsen_tpu_torch.workloads.register import keyed_history
 
 lin_mod = importlib.import_module("jepsen_tpu_torch.checker.linearizable")
+jlin_mod = importlib.import_module("jepsen_tpu.checker.linearizable")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(REPO, "tests", "fixtures",
                       "linearizability_corpus.jsonl")
@@ -230,75 +231,97 @@ def _indexed(dicts):
 
 @pytest.mark.parametrize("algorithm", ["host", "native", "auto"])
 def test_deadline_matches_jax(algorithm):
-    """Fault 2: a budget already spent gives the JAX package's
-    {"valid": "unknown", "error": "deadline", ...} for one history, and
-    for every item of a batch; without it the history is refuted."""
+    """Faults 2 and 4: a budget already spent gives the JAX package's
+    {"valid": "unknown", "error": "deadline", ...} for one history; a
+    batch gives the JAX package's own `check_batch` dicts (under "auto"
+    its native triage ignores the budget and refutes the easy lanes,
+    elsewhere every item is unknown); without the budget the history is
+    refuted."""
     dicts = _indexed(TWO_OPS)
     hist = carry.history_from_dicts(dicts)
     jh = [jhist.Op.from_dict(d) for d in dicts]
     test = {"deadline": time.monotonic() - 1}
     chk = linearizable(tmodels.CASRegister(), algorithm=algorithm,
                        device="cpu")
+    jchk = jlinearizable(jmodels.CASRegister(), algorithm=algorithm)
     tr = chk.check(test, hist, {})
-    jr = jlinearizable(jmodels.CASRegister(), algorithm=algorithm).check(
-        test, jh, {})
+    jr = jchk.check(test, jh, {})
     assert normalise(tr) == normalise(jr) == {
         "valid": "unknown", "error": "deadline", "cache_size": 0,
         "steps": 0}
-    assert chk.check_batch(test, [(hist, {}), (hist, {})]) == [tr, tr]
+    tb = chk.check_batch(test, [(hist, {}), (hist, {})])
+    jb = jchk.check_batch(test, [(jh, {}), (jh, {})])
+    assert [normalise(d) for d in tb] == [normalise(d) for d in jb]
+    assert [d["valid"] for d in tb] == (
+        [False, False] if algorithm == "auto" else ["unknown", "unknown"])
     assert chk.check({}, hist, {})["valid"] is False
 
 
 def test_deadline_through_pcomp_split():
-    """The same budget through a P-compositional split (single-key
-    multi-register txns, split by key): every micro-lane's engine call
-    is past the budget, and the combined verdict keeps its error."""
+    """Fault 4: the same budget through a P-compositional split
+    (single-key multi-register txns, split by key). The micro-lanes go
+    through "auto"'s native triage, which ignores the budget in both
+    packages, so `check` and `check_batch` give the JAX package's own
+    MultiRegister dicts: the easy lane is refuted."""
     dicts = _indexed([{**d, "f": "txn", "value": [
         ["w" if d["f"] == "write" else "r", "x", d["value"]]]}
         for d in TWO_OPS])
     hist = carry.history_from_dicts(dicts)
+    jh = [jhist.Op.from_dict(d) for d in dicts]
     chk = linearizable(tmodels.MultiRegister(), device="cpu")
+    jchk = jlinearizable(jmodels.MultiRegister(), algorithm="auto")
     assert chk._split(tmodels.MultiRegister(), [make_entries(hist)])
     test = {"deadline": time.monotonic() - 1}
-    want = {"valid": "unknown", "error": "deadline", "cache_size": 0,
-            "steps": 0}
-    assert chk.check(test, hist, {}) == want
-    assert chk.check_batch(test, [(hist, {})]) == [want]
-    jr = jlinearizable(jmodels.CASRegister(), algorithm="auto").check(
-        test, [jhist.Op.from_dict(d) for d in _indexed(TWO_OPS)], {})
-    assert normalise(jr) == want
-    assert chk.check({}, hist, {})["valid"] is False
+    tr = chk.check(test, hist, {})
+    assert normalise(tr) == normalise(jchk.check(test, jh, {}))
+    assert tr["valid"] is False
+    assert [normalise(d) for d in chk.check_batch(test, [(hist, {})])] == [
+        normalise(d) for d in jchk.check_batch(test, [(jh, {})])]
+    assert chk.check({}, hist, {}) == tr
 
 
 def test_pcomp_lanes_share_one_deadline(monkeypatch):
-    """The micro-lanes of one check get the remainder of ONE time_limit:
-    every native call, the triage's included, sees less than the whole
-    limit, and each later call no more than the one before."""
-    limits = []
-    real = wgl_native.analysis_batch
+    """Fault 4: "auto"'s native triage takes no time limit in either
+    package (only TRIAGE_MAX_STEPS); the native finish of the
+    micro-lanes of one check gets the remainder of ONE time_limit, less
+    than the whole limit, in both."""
+    limits, jlimits = [], []
+    real, jreal = wgl_native.analysis_batch, jnative.analysis
 
     def spy(model, ess, max_steps=None, time_limit=None, **kw):
         limits.append(time_limit)
         return real(model, ess, max_steps=max_steps, time_limit=time_limit,
                     **kw)
 
+    def jspy(model, es, time_limit=None, **kw):
+        jlimits.append(time_limit)
+        return jreal(model, es, time_limit=time_limit, **kw)
+
     monkeypatch.setattr(wgl_native, "analysis_batch", spy)
+    monkeypatch.setattr(jnative, "analysis", jspy)
     dicts = _indexed([{**d, "f": "txn", "value": [
         ["w" if d["f"] == "write" else "r", k,
          1 if d["type"] == "ok" else d["value"]]]}
         for k in "xy" for d in TWO_OPS])
+    hist = carry.history_from_dicts(dicts)
+    jh = [jhist.Op.from_dict(d) for d in dicts]
     chk = linearizable(tmodels.MultiRegister(), time_limit=100.0,
                        device="cpu")
-    assert chk.check({}, carry.history_from_dicts(dicts), {})["valid"] \
-        is True
-    assert len(limits) == 1  # the triage resolved every lane
-    assert 0 < limits[0] < 100.0
+    jchk = jlinearizable(jmodels.MultiRegister(), algorithm="auto",
+                         time_limit=100.0)
+    assert chk.check({}, hist, {})["valid"] is True
+    assert jchk.check({}, jh, {})["valid"] is True
+    # the triage resolved every lane: one call here, one a lane there
+    assert limits == [None] and jlimits == [None, None]
     monkeypatch.setattr(lin_mod, "TRIAGE_MAX_STEPS", 1)
+    monkeypatch.setattr(jlin_mod, "TRIAGE_MAX_STEPS", 1)
     limits.clear()
-    assert chk.check({}, carry.history_from_dicts(dicts), {})["valid"] \
-        is True
-    assert len(limits) == 2
-    assert 0 < limits[1] <= limits[0] < 100.0
+    jlimits.clear()
+    assert chk.check({}, hist, {})["valid"] is True
+    assert jchk.check({}, jh, {})["valid"] is True
+    assert limits[0] is None and jlimits[:2] == [None, None]
+    assert len(limits) == 2 and 0 < limits[1] < 100.0
+    assert len(jlimits) > 2 and all(0 < t < 100.0 for t in jlimits[2:])
 
 
 def test_recover_invalid_takes_native(monkeypatch):

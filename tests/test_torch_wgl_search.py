@@ -264,19 +264,159 @@ def test_lane_over_budget_raises(monkeypatch):
 
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_layout_offsets(name):
-    """The scratch layout the kernel recomputes: 16-byte aligned tables
-    in order, the snapshot stack only without an inverse step, key rows
-    of the bitset words plus the state when it is keyed."""
+    """The layout the launch is given: the tables the plan puts in
+    shared memory at 16-byte aligned offsets in rank order, the others
+    (v1 and v2 excepted: read in place) likewise in the lane's scratch,
+    then the key rows — the bitset words plus the state when it is
+    keyed — and `words` the whole scratch."""
     tm = tjit.BY_NAME[name]
     n_state = 1 if not tm.has_unstep else 256
-    lay = wgl_search._layout(tm, 2048, n_state, 13)
-    offs = list(lay)
-    assert offs == sorted(offs) and all(o % 4 == 0 for o in offs)
-    assert (lay.keys - lay.stack_s == 2048) == (not tm.has_unstep)
-    assert lay.words - lay.keys >= 8192 * wgl_search.key_words(
-        tm, 2048, n_state)
+    for n_pad in (2048, 32768):
+        sizes = wgl_search._table_bytes(tm, n_pad, n_state, 13)
+        lay = wgl_search._layout(tm, n_pad, n_state, 13)
+        for where in (lay.smem, lay.scratch):
+            names = list(where)
+            assert names == [t for t in wgl_search.TABLES if t in where]
+            offs = [0]
+            for t in names:
+                offs.append(offs[-1] + sizes[t])
+            assert list(where.values()) == offs[:-1]
+            assert all(o % 16 == 0 for o in offs)
+        assert not {"v1", "v2"} & set(lay.scratch)
+        assert set(lay.smem) | set(lay.scratch) | {"v1", "v2"} >= {
+            t for t in wgl_search.TABLES if sizes[t]}
+        assert lay.keys == sum(sizes[t] for t in lay.scratch)
+        assert 4 * lay.words == lay.keys + 4 * 8192 * wgl_search.key_words(
+            tm, n_pad, n_state)
     assert wgl_search.key_words(tm, 2048, n_state) == \
         64 + (n_state if tm.state_in_key else 0)
+
+
+def _state_widths(tm, n_pad):
+    """Every n_state `state_width` can give a lane of at most n_pad
+    entries of model tm."""
+    if not tm.has_unstep:
+        return [1]
+    most = wgl_search.next_pow2(n_pad + 2 if tm.name == "fifo-queue"
+                                else n_pad)
+    return [1] + [1 << k for k in range(1, most.bit_length())]
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_smem_plan_places_every_shape(name):
+    """Every shape K2 takes — n_pad 8 to 32768, every n_state
+    `state_width` gives, cache_bits 3 to 20 — has a plan within SMEM_MAX:
+    the bitset in shared memory, each other table there iff it still fit
+    when its rank came, the fingerprints (uint16) out from cache_bits 17
+    (256 KB); and
+    `lanes_per_launch` divides SCRATCH_BUDGET by `_layout`'s scratch."""
+    tm = tjit.BY_NAME[name]
+    for k in range(3, 16):
+        n_pad = 1 << k
+        for n_state in _state_widths(tm, n_pad):
+            for cb in range(3, 21):
+                sizes = wgl_search._table_bytes(tm, n_pad, n_state, cb)
+                plan = wgl_search._smem_plan(tm, n_pad, n_state, cb)
+                assert plan.bytes <= wgl_search.SMEM_MAX
+                assert "lin" in plan.smem and ("fp" in plan.smem) == (cb < 17)
+                used = 0
+                for i, t in enumerate(wgl_search.TABLES):
+                    placed = t in plan.smem
+                    assert placed == bool(plan.mask >> i & 1)
+                    if placed:
+                        used += sizes[t]
+                    elif sizes[t]:
+                        assert used + sizes[t] > wgl_search.SMEM_MAX
+                assert used == plan.bytes
+                words = wgl_search._layout(tm, n_pad, n_state, cb).words
+                if 4 * words > wgl_search.SCRATCH_BUDGET:
+                    with pytest.raises(ValueError, match="budget"):
+                        wgl_search.lanes_per_launch(tm, n_pad, n_state, cb)
+                else:
+                    assert wgl_search.lanes_per_launch(
+                        tm, n_pad, n_state, cb) == \
+                        wgl_search.SCRATCH_BUDGET // (4 * words)
+
+
+# (model, n_pad, n_state, cache_bits) -> (shared bytes a lane, the
+# tables left in device memory, scratch bytes a lane), counted
+# by hand from the table sizes (m_pad = roundup8(2 n_pad + 1); node ids
+# and the node map uint16 below n_pad 32768, node ids uint32 there):
+PLANS_BY_HAND = {
+    # every table: lin 16, fp 16384, nmap/nxt/prv 48 each, fact, v1, v2,
+    # stack_s 32 each, stack 16; keys 8192 x 2 words
+    ("cas-register", 8, 1, 13): (16688, (), 65536),
+    # lin 1024, fp 16384, nmap/nxt/prv 32784 each, fact/v1/v2 32768 each,
+    # stack 16384; stack_s 32768 and keys 8192 x 257 words in scratch
+    ("cas-register", 8192, 1, 13): (230448, ("stack_s",),
+                                    32768 + 8192 * 257 * 4),
+    # lin 4096, fp 16384, nmap 131088; nxt and prv 262176 each, fact and
+    # the stack's states 131072 each, the stack 131072 (uint32 nodes)
+    ("cas-register", 32768, 1, 13): (
+        151568, ("nxt", "fact", "prv", "stack", "stack_s"),
+        2 * 262176 + 3 * 131072 + 8192 * 1025 * 4),
+    # lin 2048, fp 16384, nmap/nxt 65552 each, fact 65536; prv 65552,
+    # stack 32768, stack_s 65536 in scratch, v1 read in place
+    ("register", 16384, 1, 13): (215072, ("prv", "stack", "stack_s"),
+                                 65552 + 32768 + 65536 + 8192 * 513 * 4),
+    # main_fifo_long's shape: lin 256, fp 16384, state 4096, nmap/nxt/prv
+    # 8208 each, fact/v1 8192 each, stack 4096
+    ("fifo-queue", 2048, 1024, 13): (65840, (), 8192 * 1088 * 4),
+    # fp 131072 at cache_bits 16 still fits beside a short lane
+    ("unordered-queue", 1024, 512, 16): (155824, (), 65536 * 32 * 4),
+    # cache_bits 20: the fingerprints (2 MiB) in device memory
+    ("mutex", 4096, 1, 20): (107056, ("fp",),
+                             2 ** 21 + 2 ** 20 * 129 * 4),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PLANS_BY_HAND))
+def test_smem_plan_by_hand(shape):
+    name, n_pad, n_state, cb = shape
+    lane_bytes, out, scratch = PLANS_BY_HAND[shape]
+    tm = tjit.BY_NAME[name]
+    plan = wgl_search._smem_plan(tm, n_pad, n_state, cb)
+    lay = wgl_search._layout(tm, n_pad, n_state, cb)
+    assert plan.bytes == lane_bytes
+    assert tuple(lay.scratch) == out
+    assert 4 * lay.words == scratch
+
+
+def test_launch_plan_spreads_lanes(monkeypatch):
+    """`launch_plan` gives every lane a block of its own, however many
+    lanes there are, and takes the device's own shared-memory limit."""
+    tm = tjit.fifo_queue
+
+    def plan(n, n_pad, n_state):
+        buf = torch.zeros((n, wgl_search._rows(n_pad)), dtype=torch.int32)
+        return wgl_search.launch_plan(buf, tm, n_pad, n_state, 13)
+
+    assert plan(16, 2048, 1024) == plan(4000, 2048, 1024) == \
+        wgl_search._smem_plan(tm, 2048, 1024, 13)
+    assert plan(16, 2048, 1024).bytes == 65840
+    monkeypatch.setattr(wgl_search, "_smem_max", lambda dev: 40_000)
+    assert plan(400, 2048, 1024) == wgl_search._smem_plan(
+        tm, 2048, 1024, 13, 40_000)
+    assert plan(400, 2048, 1024).bytes <= 40_000
+
+
+def test_plan_words():
+    """The plan as the launch takes it: the mask, each table's offset
+    (shared, scratch or -1), the lane's shared bytes, the key rows'
+    offset, the scratch words, the two widths."""
+    tm = tjit.cas_register
+    for n_pad, widths in ((8192, (2, 2)), (32768, (2, 4)),
+                          (65536, (4, 4))):
+        plan = wgl_search._smem_plan(tm, n_pad, 1, 13)
+        lay = wgl_search._layout(tm, n_pad, 1, 13)
+        words = list(wgl_search._plan_words(n_pad, plan, lay))
+        k = len(wgl_search.TABLES)
+        assert words[0] == plan.mask
+        for i, t in enumerate(wgl_search.TABLES):
+            where = lay.smem if plan.mask >> i & 1 else lay.scratch
+            assert words[1 + i] == where.get(t, -1)
+        assert words[1 + k:] == [plan.bytes, lay.keys, lay.words, *widths]
+        assert wgl_search._widths(n_pad) == widths
 
 
 def test_eligibility():
@@ -353,6 +493,27 @@ def test_cuda_kernel_matches_plain(cuda, name):
     for cb in (13, 3):
         msteps = torch.full((len(tess),), 20000, dtype=torch.int32,
                             device=cuda)
+        got = wgl_search.search(packed, msteps, tm, n_pad, n_state, cb)
+        want = wgl_search.search_plain(packed, msteps, tm, n_pad, n_state,
+                                       cb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_pad", [4096, 8192, 16384, 32768, 65536])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_cuda_kernel_matches_plain_per_tier(cuda, name, n_pad):
+    """Small lanes packed at an n_pad of each tier of the shared-memory
+    plan (the tables it puts in device memory grow with n_pad): the
+    kernel and the plain version bit for bit, at cache_bits 13 and 3, and
+    up to n_pad 16384 at 17 (the fingerprints in device memory)."""
+    tm = tjit.BY_NAME[name]
+    tess = [thist.entries(to_port(h))
+            for h in histories(name, 4, n_ops=20, seed=900)]
+    n_state = wgl_search.state_width(tm, tess)
+    packed = torch.from_numpy(wgl_search._pack(tess, tm, n_pad)).to(cuda)
+    msteps = torch.full((len(tess),), 20000, dtype=torch.int32, device=cuda)
+    for cb in (13, 3, 17) if n_pad <= 16384 else (13, 3):
         got = wgl_search.search(packed, msteps, tm, n_pad, n_state, cb)
         want = wgl_search.search_plain(packed, msteps, tm, n_pad, n_state,
                                        cb)
