@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of jepsen_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--only crossover]
+    python3 chip_smoke.py [--seed N] [--only crossover|closure]
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -42,11 +42,16 @@ past the device's shared-memory limit must raise. Then the closure kernels
 against their plain versions on seeded digraphs of 7 to 10,000 nodes,
 and the cycle checker's main path, `cycle.checker().check`, on
 list-append histories of 5,000 ops (its dict equal to the host DFS
-engine's), 20,000 ops and 5,000 ops with realtime edges, every bucket
-fixpoint it ran replayed round by round through the kernels and their
-plain versions. Then the fuzz path: 1024 seeded clusters simulated in one
-sim launch and scored through the closure kernels (scores equal to the
-host DFS engine's), 16,384 clusters for throughput, and the 8 committed
+engine's), 20,000 ops and 5,000 ops with realtime edges (unpack one a
+bucket, the product and the threshold pass that refreshes the operand
+one a round), every bucket fixpoint it ran replayed round by round
+through the kernels and their plain versions, each launch timed alone
+beside its bound, and one round of the two-pass design (unpack, product,
+the pass without the operand) timed beside the one-pass design's on
+the same words (`--only closure`: those phases alone). Then the fuzz
+path: 1024 seeded clusters simulated in one sim launch and scored
+through the closure kernels (scores equal to the host DFS engine's),
+16,384 clusters for throughput, and the 8 committed
 anomaly traces (their types and coverage reproduced), every sim launch
 held bit for bit against its plain version. Every phase prints one JSON
 line; the last lines are the kernel table (per kernel and main-path
@@ -1368,13 +1373,20 @@ class ClosureKernel(Kernel):
 
 
 # GPU clock cycles the card spins (torch.cuda._sleep) before each timed
-# closure launch, ~0.5 ms: longer than the host takes to submit the
-# launch, so the wrapper's start event runs once the launch is queued and
-# the events time the kernel, not the host's call into it
-SPIN_CYCLES = 1_000_000
+# closure launch or round, ~2 ms: longer than the host takes to submit
+# the launch (or the round's launches), so the start event runs once they
+# are queued and the events time the kernels, not the host's calls into
+# them (a wrapper call, its library lookup included, is tens of µs of
+# host time: see `lookup_us`)
+SPIN_CYCLES = 4_000_000
 
 
-def closure_ms(cl, name: str, fn, reps: int = 3):
+# timed launches of each closure kernel and of each round design (the
+# median is kept)
+CLOSURE_REPS = 5
+
+
+def closure_ms(cl, name: str, fn, reps: int = CLOSURE_REPS):
     """Median ms of closure kernel `name` (its wrapper's events, each
     launch queued behind a SPIN_CYCLES spin) over `reps` calls of fn()
     after one warm-up, and the last call's result."""
@@ -1389,6 +1401,49 @@ def closure_ms(cl, name: str, fn, reps: int = 3):
     times = sorted(a.elapsed_time(b) for n, a, b in cl.TIMED if n == name)
     cl.TIMED = None
     return times[len(times) // 2], out
+
+
+def round_ms(cl, words, m0, p: int, reps: int = CLOSURE_REPS) -> dict:
+    """Median ms of one fixpoint round of each design on the same words
+    (`m0` = unpack(words)), CUDA events around the round, each behind a
+    SPIN_CYCLES spin, the two designs in turns (AB, BA, ...):
+    "two_pass" (unpack, product, the threshold pass without the operand)
+    and "one_pass" (product, the threshold pass refreshing the operand;
+    the operand is restored from `m0` before the spin)."""
+    import torch
+
+    m, prod = torch.empty_like(m0), torch.empty_like(m0)
+    new = torch.empty_like(words)
+    flag = torch.zeros(1, dtype=torch.int32, device=words.device)
+
+    def two_pass():
+        cl.unpack(words, p, out=m)
+        cl.matmul(m, out=prod)
+        cl.or_threshold_pack(prod, words, flag, out=new)
+
+    def one_pass():
+        cl.matmul(m, out=prod)
+        cl.or_threshold_pack(prod, words, flag, out=new, operand=m)
+
+    designs = {"two_pass": two_pass, "one_pass": one_pass}
+    evs: dict = {k: [] for k in designs}
+    for i in range(reps + 1):  # the first turn warms up
+        for name in (designs if i % 2 else reversed(designs)):
+            m.copy_(m0)
+            torch.cuda._sleep(SPIN_CYCLES)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            designs[name]()
+            ev[1].record()
+            if i:
+                evs[name].append(ev)
+    torch.cuda.synchronize()
+    out = {}
+    for name, es in evs.items():
+        t = sorted(a.elapsed_time(b) for a, b in es)
+        out[name] = t[len(t) // 2]
+    return out
 
 
 def held(kernel, name, got, want) -> None:
@@ -1414,17 +1469,27 @@ def held(kernel, name, got, want) -> None:
 
 def replay_closure(ck, captured) -> list:
     """Every bucket fixpoint a run captured (closure.CAPTURE), replayed
-    through the kernels and their plain versions on the card, round by
-    round on the kernels' own words: unpack and or_threshold_pack (its
-    words and its flag) against their plain versions on each round's
-    inputs, closure_word (its words and each matrix's rounds) against
-    closure_word_plain. Raises on any difference. Returns per bucket:
-    pad size, batch, rounds, and per kernel and the product the median
-    ms of its launches summed over the rounds, the plain version's ms and
-    the bound (bytes read and written once over HBM bandwidth; the
-    product's 2*b*p^3 operations over the bf16 peak; closure_word's
-    rounds x 32 x 32 x 2 int32 operations a matrix over the int32
-    rate)."""
+    through the kernels and their plain versions on the card as the
+    fixpoint runs it: unpack once (its operand against unpack_plain),
+    then round by round the product and the threshold pass refreshing
+    the operand (its words, flag and operand against the plain version's
+    on the same inputs, and the operand against unpack_plain of the new
+    words), closure_word (its words and each matrix's rounds) against
+    closure_word_plain. Each round also runs the pass without the
+    operand (held to the plain version's words and flag), and times one
+    round of each design on its words (`round_ms`). Raises on
+    any difference. Returns per bucket: pad size, batch, rounds, and per
+    kernel and the product the median ms of its launches summed over
+    the bucket, the plain version's ms and the bound (bytes read and
+    written once over HBM bandwidth; the product's 2*b*p^3 operations
+    over the bf16 peak; closure_word's rounds x 32 x 32 x 2 int32
+    operations a matrix over the int32 rate); and `per_launch`: unpack's
+    launch and each round's threshold pass with its ms, bound, share of
+    the bound and the bytes of the words that gained bits (the bound
+    counts 16 operand bytes each), the pass without the operand's ms
+    (`no_operand_ms`), what the two-pass round's pair had to move that
+    round (unpack and the pass without the operand, `two_pass_bound_ms`)
+    and the two round times."""
     import torch
 
     cl = ck["unpack"].mod
@@ -1459,32 +1524,57 @@ def replay_closure(ck, captured) -> list:
             f["plain_ms"] += plain
             f["t_bytes"] += t_b
             f["t_ops"] += t_o
+            return 1000 * t_b
 
         words = words0.clone()
+        u_ms, m = closure_ms(cl, "unpack", lambda: cl.unpack(words, p))
+        up_ms, m_p = cuda_ms(lambda: cl.unpack_plain(words, p))
+        held(ck["unpack"], f"p {p}", (m,), (m_p,))
+        u_bytes = 4 * n_words + 2 * m.numel()
+        u_bound = add("unpack", u_ms, up_ms, u_bytes / HBM_BYTES_PER_S)
+        per_launch = {"shape": [b, p, p], "unpack": {
+            "ms": u_ms, "bound_ms": u_bound, "share": u_bound / u_ms},
+            "or_threshold_pack": []}
         ran = rounds
         for t in range(rounds):
-            u_ms, m = closure_ms(cl, "unpack", lambda: cl.unpack(words, p))
-            up_ms, m_p = cuda_ms(lambda: cl.unpack_plain(words, p))
-            held(ck["unpack"], f"p {p} round {t}", (m,), (m_p,))
-            add("unpack", u_ms, up_ms, (4 * n_words + 2 * m.numel())
-                / HBM_BYTES_PER_S)
             mm_ms, prod = closure_ms(cl, "matmul", lambda: cl.matmul(m))
             add("matmul", mm_ms, 0.0, 4 * m.numel() / HBM_BYTES_PER_S,
                 2.0 * b * p ** 3 / BF16_FLOPS_PER_S)
+            m0 = m.clone()
 
-            def otp(fn):
+            def otp(fn, operand=None):
                 flag = torch.zeros(1, dtype=torch.int32, device=dev)
-                return fn(prod, words, flag), flag
+                return fn(prod, words, flag, operand=operand), flag
 
+            op_p = m0.clone()
+            op_ms, (new_p, flag_p) = cuda_ms(
+                lambda: otp(cl.or_threshold_pack_plain, op_p))
+            # the pass rewrites the operand only where the words gained
+            # bits, the same chunks with the same values every launch
             o_ms, (new, flag) = closure_ms(
                 cl, "or_threshold_pack",
-                lambda: otp(cl.or_threshold_pack))
-            op_ms, (new_p, flag_p) = cuda_ms(
-                lambda: otp(cl.or_threshold_pack_plain))
+                lambda: otp(cl.or_threshold_pack, m))
             held(ck["or_threshold_pack"], f"p {p} round {t}",
-                 (new, flag), (new_p, flag_p))
-            add("or_threshold_pack", o_ms, op_ms,
-                (2 * prod.numel() + 8 * n_words + 4) / HBM_BYTES_PER_S)
+                 (new, flag, m), (new_p, flag_p, op_p))
+            held(ck["or_threshold_pack"], f"p {p} round {t} operand",
+                 (m,), (cl.unpack_plain(new, p),))
+            gained = int((words.view(torch.uint8)
+                          != new.view(torch.uint8)).sum())
+            o_bound = add("or_threshold_pack", o_ms, op_ms,
+                          (2 * prod.numel() + 8 * n_words + 4 + 16 * gained)
+                          / HBM_BYTES_PER_S)
+            no_ms, (new_n, flag_n) = closure_ms(
+                cl, "or_threshold_pack", lambda: otp(cl.or_threshold_pack))
+            held(ck["or_threshold_pack"], f"p {p} round {t} no operand",
+                 (new_n, flag_n), (new_p, flag_p))
+            per_launch["or_threshold_pack"].append({
+                "round": t, "ms": o_ms, "bound_ms": o_bound,
+                "share": o_bound / o_ms, "gained_bytes": gained,
+                "no_operand_ms": no_ms,
+                "two_pass_bound_ms": 1000 * (
+                    u_bytes + 2 * prod.numel() + 8 * n_words + 4)
+                / HBM_BYTES_PER_S,
+                "round_ms": round_ms(cl, words, m0, p)})
             words = new
             if not int(flag.item()):
                 ran = t + 1
@@ -1497,6 +1587,7 @@ def replay_closure(ck, captured) -> list:
         for name, f in figs.items():
             b_ms, b_by = bound_ms(f.pop("t_bytes"), f.pop("t_ops"))
             bucket[name] = {**f, "bound_ms": b_ms, "bound_by": b_by}
+        bucket["per_launch"] = per_launch
         out.append(bucket)
     return out
 
@@ -1506,11 +1597,16 @@ def closure_cell(ck, cell, seen, buckets) -> None:
     rows: per kernel its launches and path ms in the run, and per bucket
     the replayed figures. The first cell that launches a kernel sets its
     top-level ms, plain ms and bound (sums over the cell's launches; the
-    bound's kind is that of its largest bucket)."""
+    bound's kind is that of its largest bucket). The run's launches must
+    be the fixpoint's: closure_word one a bucket of p 32, unpack one a
+    bucket of p > 32, the product and or_threshold_pack one a round."""
     for k in ck.values():
         launched, path_ms, _ = seen[k.name]
         rows = [dict(bk[k.name], p=bk["p"], b=bk["b"], rounds=bk["rounds"])
                 for bk in buckets if k.name in bk]
+        want = sum(1 if k.name in ("closure_word", "unpack") else r["rounds"]
+                   for r in rows)
+        assert launched == want, (cell, k.name, launched, want)
         if not launched:
             continue
         k.cells[cell] = {"launches": launched, "path_kernel_ms": path_ms,
@@ -1588,6 +1684,20 @@ def normalise(d):
     """A result dict as JSON carries it, ops by `to_dict`."""
     return json.loads(json.dumps(
         d, default=lambda o: o.to_dict() if hasattr(o, "to_dict") else str(o)))
+
+
+def phase_cycles(args, kernels, ck) -> None:
+    """The cycle checker's three cells."""
+    # the JAX package's list-append-5k bench history (bench.py:836): 2505
+    # txns, one component of 2496 and two of 2-3 (the injections)
+    phase_cycle(args, kernels, ck, "cycle_append", 5000, host=True)
+    # 10,005 txns: the giant component in the pad-16384 bucket
+    phase_cycle(args, kernels, ck, "cycle_append_20k", 20000)
+    # strict serializability: realtime edges join every txn into one
+    # component, so the one-word bucket is not launched
+    phase_cycle(args, kernels, ck, "cycle_append_rt", 5000, realtime=True,
+                components=1,
+                expect=("unpack", "or_threshold_pack", "matmul"))
 
 
 def phase_cycle(args, kernels, ck, name, n_ops, realtime=False,
@@ -2095,6 +2205,28 @@ def phase_fuzz_fixtures(args, kernels, kernel) -> None:
           "matches_fixtures": True})
 
 
+def lookup_us(mod, reps: int = 20) -> dict:
+    """Host µs of one lookup of kernel module `mod`'s library through
+    its `build`: "cached", as every wrapper makes it at each launch, and
+    "source_read", with the source read and hashed again, as each launch
+    did before `_build` handed back loaded libraries."""
+    import torch
+
+    from jepsen_tpu_torch.ops import _build
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for name, clear in (("cached", False), ("source_read", True)):
+        mod.build(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if clear:
+                _build._loaded.clear()
+            mod.build(dev)
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
 def build_all(kernels) -> None:
     """Build every kernel source at once (one nvcc each, and g++ for the
     native search, started together) and print each build's seconds and
@@ -2120,7 +2252,8 @@ def build_all(kernels) -> None:
                           if k.mod is mod and not k.library],
               "nvcc_seconds": _build.BUILD_SECONDS.get(name),
               "ptxas": [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]})
+                        if "registers" in ln or "spill" in ln],
+              "lookup_us": lookup_us(mod)})
 
 
 def run(args) -> int:
@@ -2159,6 +2292,12 @@ def run(args) -> int:
     build_all(kernels)
     if args.only == "crossover":
         phase_crossover(args)
+        print(smi, flush=True)
+        return 0
+    if args.only == "closure":
+        phase_closure_vs_plain(args, ck)
+        phase_cycles(args, kernels, ck)
+        emit({"kernels": [k.row() for k in ck.values() if not k.library]})
         print(smi, flush=True)
         return 0
 
@@ -2225,16 +2364,7 @@ def run(args) -> int:
     phase_corpus(args)
 
     phase_closure_vs_plain(args, ck)
-    # the JAX package's list-append-5k bench history (bench.py:836): 2505
-    # txns, one component of 2496 and two of 2-3 (the injections)
-    phase_cycle(args, kernels, ck, "cycle_append", 5000, host=True)
-    # 10,005 txns: the giant component in the pad-16384 bucket
-    phase_cycle(args, kernels, ck, "cycle_append_20k", 20000)
-    # strict serializability: realtime edges join every txn into one
-    # component, so the one-word bucket is not launched
-    phase_cycle(args, kernels, ck, "cycle_append_rt", 5000, realtime=True,
-                components=1,
-                expect=("unpack", "or_threshold_pack", "matmul"))
+    phase_cycles(args, kernels, ck)
 
     # the fuzz path: the JAX package's bench batch of 1024 clusters,
     # simulated and scored on the card; 16,384 clusters for throughput;
@@ -2258,9 +2388,12 @@ def run(args) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("crossover",),
-                    help="build, run this phase alone and print its line "
-                    "and the nvidia-smi line (no smoke result)")
+    ap.add_argument("--only", choices=("crossover", "closure"),
+                    help="build, run these phases alone (crossover: the "
+                    "crossover bars; closure: closure_vs_plain and the "
+                    "three cycle cells, every closure launch replayed) and "
+                    "print their lines and the nvidia-smi line (no smoke "
+                    "result)")
     return run(ap.parse_args())
 
 

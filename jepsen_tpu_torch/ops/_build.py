@@ -9,7 +9,11 @@ a plain C interface (no PyTorch headers, so a build takes seconds):
 The library lands in `jepsen_tpu_torch/ops/_build/`, keyed by a digest
 of the source, the flags and the device's compute capability, so an
 edited source or another card builds anew and an unchanged one is
-reused. A failed build raises with nvcc's stderr: nothing falls back.
+reused. A library once loaded is handed back by later calls without
+its source being read again, so the lookup a wrapper makes at every
+launch is a dict access; a source edited while a process runs is built
+anew by the next process. A failed build raises with nvcc's stderr:
+nothing falls back.
 Different sources build at the same time when called from different
 threads (one lock per library).
 
@@ -43,6 +47,7 @@ BUILD_LOG: dict = {}
 _lock = threading.Lock()   # guards _locks
 _locks: dict = {}          # so path -> the lock its build holds
 _libs: dict = {}
+_loaded: dict = {}         # (source, flags, capability) -> its library
 
 
 class BuildError(RuntimeError):
@@ -79,20 +84,31 @@ def load(name: str, capability: tuple, signatures: dict) -> ctypes.CDLL:
     """The library built from csrc/<name>.cu for `capability`, building
     it if needed. `signatures` maps each C entry point to (argtypes,
     restype)."""
-    return _load(name, f"{name}.cu", [nvcc_path()], flags(capability),
+    return _load(name, f"{name}.cu", nvcc_path, flags(capability),
                  capability, signatures)
 
 
 def load_host(name: str, signatures: dict) -> ctypes.CDLL:
     """The host library built from csrc/<name>.cpp with g++, building it
     if needed; raises BuildError when g++ is missing or fails."""
+    return _load(name, f"{name}.cpp", gxx_path, HOST_FLAGS, None,
+                 signatures)
+
+
+def gxx_path() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
         raise BuildError("g++ not found (the native engine needs it)")
-    return _load(name, f"{name}.cpp", [gxx], HOST_FLAGS, None, signatures)
+    return gxx
 
 
-def _load(name, source, compiler, fl, capability, signatures):
+def _load(name, source, compiler_path, fl, capability, signatures):
+    """The library of csrc/<source>, loaded once a process; the compiler
+    (`compiler_path()`) is looked for only when the library is built."""
+    key = (source, tuple(fl), capability)
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
     src_path = os.path.join(CSRC, source)
     with open(src_path, "rb") as fh:
         src = fh.read()
@@ -104,20 +120,22 @@ def _load(name, source, compiler, fl, capability, signatures):
     with lock:
         lib = _libs.get(so_path)
         if lib is not None:
+            _loaded[key] = lib
             return lib
         if os.path.isfile(so_path):
             BUILD_SECONDS[name] = 0.0
         else:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so_path}.{os.getpid()}.tmp"
-            cmd = compiler + fl + ["-o", tmp, src_path]
+            compiler = compiler_path()
+            cmd = [compiler] + fl + ["-o", tmp, src_path]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             BUILD_SECONDS[name] = time.perf_counter() - t0
             BUILD_LOG[name] = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise BuildError(
-                    f"{os.path.basename(compiler[0])} failed "
+                    f"{os.path.basename(compiler)} failed "
                     f"({proc.returncode}) building {name}:\n" + proc.stderr)
             os.replace(tmp, so_path)
         lib = ctypes.CDLL(so_path)
@@ -125,5 +143,5 @@ def _load(name, source, compiler, fl, capability, signatures):
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = restype
-        _libs[so_path] = lib
+        _libs[so_path] = _loaded[key] = lib
         return lib

@@ -20,18 +20,24 @@ name + `_plain`, same bit order, same rounds) for a CPU tensor:
                         in one launch, a warp per matrix
     unpack              packed words -> 0/1 bf16 [b, p, p]
     or_threshold_pack   words | pack(prod > 0), and a device flag raised
-                        when a word changed
+                        when a word changed; given `operand`, the bf16
+                        matrix the product read, it also rewrites the 8
+                        values of every byte that gained bits, so the
+                        operand leaves equal to unpack(new words)
 
-Between the last two the product is `torch.matmul` of the bf16 operand
-with itself (the JAX package leaves it to XLA's matmul too): it sums in
-fp32 and rounds the output to bf16, and a sum of 0/1 products is zero
-only when every term is, while rounding a count >= 1 to bf16 never
-makes it 0, so `> 0` on the rounded product is the boolean product
-exactly. The fixpoint reads the flag once a round (at most
-`p.bit_length()` host syncs a bucket), resetting it on the device first.
-Every launch, the product included, goes on
-`torch.cuda.current_stream(dev)`: a kernel on another stream would race
-the product.
+A bucket's fixpoint unpacks its words once; each round is then the
+product, `torch.matmul` of the bf16 operand with itself (the JAX package
+leaves it to XLA's matmul too), and one threshold pass that refreshes
+the operand in place for the next round. The product sums in fp32 and
+rounds the output to bf16, and a sum of 0/1 products is zero only when
+every term is, while rounding a count >= 1 to bf16 never makes it 0, so
+`> 0` on the rounded product is the boolean product exactly. The
+closure only sets bits, so the refresh writes only where a round added
+some, and the round that observes the fixpoint writes no operand byte.
+The fixpoint reads the flag once a round (at most `p.bit_length()` host
+syncs a bucket), resetting it on the device first. Every launch, the
+product included, goes on `torch.cuda.current_stream(dev)`: a kernel
+on another stream would race the product.
 
 Closures are irreflexive-path closures, as in the host engine:
 out[i, j] iff a path i -> ... -> j of >= 1 edge exists, so the diagonal
@@ -164,16 +170,38 @@ def unpack_plain(words: torch.Tensor, p: int,
     return out
 
 
+def _refresh_plain(operand: torch.Tensor, old: torch.Tensor,
+                   new: torch.Tensor, p: int) -> None:
+    """The 8 bf16 values of `operand` under every byte of `new` that
+    differs from that byte of `old`, rewritten from the new byte; the
+    rest of `operand` left as it was."""
+    ob = old.view(torch.uint8).reshape(-1, p // 8)
+    nb = new.view(torch.uint8).reshape(-1, p // 8)
+    op = operand.view(-1, p // 8, 8)
+    shifts = torch.arange(8, dtype=torch.int32, device=old.device)
+    for s, e in _rows(ob, p):
+        vals = ((nb[s:e, :, None].to(torch.int32) >> shifts) & 1) \
+            .to(torch.bfloat16)
+        op[s:e] = torch.where((ob[s:e] != nb[s:e])[..., None], vals, op[s:e])
+
+
 def or_threshold_pack_plain(prod: torch.Tensor, words: torch.Tensor,
                             flag: torch.Tensor,
-                            out: torch.Tensor | None = None) -> torch.Tensor:
+                            out: torch.Tensor | None = None,
+                            operand: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """words | pack(prod > 0), into `out` (which may be `words`); sets
-    `flag` ([1] int32) to 1 when a word changed, else leaves it."""
+    `flag` ([1] int32) to 1 when a word changed, else leaves it. Given
+    `operand` (bf16 [b, p, p], the matrix the product read), rewrites its
+    8 values under each byte of the words that gained bits from the new
+    byte, and nothing else there."""
     p = prod.shape[-1]
-    _check_otp(prod, words, flag, p)
+    _check_otp(prod, words, flag, p, operand)
     new = words | pack_bits(prod > 0)
     changed = (new != words).any().to(torch.int32).reshape(1)
     flag.copy_(torch.maximum(flag, changed))
+    if operand is not None:
+        _refresh_plain(operand, words, new, p)
     out = _out(out, words.shape, torch.int32, words.device)
     out.copy_(new)
     return out
@@ -190,7 +218,7 @@ _SIG = {
         [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p],
         ctypes.c_int),
     "closure_or_threshold_pack_launch": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p],
         ctypes.c_int),
 }
 
@@ -234,16 +262,23 @@ def _check_words(words, p: int) -> None:
                          f"int32, got {words.dtype} {tuple(words.shape)}")
 
 
-def _check_otp(prod, words, flag, p: int) -> None:
+def _check_otp(prod, words, flag, p: int, operand=None) -> None:
     _check_words(words, p)
-    if prod.dtype != torch.bfloat16 \
-            or tuple(prod.shape) != (words.shape[0], p, p) \
-            or not prod.is_contiguous():
-        raise ValueError("prod must be a contiguous bf16 [b, p, p] tensor")
+    for name, m in (("prod", prod), ("operand", operand)):
+        if m is not None and (
+                m.dtype != torch.bfloat16
+                or tuple(m.shape) != (words.shape[0], p, p)
+                or not m.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous bf16 "
+                             f"[b, p, p] tensor")
     if flag.dtype != torch.int32 or tuple(flag.shape) != (1,):
         raise ValueError("flag must be one int32")
     if not prod.device == words.device == flag.device:
         raise ValueError("prod, words and flag on different devices")
+    if operand is not None and (operand.device != words.device
+                                or operand.data_ptr() == prod.data_ptr()):
+        raise ValueError("operand must be on the words' device, apart "
+                         "from prod")
 
 
 @contextlib.contextmanager
@@ -260,6 +295,12 @@ def _launch(name: str, dev):
         ev[1].record(stream)
         TIMED.append((name, *ev))
     LAUNCHES[name] += 1
+
+
+def _aligned(*ts) -> None:
+    """The kernels move words and bf16 values 16 bytes at a time."""
+    if any(t is not None and t.data_ptr() % 16 for t in ts):
+        raise ValueError("the closure kernels take 16-byte aligned tensors")
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -303,6 +344,7 @@ def unpack(words: torch.Tensor, p: int,
         return unpack_plain(words, p, out)
     dev = words.device
     out = _out(out, (words.shape[0], p, p), torch.bfloat16, dev)
+    _aligned(words, out)
     with torch.cuda.device(dev):
         lib = build(dev)
         with _launch("unpack", dev) as stream:
@@ -314,22 +356,30 @@ def unpack(words: torch.Tensor, p: int,
 
 def or_threshold_pack(prod: torch.Tensor, words: torch.Tensor,
                       flag: torch.Tensor,
-                      out: torch.Tensor | None = None) -> torch.Tensor:
+                      out: torch.Tensor | None = None,
+                      operand: torch.Tensor | None = None
+                      ) -> torch.Tensor:
     """words | pack(prod > 0) into `out` (None: a new tensor; it may be
-    `words` itself), raising `flag` when a word changed: the kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    `words` itself), raising `flag` when a word changed, and with
+    `operand` refreshing it in place to unpack(new words) (see
+    or_threshold_pack_plain): the kernel on CUDA tensors, the plain
+    version on CPU tensors. Without `operand` the card runs the pass as
+    it was before the refresh; the fixpoint always passes one."""
     p = prod.shape[-1]
-    _check_otp(prod, words, flag, p)
+    _check_otp(prod, words, flag, p, operand)
     if not _cuda(words):
-        return or_threshold_pack_plain(prod, words, flag, out)
+        return or_threshold_pack_plain(prod, words, flag, out, operand)
     dev = words.device
     out = _out(out, words.shape, torch.int32, dev)
+    _aligned(prod, words, out, operand)
     with torch.cuda.device(dev):
         lib = build(dev)
         with _launch("or_threshold_pack", dev) as stream:
             _raise_on(lib.closure_or_threshold_pack_launch(
                 prod.data_ptr(), words.data_ptr(), out.data_ptr(),
-                flag.data_ptr(), words.numel(), stream), "or_threshold_pack")
+                flag.data_ptr(),
+                None if operand is None else operand.data_ptr(),
+                words.numel(), stream), "or_threshold_pack")
     return out
 
 
@@ -348,15 +398,16 @@ def matmul(m: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
 def _squaring(words: torch.Tensor, p: int, rounds: int, unpack_fn,
               otp_fn) -> int:
     """R <- R | (R.R > 0) on `words` in place, at most `rounds` rounds,
-    stopping after the first round that changes no word. Returns the
-    rounds run."""
+    stopping after the first round that changes no word: one unpack,
+    then a product and a threshold pass a round, the pass refreshing the
+    operand for the next product. Returns the rounds run."""
     flag = torch.zeros(1, dtype=torch.int32, device=words.device)
-    m = prod = None
+    m = unpack_fn(words, p)
+    prod = None
     for t in range(rounds):
-        m = unpack_fn(words, p, out=m)
         prod = matmul(m, out=prod)
         flag.zero_()
-        otp_fn(prod, words, flag, out=words)
+        otp_fn(prod, words, flag, out=words, operand=m)
         if not int(flag.item()):
             return t + 1
     return rounds

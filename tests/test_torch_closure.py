@@ -147,6 +147,85 @@ def test_or_threshold_pack_plain():
     assert int(flag) == 1
     with pytest.raises(ValueError):
         closure.or_threshold_pack(prod.float(), words, flag)
+    # with the operand the product read: refreshed to unpack(new words)
+    operand = closure.unpack_plain(words, 64)
+    flag.zero_()
+    got = closure.or_threshold_pack(prod, words, flag, operand=operand)
+    assert torch.equal(got, ref) and int(flag) == 1
+    assert torch.equal(operand, closure.unpack_plain(ref, 64))
+    # ... and only under the bytes that gained bits: a garbage operand
+    # keeps its values elsewhere
+    garbage = torch.from_numpy(rng.standard_normal((1, 64, 64))
+                               .astype(np.float32)).bfloat16()
+    operand = garbage.clone()
+    closure.or_threshold_pack_plain(prod, words, flag, operand=operand)
+    gained = (words.numpy().view(np.uint8)
+              != ref.numpy().view(np.uint8)).reshape(1, 64, 8, 1)
+    want = np.where(gained, closure.unpack_plain(ref, 64).float().numpy()
+                    .reshape(1, 64, 8, 8),
+                    garbage.float().numpy().reshape(1, 64, 8, 8))
+    assert 0 < gained.sum() < gained.size
+    assert np.array_equal(operand.float().numpy().reshape(want.shape), want)
+    # nothing gained: not one operand value is written
+    kept = garbage.clone()
+    flag.zero_()
+    closure.or_threshold_pack_plain(prod, ref, flag, out=ref.clone(),
+                                    operand=garbage)
+    assert int(flag) == 0
+    assert torch.equal(garbage.view(torch.int16), kept.view(torch.int16))
+    with pytest.raises(ValueError):
+        closure.or_threshold_pack(prod, words, flag, operand=prod)
+    with pytest.raises(ValueError):
+        closure.or_threshold_pack(prod, words, flag,
+                                  operand=operand.float())
+
+
+@pytest.mark.parametrize("case", ["p64", "p128", "complete300"])
+def test_rounds_with_operand_match_jax(case):
+    """The port's plain fixpoint, one round at a time (the product, then
+    the threshold pass refreshing the operand in place), against the JAX
+    package's `_closure_packed(words, n, rounds=t)` for t = 1, 2, ...:
+    equal words after every round, the operand equal to
+    unpack_plain(words) after every round, and the same rounds (JAX's:
+    the first round that changes nothing, or the cap)."""
+    if case == "complete300":
+        mats = [complete(300)]
+    else:
+        n = int(case[1:])
+        mats = [digraph(n, 1.5 / n, n + 1), digraph(n - 9, 2.5 / n, n + 2)]
+    p = closure.pad_size(max(a.shape[0] for a in mats))
+    cap = closure.rounds_for(p)
+    words0 = closure._pack(mats, p)
+    words = torch.from_numpy(words0.copy())
+    operand = closure.unpack_plain(words, p)
+    flag = torch.zeros(1, dtype=torch.int32)
+    prev = words0
+    port_rounds = jax_rounds = cap
+    for t in range(1, cap + 1):
+        prod = closure.matmul(operand)
+        flag.zero_()
+        closure.or_threshold_pack_plain(prod, words, flag, out=words,
+                                        operand=operand)
+        jw = np.asarray(closure_tpu._closure_packed(
+            words0.view(np.uint32), p, rounds=t)).view(np.int32)
+        assert np.array_equal(words.numpy(), jw), t
+        assert torch.equal(operand, closure.unpack_plain(words, p)), t
+        if not int(flag) and port_rounds == cap:
+            port_rounds = t
+        if np.array_equal(jw, prev):
+            jax_rounds = t
+            break
+        prev = jw
+    assert port_rounds == jax_rounds
+    closed, ran = closure.closure_block_plain(torch.from_numpy(words0), p)
+    assert ran == jax_rounds and torch.equal(closed, words)
+    if case == "complete300":
+        assert ran == 2
+    else:
+        assert ran > 3
+    for j, a in enumerate(mats):
+        assert np.array_equal(closure._unpack(closed[j].numpy(), a.shape[0]),
+                              warshall(a))
 
 
 def test_closure_word_plain_matches_jax():
@@ -257,3 +336,22 @@ def test_cuda_kernels_match_plain(cuda):
     p, pt = closure.closure_word_plain(words, 6)
     torch.cuda.synchronize()
     assert torch.equal(k, p) and torch.equal(kt, pt)
+    # unpack, and the threshold pass with and without the operand
+    words = torch.from_numpy(closure._pack(
+        [digraph(300, 4.0 / 300, i) for i in range(3)], 512)).to(cuda)
+    m = closure.unpack(words, 512)
+    assert torch.equal(m, closure.unpack_plain(words, 512))
+    prod = closure.matmul(m)
+    for operand in (None, m):
+        flags = [torch.zeros(1, dtype=torch.int32, device=cuda)
+                 for _ in range(2)]
+        ops = [None, None] if operand is None else [m.clone(), m.clone()]
+        k = closure.or_threshold_pack(prod, words, flags[0],
+                                      operand=ops[0])
+        p = closure.or_threshold_pack_plain(prod, words, flags[1],
+                                            operand=ops[1])
+        torch.cuda.synchronize()
+        assert torch.equal(k, p) and int(flags[0]) == int(flags[1]) == 1
+        if operand is not None:
+            assert torch.equal(ops[0], ops[1])
+            assert torch.equal(ops[0], closure.unpack_plain(k, 512))

@@ -386,6 +386,18 @@ def test_native_build_is_cached():
                  "value": 2**40}]))))
 
 
+def test_loaded_library_skips_source(monkeypatch, tmp_path):
+    """A library loaded once is handed back without its source being
+    read again (every launch looks its library up); with the process's
+    cache cleared the source is read and hashed anew."""
+    lib = wgl_native.build()
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    assert wgl_native.build() is lib
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(FileNotFoundError):
+        wgl_native.build()
+
+
 def test_native_batch_pool_matches_single():
     """analysis_batch over the thread pool returns each lane's own
     analysis."""
