@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of jepsen_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--only crossover|closure]
+    python3 chip_smoke.py [--seed N] [--only crossover|closure|fuzz]
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -46,14 +46,18 @@ engine's), 20,000 ops and 5,000 ops with realtime edges (unpack one a
 bucket, the product and the threshold pass that refreshes the operand
 one a round), every bucket fixpoint it ran replayed round by round
 through the kernels and their plain versions, each launch timed alone
-beside its bound, and one round of the two-pass design (unpack, product,
-the pass without the operand) timed beside the one-pass design's on
-the same words (`--only closure`: those phases alone). Then the fuzz
-path: 1024 seeded clusters simulated in one sim launch and scored
-through the closure kernels (scores equal to the host DFS engine's),
-16,384 clusters for throughput, and the 8 committed
-anomaly traces (their types and coverage reproduced), every sim launch
-held bit for bit against its plain version. Every phase prints one JSON
+behind a GPU spin beside its bound, and closure_word's launch on one
+matrix for one round beside its bucket's (`--only closure`: those
+phases alone). Then the sim kernel against its plain version at six
+specs (1024 clusters each), and the fuzz path: 1024 seeded clusters
+simulated in one sim launch and scored through the closure kernels
+(scores equal to the host DFS engine's), with the fuzz loop's round of
+256 clusters launched beside it, 16,384 clusters for throughput, and the
+8 committed anomaly traces (their types and coverage reproduced), every
+sim launch held bit for bit against its plain version and timed behind
+the spin beside a bound counted from the work its outputs need, at the
+256, 1,024 and 16,384 batches also at 32 to 256 threads a block
+(`--only fuzz`: those phases alone). Every phase prints one JSON
 line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
@@ -1373,77 +1377,34 @@ class ClosureKernel(Kernel):
 
 
 # GPU clock cycles the card spins (torch.cuda._sleep) before each timed
-# closure launch or round, ~2 ms: longer than the host takes to submit
-# the launch (or the round's launches), so the start event runs once they
-# are queued and the events time the kernels, not the host's calls into
-# them (a wrapper call, its library lookup included, is tens of µs of
-# host time: see `lookup_us`)
+# closure or sim launch, ~2 ms: longer than the host takes to submit the
+# launch, so the start event runs once it is queued and the events time
+# the kernel, not the host's call into it (a wrapper call, its library
+# lookup included, is tens of µs of host time: see `lookup_us`)
 SPIN_CYCLES = 4_000_000
 
 
-# timed launches of each closure kernel and of each round design (the
-# median is kept)
-CLOSURE_REPS = 5
+# timed launches of each closure or sim kernel (the median is kept)
+SPIN_REPS = 5
 
 
-def closure_ms(cl, name: str, fn, reps: int = CLOSURE_REPS):
-    """Median ms of closure kernel `name` (its wrapper's events, each
-    launch queued behind a SPIN_CYCLES spin) over `reps` calls of fn()
-    after one warm-up, and the last call's result."""
+def spin_ms(mod, fn, name: str | None = None, reps: int = SPIN_REPS):
+    """Median ms of a kernel (its wrapper's events in `mod.TIMED`, of
+    kernel `name` where the module has several, each launch queued
+    behind a SPIN_CYCLES spin) over `reps` calls of fn() after one
+    warm-up, and the last call's result."""
     import torch
 
     fn()
-    cl.TIMED = []
+    mod.TIMED = []
     for _ in range(reps):
         torch.cuda._sleep(SPIN_CYCLES)
         out = fn()
     torch.cuda.synchronize()
-    times = sorted(a.elapsed_time(b) for n, a, b in cl.TIMED if n == name)
-    cl.TIMED = None
+    times = sorted(t[-2].elapsed_time(t[-1]) for t in mod.TIMED
+                   if name is None or t[0] == name)
+    mod.TIMED = None
     return times[len(times) // 2], out
-
-
-def round_ms(cl, words, m0, p: int, reps: int = CLOSURE_REPS) -> dict:
-    """Median ms of one fixpoint round of each design on the same words
-    (`m0` = unpack(words)), CUDA events around the round, each behind a
-    SPIN_CYCLES spin, the two designs in turns (AB, BA, ...):
-    "two_pass" (unpack, product, the threshold pass without the operand)
-    and "one_pass" (product, the threshold pass refreshing the operand;
-    the operand is restored from `m0` before the spin)."""
-    import torch
-
-    m, prod = torch.empty_like(m0), torch.empty_like(m0)
-    new = torch.empty_like(words)
-    flag = torch.zeros(1, dtype=torch.int32, device=words.device)
-
-    def two_pass():
-        cl.unpack(words, p, out=m)
-        cl.matmul(m, out=prod)
-        cl.or_threshold_pack(prod, words, flag, out=new)
-
-    def one_pass():
-        cl.matmul(m, out=prod)
-        cl.or_threshold_pack(prod, words, flag, out=new, operand=m)
-
-    designs = {"two_pass": two_pass, "one_pass": one_pass}
-    evs: dict = {k: [] for k in designs}
-    for i in range(reps + 1):  # the first turn warms up
-        for name in (designs if i % 2 else reversed(designs)):
-            m.copy_(m0)
-            torch.cuda._sleep(SPIN_CYCLES)
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            designs[name]()
-            ev[1].record()
-            if i:
-                evs[name].append(ev)
-    torch.cuda.synchronize()
-    out = {}
-    for name, es in evs.items():
-        t = sorted(a.elapsed_time(b) for a, b in es)
-        out[name] = t[len(t) // 2]
-    return out
 
 
 def held(kernel, name, got, want) -> None:
@@ -1475,9 +1436,8 @@ def replay_closure(ck, captured) -> list:
     the operand (its words, flag and operand against the plain version's
     on the same inputs, and the operand against unpack_plain of the new
     words), closure_word (its words and each matrix's rounds) against
-    closure_word_plain. Each round also runs the pass without the
-    operand (held to the plain version's words and flag), and times one
-    round of each design on its words (`round_ms`). Raises on
+    closure_word_plain, and closure_word's floor: its launch on the
+    bucket's first matrix alone for one round (`floor_ms`). Raises on
     any difference. Returns per bucket: pad size, batch, rounds, and per
     kernel and the product the median ms of its launches summed over
     the bucket, the plain version's ms and the bound (bytes read and
@@ -1486,10 +1446,7 @@ def replay_closure(ck, captured) -> list:
     operations a matrix over the int32 rate); and `per_launch`: unpack's
     launch and each round's threshold pass with its ms, bound, share of
     the bound and the bytes of the words that gained bits (the bound
-    counts 16 operand bytes each), the pass without the operand's ms
-    (`no_operand_ms`), what the two-pass round's pair had to move that
-    round (unpack and the pass without the operand, `two_pass_bound_ms`)
-    and the two round times."""
+    counts 16 operand bytes each)."""
     import torch
 
     cl = ck["unpack"].mod
@@ -1500,16 +1457,21 @@ def replay_closure(ck, captured) -> list:
         bucket = {"p": p, "b": b, "round_cap": rounds}
         if p == cl.MIN_PAD:
             w = words0.view(-1, 32)
-            k_ms, (kw, kt) = closure_ms(
-                cl, "closure_word", lambda: cl.closure_word(w, rounds))
+            k_ms, (kw, kt) = spin_ms(
+                cl, lambda: cl.closure_word(w, rounds), "closure_word")
             p_ms, (pw, pt) = cuda_ms(lambda: cl.closure_word_plain(w, rounds))
             held(ck["closure_word"], f"p {p}", (kw, kt), (pw, pt))
+            one = w[:1].clone()
+            f_ms, got = spin_ms(cl, lambda: cl.closure_word(one, 1),
+                                "closure_word")
+            held(ck["closure_word"], f"p {p} floor", got,
+                 cl.closure_word_plain(one, 1))
             t_b = (8 * n_words + 4 * b) / HBM_BYTES_PER_S
             t_o = int(kt.sum()) * 32 * 32 * 2 / INT32_OPS_PER_S
             b_ms, b_by = bound_ms(t_b, t_o)
             bucket.update(rounds=int(kt.max()), closure_word={
                 "launches": 1, "ms": k_ms, "plain_ms": p_ms,
-                "bound_ms": b_ms, "bound_by": b_by})
+                "bound_ms": b_ms, "bound_by": b_by, "floor_ms": f_ms})
             out.append(bucket)
             continue
         dev = words0.device
@@ -1527,7 +1489,7 @@ def replay_closure(ck, captured) -> list:
             return 1000 * t_b
 
         words = words0.clone()
-        u_ms, m = closure_ms(cl, "unpack", lambda: cl.unpack(words, p))
+        u_ms, m = spin_ms(cl, lambda: cl.unpack(words, p), "unpack")
         up_ms, m_p = cuda_ms(lambda: cl.unpack_plain(words, p))
         held(ck["unpack"], f"p {p}", (m,), (m_p,))
         u_bytes = 4 * n_words + 2 * m.numel()
@@ -1537,23 +1499,21 @@ def replay_closure(ck, captured) -> list:
             "or_threshold_pack": []}
         ran = rounds
         for t in range(rounds):
-            mm_ms, prod = closure_ms(cl, "matmul", lambda: cl.matmul(m))
+            mm_ms, prod = spin_ms(cl, lambda: cl.matmul(m), "matmul")
             add("matmul", mm_ms, 0.0, 4 * m.numel() / HBM_BYTES_PER_S,
                 2.0 * b * p ** 3 / BF16_FLOPS_PER_S)
-            m0 = m.clone()
 
-            def otp(fn, operand=None):
+            def otp(fn, operand):
                 flag = torch.zeros(1, dtype=torch.int32, device=dev)
                 return fn(prod, words, flag, operand=operand), flag
 
-            op_p = m0.clone()
+            op_p = m.clone()
             op_ms, (new_p, flag_p) = cuda_ms(
                 lambda: otp(cl.or_threshold_pack_plain, op_p))
             # the pass rewrites the operand only where the words gained
             # bits, the same chunks with the same values every launch
-            o_ms, (new, flag) = closure_ms(
-                cl, "or_threshold_pack",
-                lambda: otp(cl.or_threshold_pack, m))
+            o_ms, (new, flag) = spin_ms(
+                cl, lambda: otp(cl.or_threshold_pack, m), "or_threshold_pack")
             held(ck["or_threshold_pack"], f"p {p} round {t}",
                  (new, flag, m), (new_p, flag_p, op_p))
             held(ck["or_threshold_pack"], f"p {p} round {t} operand",
@@ -1563,18 +1523,9 @@ def replay_closure(ck, captured) -> list:
             o_bound = add("or_threshold_pack", o_ms, op_ms,
                           (2 * prod.numel() + 8 * n_words + 4 + 16 * gained)
                           / HBM_BYTES_PER_S)
-            no_ms, (new_n, flag_n) = closure_ms(
-                cl, "or_threshold_pack", lambda: otp(cl.or_threshold_pack))
-            held(ck["or_threshold_pack"], f"p {p} round {t} no operand",
-                 (new_n, flag_n), (new_p, flag_p))
             per_launch["or_threshold_pack"].append({
                 "round": t, "ms": o_ms, "bound_ms": o_bound,
-                "share": o_bound / o_ms, "gained_bytes": gained,
-                "no_operand_ms": no_ms,
-                "two_pass_bound_ms": 1000 * (
-                    u_bytes + 2 * prod.numel() + 8 * n_words + 4)
-                / HBM_BYTES_PER_S,
-                "round_ms": round_ms(cl, words, m0, p)})
+                "share": o_bound / o_ms, "gained_bytes": gained})
             words = new
             if not int(flag.item()):
                 ran = t + 1
@@ -2045,46 +1996,173 @@ def phase_corpus(args) -> None:
 # and per slot (coord, failed)
 SIM_MOP_BYTES = 5 * 4
 SIM_SLOT_BYTES = 4 + 1
+# int32 operations a unit of the simulator's work costs, for its bound
+# (`sim_work` counts the units). The hash hi(w, c, a, b) is four stages,
+# each a murmur3 finalizer (three shift-xors, two multiplies): w's xors a
+# constant in; a's, b's and c's multiply their index by a constant and xor
+# it in, and c's masks to 31 bits. Hashes that share w (a cluster), then a
+# (a slot, or an append's mop index), then b share those stages, so each
+# stage is counted once where the function needs it.
+SIM_FMIX_OPS = 8
+SIM_W_STAGE_OPS = 1 + SIM_FMIX_OPS
+SIM_STAGE_OPS = 2 + SIM_FMIX_OPS
+SIM_LAST_STAGE_OPS = 3 + SIM_FMIX_OPS
+# a rank pair (two valid appends of one key): a 64-bit (eff, mop) compare
+# as two int32 compares, and the count's add
+SIM_RANK_OPS = 3
+# a visibility pair (a valid read and a valid append of its key): the
+# delivery time against eff (< and ==), the mop indices, their
+# combination and the minimum
+SIM_VIS_OPS = 5
+# a cascade step (one delivery rule on one valid append at one node other
+# than its sender): the window's two compares, two node-bit tests, the
+# update
+SIM_STEP_OPS = 5
+# threads a block the kernel is timed at beside its default
+SIM_THREADS = (32, 64, 128, 256)
+# the specs of tests/test_torch_fuzz.py, a spec of 16 nodes and 16 fault
+# slots with one key and two mops a txn, and one of more keys than the
+# kernel's 32 buckets and more mops than its default threads
+SIM_SPECS = {
+    "default": {},
+    "small": dict(nodes=3, keys=5, txns=10, mops=3, faults=4),
+    "wide": dict(nodes=7, keys=12, txns=30, mops=5, faults=10),
+    "one_key": dict(nodes=2, keys=1, txns=6, mops=2, faults=2),
+    "edge": dict(nodes=16, keys=1, txns=2, mops=2, faults=16),
+    "many_keys": dict(nodes=5, keys=70, txns=40, mops=4, faults=8),
+}
 
 
-def sim_bound(spec, S: int) -> tuple:
-    """(seconds for the bytes, seconds for the operations) of one launch
-    over S clusters: the schedules and seeds read once, the seven
-    outputs written once, over HBM bandwidth; per cluster the M^2 rank
-    and M^2 visibility loop steps and the M*N*F cascade steps, over the
-    int32 rate."""
-    M = spec.slots * spec.mops
+def sim_work(spec, scheds, wseeds, out) -> dict:
+    """The work a launch's outputs need, counted from its inputs and its
+    outputs (equal to the plain version's): hash stages (w once a
+    cluster; a once a work slot and once a valid append with a packet
+    test; b once a work mop and once an (append, node) pair with a packet
+    test; c once a hash taken: coordinator and mop count a work slot, key
+    a work mop, kind a mop its txn runs, jitter a work mop whose slot a
+    clock fault gives an amplitude, one a packet test), rank pairs (sum
+    over keys of a_k^2 valid appends), visibility pairs (r_k valid reads x
+    a_k) and cascade steps (valid appends x (N - 1) x delivery rules:
+    partition, kill, pause, corruption and packet slots). Packet tests are
+    counted by replaying the cascade: a packet rule tests, and hashes,
+    where its node bits and the time the rules before it left select."""
+    import torch
+
+    from jepsen_tpu_torch.fuzz import sim as sm
+    from jepsen_tpu_torch.fuzz.schedule import (CLOCK, CORRUPT, KILL,
+                                                PACKET, PARTITION, PAUSE)
+
+    S, N, K, T, L = (scheds.shape[0], spec.nodes, spec.keys, spec.txns,
+                     spec.mops)
+    St, M, dev = spec.slots, spec.slots * spec.mops, scheds.device
+    kind, key = out["kind"].reshape(S, M), out["key"].reshape(S, M)
+    coord = out["coord"]
+    fail = out["failed"][:, :, None].expand(S, St, L).reshape(S, M)
+    vapp = (kind == sm.KIND_APPEND) & ~fail
+    vread = (kind == sm.KIND_READ) & ~fail
+    onehot = torch.nn.functional.one_hot(key.long(), K)
+    a_k = (onehot * vapp[:, :, None]).sum(1)
+    r_k = (onehot * vread[:, :, None]).sum(1)
+    fam, msk = scheds[:, :, 0], scheds[:, :, 1]
+    t0, t1, p0, p1 = (scheds[:, :, i] for i in (2, 3, 4, 5))
+    sarr = torch.arange(St, device=dev)
+    covers = (((msk[:, :, None] >> coord[:, None, :]) & 1) == 1) \
+        & (t0[:, :, None] <= sarr) & (sarr < t1[:, :, None]) & (sarr < T)
+    amp = ((fam == CLOCK)[:, :, None] & covers
+           & (p1[:, :, None] > 0)).any(1)[:, :T]
+    rules = sum((fam == f).sum(1) for f in (PARTITION, KILL, PAUSE, CORRUPT,
+                                            PACKET))
+    # the cascade replayed (sim_plain's rule order) to find packet tests
+    send = coord[:, :, None].expand(S, St, L).reshape(S, M)[:, :, None]
+    narr = torch.arange(N, device=dev)
+    marr = torch.arange(M, device=dev)
+    d = out["eff"].reshape(S, M)[:, :, None].expand(S, M, N).clone()
+    remote = vapp[:, :, None] & (send != narr)
+    tests = torch.zeros((S, M, N), dtype=torch.int32, device=dev)
+    for f in range(spec.faults):
+        fa, mk = fam[:, f, None, None], msk[:, f, None, None]
+        a0, a1 = t0[:, f, None, None] * L, t1[:, f, None, None] * L
+        q0, q1 = p0[:, f, None, None], p1[:, f, None, None]
+        sb, rb = ((mk >> send) & 1) == 1, ((mk >> narr) & 1) == 1
+        d = torch.where((fa == PARTITION) & (sb ^ rb) & (a0 <= d) & (d < a1),
+                        a1, d)
+        test = (fa == PACKET) & (sb | rb) & (a0 <= d) & (d < a1) & remote
+        tests += test
+        if bool(test.any()):
+            hd = sm.hi_torch(wseeds[:, None, None], 170 + f,
+                             marr[None, :, None], narr[None, None, :])
+            drop = test & (hd % 16 < q0)
+            d = torch.where(drop, d + 1 + (hd >> 4) % torch.clamp(q1 * L,
+                                                                  min=1), d)
+        d = torch.where(((fa == KILL) | (fa == PAUSE)) & rb & (a0 <= d)
+                        & (d < a1), a1, d)
+        d = torch.where((fa == CORRUPT) & rb & (key[:, :, None] == q0)
+                        & (a0 - q1 * L <= d) & (d < a0), a0 + 1, d)
+    work = {
+        "a_stages": S * T + int((tests.sum(2) > 0).sum()),
+        "b_stages": S * T * L + int((tests > 0).sum()),
+        "c_stages": (2 * S * T + S * T * L
+                     + int((kind[:, :T * L] != sm.KIND_PAD).sum())
+                     + int(amp.sum()) * L + int(tests.sum())),
+        "packet_tests": int(tests.sum()),
+        "rank_pairs": int((a_k * a_k).sum()),
+        "vis_pairs": int((r_k * a_k).sum()),
+        "cascade_steps": int((vapp.sum(1) * (N - 1) * rules).sum())}
+    work["ops"] = (S * SIM_W_STAGE_OPS
+                   + (work["a_stages"] + work["b_stages"]) * SIM_STAGE_OPS
+                   + work["c_stages"] * SIM_LAST_STAGE_OPS
+                   + work["rank_pairs"] * SIM_RANK_OPS
+                   + work["vis_pairs"] * SIM_VIS_OPS
+                   + work["cascade_steps"] * SIM_STEP_OPS)
+    return work
+
+
+def sim_bound(spec, scheds, wseeds, out) -> tuple:
+    """(seconds for the bytes, seconds for the operations, the work) of
+    one launch: the schedules and seeds read once, the seven outputs
+    written once, over HBM bandwidth; the int32 operations `sim_work`
+    counts, over the int32 rate. Beside them in the work: the loop steps
+    of the kernel's first design, one operation each (`old_ops`: 2 M^2 +
+    M N F a cluster), which the bound counted before it counted the work,
+    and that bound (`old_bound_ms`)."""
+    S, M = scheds.shape[0], spec.slots * spec.mops
     nbytes = S * (4 * (6 * spec.faults + 1) + SIM_SLOT_BYTES * spec.slots
                   + SIM_MOP_BYTES * M)
-    ops = S * (2 * M * M + M * spec.nodes * spec.faults)
-    return nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    work = sim_work(spec, scheds, wseeds, out)
+    work["old_ops"] = S * (2 * M * M + M * spec.nodes * spec.faults)
+    work["old_bound_ms"] = bound_ms(nbytes / HBM_BYTES_PER_S,
+                                    work["old_ops"] / INT32_OPS_PER_S)[0]
+    return nbytes / HBM_BYTES_PER_S, work["ops"] / INT32_OPS_PER_S, work
 
 
-def fuzz_batch(seed: int, n: int):
-    """The JAX package's bench batch (bench.py fuzz lane): DEFAULT_SPEC,
-    random_schedule(seed + i), wseed (i * 2654435761 + seed) mod 2^31."""
+def fuzz_batch(seed: int, n: int, spec=None):
+    """The JAX package's bench batch (bench.py fuzz lane): DEFAULT_SPEC
+    (or `spec`), random_schedule(seed + i), wseed (i * 2654435761 + seed)
+    mod 2^31."""
     import numpy as np
 
     from jepsen_tpu_torch.fuzz.schedule import DEFAULT_SPEC, random_schedule
 
-    scheds = np.stack([random_schedule(seed + i, DEFAULT_SPEC)
+    scheds = np.stack([random_schedule(seed + i, spec or DEFAULT_SPEC)
                        for i in range(n)])
     wseeds = (np.arange(n, dtype=np.int64) * 2654435761 + seed) & 0x7FFFFFFF
     return scheds, wseeds
 
 
-def sim_vs_plain(kernel, scheds, wseeds, spec, chunk: int = 1024) -> dict:
+def sim_vs_plain(kernel, scheds, wseeds, spec, chunk: int = 1024,
+                 sweep: bool = False) -> dict:
     """The kernel's launch on a batch replayed on the card and held bit
     for bit, on all seven outputs, against sim_plain on the same tensors,
-    in chunks of `chunk` clusters; the kernel's median ms on the whole
-    batch, the plain version's ms summed over the chunks, and the
-    bound."""
+    in chunks of `chunk` clusters; the kernel's median ms behind the spin
+    (`spin_ms`), the plain version's ms summed over the chunks, and the
+    bound (`sim_bound`). With `sweep`, the launch again at each of
+    SIM_THREADS threads a block, each held and timed (`threads_ms`)."""
     import torch
 
     sm = kernel.mod
     s = torch.from_numpy(scheds).cuda()
     w = torch.from_numpy(wseeds.astype("int32")).cuda()
-    ms, out = kernel_ms(sm, lambda: sm.sim(s, w, spec))
+    ms, out = spin_ms(sm, lambda: sm.sim(s, w, spec))
     plain_ms = 0.0
     for a in range(0, s.shape[0], chunk):
         p_ms, want = cuda_ms(lambda: sm.sim_plain(s[a:a + chunk],
@@ -2093,9 +2171,26 @@ def sim_vs_plain(kernel, scheds, wseeds, spec, chunk: int = 1024) -> dict:
         held(kernel, f"clusters {a}..{a + chunk}",
              [out[k][a:a + chunk] for k in sm.OUTPUTS],
              [want[k] for k in sm.OUTPUTS])
-    b_ms, b_by = bound_ms(*sim_bound(spec, s.shape[0]))
-    return {"clusters": s.shape[0], "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "matches_plain": True}
+    t_b, t_o, work = sim_bound(spec, s, w, out)
+    b_ms, b_by = bound_ms(t_b, t_o)
+    sms = torch.cuda.get_device_properties(s.device).multi_processor_count
+    figs = {"clusters": s.shape[0],
+            "threads": sm.block_threads(spec, s.shape[0], sms),
+            "smem_bytes": sm.smem_bytes(spec), "kernel_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "share": b_ms / ms, "work": work, "matches_plain": True}
+    if sweep:
+        figs["threads_ms"] = {}
+        try:
+            for t in SIM_THREADS:
+                sm.THREADS = t
+                t_ms, got = spin_ms(sm, lambda: sm.sim(s, w, spec))
+                held(kernel, f"threads {t}", [got[k] for k in sm.OUTPUTS],
+                     [out[k] for k in sm.OUTPUTS])
+                figs["threads_ms"][t] = t_ms
+        finally:
+            sm.THREADS = None
+    return figs
 
 
 def set_sim_row(kernel, cell, figs) -> None:
@@ -2105,17 +2200,43 @@ def set_sim_row(kernel, cell, figs) -> None:
         kernel.shape = (f"[{figs['clusters']}, 8, 6] schedules: the {cell} "
                         "cell's launch")
     kernel.cells[cell] = figs
+    sim_by_batch(kernel, figs)
+
+
+def sim_by_batch(kernel, figs) -> None:
+    """The kernel row's figures by batch size (`by_batch`)."""
+    kernel.extra.setdefault("by_batch", {})[figs["clusters"]] = {
+        "kernel_ms": figs["kernel_ms"], "bound_ms": figs["bound_ms"],
+        "bound_by": figs["bound_by"], "share": figs["share"],
+        "old_bound_ms": figs["work"]["old_bound_ms"],
+        "threads_ms": figs.get("threads_ms")}
+
+
+def phase_sim_specs(args, kernel) -> None:
+    """The kernel against its plain version, bit for bit, at every spec
+    of SIM_SPECS on 1024 seeded clusters (`fuzz_batch` of that spec)."""
+    from jepsen_tpu_torch.fuzz.schedule import SimSpec
+
+    for name, kw in SIM_SPECS.items():
+        spec = SimSpec(**kw)
+        figs = sim_vs_plain(kernel, *fuzz_batch(args.seed, 1024, spec), spec)
+        emit({"phase": "sim_specs", "spec": name, **kw,
+              **{k: figs[k] for k in ("clusters", "threads", "smem_bytes",
+                                      "kernel_ms", "bound_ms", "share",
+                                      "matches_plain")}})
 
 
 def phase_fuzz(args, kernels, ck, kernel, name: str, n: int,
-               score: bool) -> None:
+               score: bool, round_clusters: int | None = None) -> None:
     """The fuzz path on n seeded clusters (`fuzz_batch`): simulate_batch
     on the card (one sim launch), and with `score` the scoring through
     the cycle checker's closures on the card, as one main path; the
-    launch replayed against the plain version bit for bit, the closure
-    launches round by round, and the card's scores equal to the host
-    DFS engine's scores (anomaly types, cycle counts and coverage keys:
-    whole dicts)."""
+    launch replayed against the plain version bit for bit and timed at
+    each of SIM_THREADS, the closure launches round by round, and the
+    card's scores equal to the host DFS engine's scores (anomaly types,
+    cycle counts and coverage keys: whole dicts). With `round_clusters`,
+    one more sim launch on the first that many clusters of the seed (the
+    fuzz loop's round) is held and timed beside it."""
     from jepsen_tpu_torch.fuzz import score_batch, simulate_batch
     from jepsen_tpu_torch.fuzz.schedule import DEFAULT_SPEC
 
@@ -2137,13 +2258,18 @@ def phase_fuzz(args, kernels, ck, kernel, name: str, n: int,
     launches = {k: v[0] for k, v in seen.items() if v[0]}
     assert launches.get("sim") == 1, launches
     assert len(res) == n
-    figs = sim_vs_plain(kernel, scheds, wseeds, DEFAULT_SPEC)
+    figs = sim_vs_plain(kernel, scheds, wseeds, DEFAULT_SPEC, sweep=True)
     figs["launches"] = seen["sim"][0]
     figs["path_kernel_ms"] = seen["sim"][1]
     set_sim_row(kernel, name, figs)
     line = {"phase": name, "clusters": n, "wall_s": wall, **phases,
             "clusters_per_s": n / phases["simulate_s"],
             "launches": launches, "sim": figs}
+    if round_clusters:
+        small = sim_vs_plain(kernel, *fuzz_batch(args.seed, round_clusters),
+                             DEFAULT_SPEC, sweep=True)
+        sim_by_batch(kernel, small)
+        line["sim_round"] = small
     device_ms = figs["kernel_ms"]
     if score:
         t0 = time.perf_counter()
@@ -2203,6 +2329,20 @@ def phase_fuzz_fixtures(args, kernels, kernel) -> None:
           "launches": {k: v[0] for k, v in seen.items() if v[0]},
           "types": [x["anomaly-types"] for x in sc], "sim": figs,
           "matches_fixtures": True})
+
+
+def phase_fuzzing(args, kernels, ck, sim) -> None:
+    """The sim kernel at every spec of SIM_SPECS, then the fuzz path's
+    three cells."""
+    phase_sim_specs(args, sim)
+    # the JAX package's bench batch of 1024 clusters, simulated and
+    # scored on the card, beside it the fuzz loop's round of 256
+    # (FuzzLoop(clusters=256)); 16,384 clusters for throughput; the
+    # committed anomaly traces
+    phase_fuzz(args, kernels, ck, sim, "fuzz_sim_1024", 1024, score=True,
+               round_clusters=256)
+    phase_fuzz(args, kernels, ck, sim, "fuzz_sim_16384", 16384, score=False)
+    phase_fuzz_fixtures(args, kernels, sim)
 
 
 def lookup_us(mod, reps: int = 20) -> dict:
@@ -2300,6 +2440,12 @@ def run(args) -> int:
         emit({"kernels": [k.row() for k in ck.values() if not k.library]})
         print(smi, flush=True)
         return 0
+    if args.only == "fuzz":
+        phase_fuzzing(args, kernels, ck, sim)
+        emit({"kernels": [k.row() for k in (*ck.values(), sim)
+                          if not k.library]})
+        print(smi, flush=True)
+        return 0
 
     phase_kernel_vs_plain(args, vec)
     phase_row_vs_plain(args, row)
@@ -2366,12 +2512,7 @@ def run(args) -> int:
     phase_closure_vs_plain(args, ck)
     phase_cycles(args, kernels, ck)
 
-    # the fuzz path: the JAX package's bench batch of 1024 clusters,
-    # simulated and scored on the card; 16,384 clusters for throughput;
-    # the committed anomaly traces
-    phase_fuzz(args, kernels, ck, sim, "fuzz_sim_1024", 1024, score=True)
-    phase_fuzz(args, kernels, ck, sim, "fuzz_sim_16384", 16384, score=False)
-    phase_fuzz_fixtures(args, kernels, sim)
+    phase_fuzzing(args, kernels, ck, sim)
 
     mm = ck["matmul"]
     emit({"kernels": [k.row() for k in kernels if not k.library],
@@ -2388,12 +2529,13 @@ def run(args) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("crossover", "closure"),
+    ap.add_argument("--only", choices=("crossover", "closure", "fuzz"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
-                    "three cycle cells, every closure launch replayed) and "
-                    "print their lines and the nvidia-smi line (no smoke "
-                    "result)")
+                    "three cycle cells, every closure launch replayed; "
+                    "fuzz: the sim kernel at six specs and the three fuzz "
+                    "cells) and print their lines and the nvidia-smi line "
+                    "(no smoke result)")
     return run(ap.parse_args())
 
 

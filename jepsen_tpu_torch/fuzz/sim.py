@@ -13,8 +13,10 @@ bits:
               the hash in int64 with each 32-bit constant split into
               16-bit halves, so no product passes 2^48. On CPU tensors it
               is the host engine (`engine="host"`).
-  sim         the CUDA kernel (csrc/sim.cu, one block a cluster) on a
-              CUDA tensor; the plain version on a CPU tensor.
+  sim         the CUDA kernel (csrc/sim.cu, one block a cluster, working
+              only on the pairs of mops and of (append, node) that its
+              outputs need) on a CUDA tensor; the plain version on a CPU
+              tensor.
 
 The model, in mop-time units (one txn slot = L mop-times): txn slot
 ``s`` runs on coordinator ``coord[s]`` with up to ``L`` micro-ops; mop
@@ -64,6 +66,19 @@ TIMED: list | None = None
 
 #: shared memory a block may opt in to on the H100 (bytes)
 SMEM_LIMIT = 232_448
+
+#: threads a block the kernel takes at most (csrc/sim.cu MAX_THREADS)
+MAX_THREADS = 256
+#: threads a block: None = `block_threads`'s choice from the batch
+#: (chip_smoke.py times other counts by setting it)
+THREADS: int | None = None
+#: clusters an SM up to which a launch is one cluster's chain of phases
+#: (MAX_THREADS threads), and from which it is the instructions issued
+#: (a thread a pair of mops): on the H100 at the default spec 256
+#: threads a block led at 256 clusters, 128 at 1,024 and 64 at 16,384
+#: (chip_smoke.py `threads_ms`)
+LATENCY_CLUSTERS_PER_SM = 2
+THROUGHPUT_CLUSTERS_PER_SM = 16
 
 _M32 = 0xFFFFFFFF
 
@@ -242,17 +257,38 @@ def sim_plain(scheds: torch.Tensor, wseeds: torch.Tensor,
 
 _SIG = {
     "sim_launch": ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p],
+                   + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
                    ctypes.c_int),
 }
 
 
 def smem_bytes(spec: SimSpec) -> int:
-    """Dynamic shared memory of one block (csrc/sim.cu's layout): the
-    schedule, 8 words a slot, 6 a mop and a delivery time a (mop,
-    node)."""
+    """Dynamic shared memory of one block (csrc/sim.cu's `layout`): four
+    int4 rule rows a fault slot, 36 bytes a mop (its 64-bit entry, five
+    words and two entry words), a header of 4 words, 32 bucket counts and
+    starts, 3 words a txn slot and a delivery time an (entry, node)."""
     M = spec.slots * spec.mops
-    return 4 * (6 * spec.faults + 8 * spec.slots + 6 * M + M * spec.nodes)
+    return (64 * spec.faults + 36 * M + 4 * (4 + 2 * 32)
+            + 12 * spec.slots + 4 * M * spec.nodes)
+
+
+def block_threads(spec: SimSpec, clusters: int, sms: int) -> int:
+    """Threads of one block for a launch of `clusters` on a card of
+    `sms` SMs: THREADS when set; else MAX_THREADS while the launch holds
+    at most LATENCY_CLUSTERS_PER_SM clusters an SM (idle SMs: the most
+    threads shorten the chain), one a pair of mops from
+    THROUGHPUT_CLUSTERS_PER_SM an SM (fewer idle lanes, more blocks
+    resident), one a mop between; rounded up to a warp, at most
+    MAX_THREADS."""
+    if THREADS is not None:
+        return THREADS
+    if clusters <= LATENCY_CLUSTERS_PER_SM * sms:
+        return MAX_THREADS
+    mops = spec.slots * spec.mops
+    if clusters >= THROUGHPUT_CLUSTERS_PER_SM * sms:
+        mops = -(-mops // 2)
+    return min(MAX_THREADS, -(-mops // 32) * 32)
 
 
 def build(device=None):
@@ -270,9 +306,10 @@ def build(device=None):
 def sim(scheds: torch.Tensor, wseeds: torch.Tensor,
         spec: SimSpec = DEFAULT_SPEC) -> dict:
     """The cluster batch (see sim_plain) in one launch of the kernel on
-    CUDA tensors, one block a cluster; the plain version on CPU
-    tensors. Raises KernelError when the launch fails and ValueError
-    when a cluster's shared memory passes SMEM_LIMIT."""
+    CUDA tensors, one block of `block_threads` threads a cluster;
+    the plain version on CPU tensors. Raises KernelError when the launch
+    fails and ValueError when a cluster's shared memory passes
+    SMEM_LIMIT."""
     global LAUNCHES
     if scheds.dtype != torch.int32 or scheds.dim() != 3 \
             or tuple(scheds.shape[1:]) != (spec.faults, 6) \
@@ -300,6 +337,8 @@ def sim(scheds: torch.Tensor, wseeds: torch.Tensor,
                                  else torch.int32, device=dev)
                for name in OUTPUTS}
         stream = torch.cuda.current_stream(dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        threads = block_threads(spec, S, sms)
         ev = None
         if TIMED is not None:
             ev = (torch.cuda.Event(enable_timing=True),
@@ -308,7 +347,7 @@ def sim(scheds: torch.Tensor, wseeds: torch.Tensor,
         rc = lib.sim_launch(
             scheds.data_ptr(), wseeds.data_ptr(), S, spec.nodes, spec.keys,
             spec.txns, spec.mops, spec.faults, St, spec.audit_t0,
-            *(out[name].data_ptr() for name in OUTPUTS), smem,
+            *(out[name].data_ptr() for name in OUTPUTS), smem, threads,
             stream.cuda_stream)
         if rc != 0:
             raise KernelError(f"sim kernel launch failed: cudaError {rc}")

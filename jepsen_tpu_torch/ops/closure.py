@@ -20,10 +20,11 @@ name + `_plain`, same bit order, same rounds) for a CPU tensor:
                         in one launch, a warp per matrix
     unpack              packed words -> 0/1 bf16 [b, p, p]
     or_threshold_pack   words | pack(prod > 0), and a device flag raised
-                        when a word changed; given `operand`, the bf16
-                        matrix the product read, it also rewrites the 8
-                        values of every byte that gained bits, so the
-                        operand leaves equal to unpack(new words)
+                        when a word changed; it also rewrites the 8
+                        values of every byte that gained bits in
+                        `operand`, the bf16 matrix the product read, so
+                        the operand leaves equal to unpack(new words)
+                        (the plain version also runs without one)
 
 A bucket's fixpoint unpacks its words once; each round is then the
 product, `torch.matmul` of the bf16 operand with itself (the JAX package
@@ -363,12 +364,15 @@ def or_threshold_pack(prod: torch.Tensor, words: torch.Tensor,
     `words` itself), raising `flag` when a word changed, and with
     `operand` refreshing it in place to unpack(new words) (see
     or_threshold_pack_plain): the kernel on CUDA tensors, the plain
-    version on CPU tensors. Without `operand` the card runs the pass as
-    it was before the refresh; the fixpoint always passes one."""
+    version on CPU tensors. The kernel always refreshes an operand: on
+    CUDA tensors `operand` is required (ValueError without it)."""
     p = prod.shape[-1]
     _check_otp(prod, words, flag, p, operand)
     if not _cuda(words):
         return or_threshold_pack_plain(prod, words, flag, out, operand)
+    if operand is None:
+        raise ValueError("or_threshold_pack on the card takes the operand "
+                         "the product read")
     dev = words.device
     out = _out(out, words.shape, torch.int32, dev)
     _aligned(prod, words, out, operand)
@@ -377,9 +381,8 @@ def or_threshold_pack(prod: torch.Tensor, words: torch.Tensor,
         with _launch("or_threshold_pack", dev) as stream:
             _raise_on(lib.closure_or_threshold_pack_launch(
                 prod.data_ptr(), words.data_ptr(), out.data_ptr(),
-                flag.data_ptr(),
-                None if operand is None else operand.data_ptr(),
-                words.numel(), stream), "or_threshold_pack")
+                flag.data_ptr(), operand.data_ptr(), words.numel(),
+                stream), "or_threshold_pack")
     return out
 
 

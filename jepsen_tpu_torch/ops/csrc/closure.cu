@@ -24,7 +24,7 @@
 //                      the product (torch.matmul, outside this file).
 //                      Run once a bucket, before the first round. Bound
 //                      by the bytes it writes (2*b*p*p).
-//   threshold pass     or_threshold_pack with an operand: the product,
+//   or_threshold_pack  the threshold pass: the product,
 //                      the old words and the operand the product has just
 //                      read -> new words = old | pack(prod > 0), one
 //                      device flag raised when any word changed (the
@@ -38,11 +38,6 @@
 //                      observes the fixpoint rewrites nothing. Bound by
 //                      the bytes it moves: 2*b*p*p of product read, the
 //                      words read and written, 16 bytes a changed byte.
-//   or_threshold_pack  without an operand: the pass as it was before the
-//                      operand refresh (one thread a chunk, four lanes
-//                      OR their bytes into a word by shuffles), kept to
-//                      time the two-pass round beside the one-pass one.
-//                      The fixpoint never calls it.
 //
 // Design of unpack and the threshold pass for Hopper. A warp works on a
 // tile of TILE_WORDS (32) words at a time = 128 chunks = 2 KB of bf16:
@@ -81,7 +76,6 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_BLOCKS = 132 * 16;
 // 16-byte product loads (or operand stores) a lane keeps in flight
 constexpr int TILE_LOADS = 4;
 constexpr int TILE_CHUNKS = 32 * TILE_LOADS;   // = bytes of words a tile
@@ -205,38 +199,6 @@ threshold_refresh_kernel(const uint4* __restrict__ prod, const uint4* words,
     if (__any_sync(FULL, changed) && lane == 0) *flag = 1;
 }
 
-// n_bytes is a multiple of 32 (the wrapper checks), and the grid-stride
-// loop's start and stride are too, so the lanes of a warp run the loop
-// the same number of times and every shuffle has all 32
-__global__ void or_threshold_pack_kernel(const uint4* __restrict__ prod,
-                                         const uint32_t* words,
-                                         uint32_t* out,
-                                         int32_t* __restrict__ flag,
-                                         long long n_bytes) {
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const int q = threadIdx.x & 3;
-    bool changed = false;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < n_bytes; i += stride) {
-        uint32_t m = byte_of(prod[i]);
-        m <<= 8 * q;
-        m |= __shfl_xor_sync(FULL, m, 1);
-        m |= __shfl_xor_sync(FULL, m, 2);
-        if (q == 0) {
-            const uint32_t old = words[i >> 2];
-            const uint32_t nxt = old | m;
-            out[i >> 2] = nxt;
-            changed |= nxt != old;
-        }
-    }
-    if (__any_sync(FULL, changed) && (threadIdx.x & 31) == 0) *flag = 1;
-}
-
-int blocks_for(long long n) {
-    const long long b = (n + THREADS - 1) / THREADS;
-    return (int)(b < MAX_BLOCKS ? (b < 1 ? 1 : b) : MAX_BLOCKS);
-}
-
 // blocks of a persistent launch over n_tiles warp tiles, into *blocks:
 // as many as the device's SMs hold at once, and no more than the tiles
 // need; returns the error of the query that failed
@@ -290,20 +252,15 @@ int closure_unpack_launch(const void* words, void* out, long long n_words,
 // prod: 32 * n_words bf16 values; words, out: n_words (out may alias
 // words), a multiple of 32; flag: one int32, set to 1 if any word changed
 // and otherwise left as it was; operand: 32 * n_words bf16 values, the
-// matrix the product read, refreshed in place to unpack(out) (NULL: the
-// pass without the refresh). Every pointer but flag 16-byte aligned.
+// matrix the product read, refreshed in place to unpack(out) (required:
+// NULL is cudaErrorInvalidValue). Every pointer but flag 16-byte
+// aligned.
 int closure_or_threshold_pack_launch(const void* prod, const void* words,
                                      void* out, void* flag, void* operand,
                                      long long n_words, void* stream) {
     if (n_words <= 0) return 0;
-    if (n_words % TILE_WORDS != 0) return (int)cudaErrorInvalidValue;
-    if (operand == nullptr) {
-        or_threshold_pack_kernel<<<blocks_for(4 * n_words), THREADS, 0,
-                                   (cudaStream_t)stream>>>(
-            (const uint4*)prod, (const uint32_t*)words, (uint32_t*)out,
-            (int32_t*)flag, 4 * n_words);
-        return (int)cudaGetLastError();
-    }
+    if (n_words % TILE_WORDS != 0 || operand == nullptr)
+        return (int)cudaErrorInvalidValue;
     const long long n_tiles = n_words / TILE_WORDS;
     int blocks = 0;
     const cudaError_t e =

@@ -1,8 +1,9 @@
-// A host emulation of the CUDA features wgl_search.cu and closure.cu use,
-// so that a kernel's own source can run on a CPU against the plain
-// PyTorch version (tests/test_torch_wgl_search_emu.py,
-// tests/test_torch_closure_emu.py): one std::thread a CUDA thread, one
-// std::barrier a warp, the blocks of a launch one after another, a block's
+// A host emulation of the CUDA features wgl_search.cu, closure.cu and
+// sim.cu use, so that a kernel's own source can run on a CPU against the
+// plain PyTorch version (tests/test_torch_wgl_search_emu.py,
+// tests/test_torch_closure_emu.py, tests/test_torch_sim_emu.py): one
+// std::thread a CUDA thread, one std::barrier a warp and one a block
+// (__syncthreads), the blocks of a launch one after another, a block's
 // dynamic shared memory one static buffer filled with garbage before each
 // block, and a kernel's static `__shared__` arrays function statics (one
 // copy, which the blocks, run one at a time, share in turn). A test
@@ -10,6 +11,7 @@
 // each `<<<...>>>` launch to `emu_launch(kernel, blocks, threads, smem,
 // args...)`, then compiles it with g++ -std=c++20 against this header.
 #pragma once
+#include <algorithm>
 #include <barrier>
 #include <cstdint>
 #include <cstring>
@@ -36,6 +38,12 @@ struct alignas(16) uint4 {
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
   return {x, y, z, w};
 }
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+using std::max;
+using std::min;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -57,6 +65,13 @@ struct EmuWarp {
   unsigned vals[32];
 };
 inline thread_local EmuWarp* emu_warp;
+inline thread_local std::barrier<>* emu_block;
+
+inline void __syncthreads() { emu_block->arrive_and_wait(); }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 inline unsigned __ballot_sync(unsigned, bool pred) {
   EmuWarp* w = emu_warp;
@@ -86,6 +101,10 @@ inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
 }
 inline unsigned __shfl_xor_sync(unsigned, unsigned v, int mask) {
   return emu_exchange(v, (int)(threadIdx.x & 31) ^ mask);
+}
+inline unsigned __shfl_up_sync(unsigned, unsigned v, int delta) {
+  const int lane = threadIdx.x & 31;
+  return emu_exchange(v, lane >= delta ? lane - delta : lane);
 }
 inline void __syncwarp() { emu_warp->bar.arrive_and_wait(); }
 // cache hints: plain loads and stores on the host
@@ -127,6 +146,7 @@ void emu_launch(K kernel, int blocks, int threads, int smem_bytes,
     std::memset(g_smem, 0xA5, smem_bytes);  // shared memory starts unset
     std::vector<std::unique_ptr<EmuWarp>> warps;
     for (int i = 0; i < threads / 32; ++i) warps.emplace_back(new EmuWarp());
+    std::barrier<> block(threads);
     std::vector<std::thread> ts;
     for (int t = 0; t < threads; ++t)
       ts.emplace_back([&, t] {
@@ -135,6 +155,7 @@ void emu_launch(K kernel, int blocks, int threads, int smem_bytes,
         blockDim = {(unsigned)threads, 1, 1};
         gridDim = {(unsigned)blocks, 1, 1};
         emu_warp = warps[t / 32].get();
+        emu_block = &block;
         kernel(args...);
       });
     for (auto& th : ts) th.join();

@@ -336,22 +336,21 @@ def test_cuda_kernels_match_plain(cuda):
     p, pt = closure.closure_word_plain(words, 6)
     torch.cuda.synchronize()
     assert torch.equal(k, p) and torch.equal(kt, pt)
-    # unpack, and the threshold pass with and without the operand
+    # unpack, and the threshold pass (which takes the operand on the card)
     words = torch.from_numpy(closure._pack(
         [digraph(300, 4.0 / 300, i) for i in range(3)], 512)).to(cuda)
     m = closure.unpack(words, 512)
     assert torch.equal(m, closure.unpack_plain(words, 512))
     prod = closure.matmul(m)
-    for operand in (None, m):
-        flags = [torch.zeros(1, dtype=torch.int32, device=cuda)
-                 for _ in range(2)]
-        ops = [None, None] if operand is None else [m.clone(), m.clone()]
-        k = closure.or_threshold_pack(prod, words, flags[0],
-                                      operand=ops[0])
-        p = closure.or_threshold_pack_plain(prod, words, flags[1],
-                                            operand=ops[1])
-        torch.cuda.synchronize()
-        assert torch.equal(k, p) and int(flags[0]) == int(flags[1]) == 1
-        if operand is not None:
-            assert torch.equal(ops[0], ops[1])
-            assert torch.equal(ops[0], closure.unpack_plain(k, 512))
+    flags = [torch.zeros(1, dtype=torch.int32, device=cuda)
+             for _ in range(2)]
+    with pytest.raises(ValueError):
+        closure.or_threshold_pack(prod, words, flags[0])
+    ops = [m.clone(), m.clone()]
+    k = closure.or_threshold_pack(prod, words, flags[0], operand=ops[0])
+    p = closure.or_threshold_pack_plain(prod, words, flags[1],
+                                        operand=ops[1])
+    torch.cuda.synchronize()
+    assert torch.equal(k, p) and int(flags[0]) == int(flags[1]) == 1
+    assert torch.equal(ops[0], ops[1])
+    assert torch.equal(ops[0], closure.unpack_plain(k, 512))

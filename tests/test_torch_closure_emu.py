@@ -4,8 +4,9 @@ The kernels have no interpret mode, so this compiles `csrc/closure.cu`
 with g++ against `csrc/warp_emu.h` (one thread a CUDA thread, a barrier
 a warp, an emulated device of two SMs, so the persistent grids are two
 blocks whose warps stride over several tiles) and calls its launch entry
-points on CPU tensors: `unpack`, the threshold pass with and without
-`operand` (words, flag, operand), `closure_word`, and a whole bucket
+points on CPU tensors: `unpack`, the threshold pass (words, flag,
+operand; the launch refuses a missing operand), `closure_word`, and a
+whole bucket
 fixpoint through the emulated passes and the product, at p 64 and 128
 with columns 31 and 63 (the sign bit of a word) set. Every result must
 equal the plain version's bit for bit. On the card chip_smoke.py holds
@@ -34,7 +35,7 @@ def emu(tmp_path_factory):
     src, n = re.subn(
         r"(\w+)<<<(.+?),\s*(\w+),\s*(\w+),\s*\(cudaStream_t\)stream>>>\(",
         r"emu_launch(\1, \2, \3, \4, ", src, flags=re.S)
-    assert n == 4
+    assert n == 3
     src = src.replace("#include <cuda_runtime.h>", '#include "warp_emu.h"')
     (d / "closure_emu.cc").write_text(src)
     so = d / "libclosure_emu.so"
@@ -75,8 +76,7 @@ def otp_emu(lib, prod, words, flag, out=None, operand=None):
     out = closure._out(out, words.shape, torch.int32, words.device)
     assert lib.closure_or_threshold_pack_launch(
         prod.data_ptr(), words.data_ptr(), out.data_ptr(), flag.data_ptr(),
-        None if operand is None else operand.data_ptr(), words.numel(),
-        None) == 0
+        operand.data_ptr(), words.numel(), None) == 0
     return out
 
 
@@ -148,24 +148,24 @@ def test_threshold_pass_with_operand(emu, p):
     assert torch.equal(op, closure.unpack_plain(w, p))
 
 
-@pytest.mark.parametrize("p", [64, 128])
-def test_threshold_pass_without_operand(emu, p):
-    """The pass as it was before the refresh: words and flag equal the
-    plain version's, a raised flag left raised."""
-    words = packed(p, 2, 0.05, 40 + p)
-    for prod in products(words, p, 50 + p):
-        k_flag = torch.zeros(1, dtype=torch.int32)
-        p_flag = torch.zeros(1, dtype=torch.int32)
-        k_new = otp_emu(emu, prod, words, k_flag)
-        p_new = closure.or_threshold_pack_plain(prod, words, p_flag)
-        assert torch.equal(k_new, p_new)
-        assert int(k_flag) == int(p_flag) == 1
-        k_flag.fill_(1)
-        same = otp_emu(emu, prod, k_new, k_flag)
-        assert torch.equal(same, k_new) and int(k_flag) == 1
-        k_flag.zero_()
-        otp_emu(emu, prod, k_new, k_flag)
-        assert int(k_flag) == 0
+def test_threshold_pass_refuses_no_operand(emu, monkeypatch):
+    """The card's threshold pass always refreshes an operand: the
+    wrapper raises ValueError for a CUDA launch without one (before it
+    reaches the library), and the launch returns cudaErrorInvalidValue
+    for a NULL operand, writing nothing."""
+    words = packed(64, 2, 0.05, 104)
+    prod = products(words, 64, 114)[0]
+    flag = torch.zeros(1, dtype=torch.int32)
+    monkeypatch.setattr(closure, "_cuda", lambda t: True)
+    monkeypatch.setattr(closure, "build", lambda dev=None: pytest.fail(
+        "the wrapper reached the library"))
+    with pytest.raises(ValueError, match="operand"):
+        closure.or_threshold_pack(prod, words, flag)
+    out = torch.full_like(words, 7)
+    assert emu.closure_or_threshold_pack_launch(
+        prod.data_ptr(), words.data_ptr(), out.data_ptr(), flag.data_ptr(),
+        None, words.numel(), None) != 0
+    assert bool((out == 7).all()) and int(flag) == 0
 
 
 def test_closure_word(emu):

@@ -207,7 +207,26 @@ def test_simulate_batch_device_rule():
         simulate_batch(scheds[:, :2], wseeds, spec, device="cpu")
     huge = SimSpec(nodes=16, keys=8, txns=600, mops=8, faults=8)
     assert sim.smem_bytes(huge) > sim.SMEM_LIMIT
-    assert sim.smem_bytes(SimSpec()) == 4 * (48 + 8 * 26 + 6 * 104 + 520)
+    assert sim.smem_bytes(SimSpec()) == (64 * 8 + 36 * 104 + 272 + 12 * 26
+                                         + 4 * 104 * 5)
+
+
+def test_block_threads_by_batch(monkeypatch):
+    """Threads a block on an H100 (132 SMs) at the default spec's 104
+    mops: MAX_THREADS for the fuzz loop's round, one a mop for the
+    bench's 1,024, one a pair of mops at 16,384; whole warps up to
+    MAX_THREADS at any spec; THREADS overrides."""
+    spec = SimSpec()
+    assert [sim.block_threads(spec, n, 132)
+            for n in (1, 256, 1024, 16384)] == [256, 256, 128, 64]
+    edge = SimSpec(nodes=16, keys=1, txns=2, mops=2, faults=16)
+    assert [sim.block_threads(edge, n, 132) for n in (1, 1024, 10 ** 6)] \
+        == [256, 32, 32]
+    wide = SimSpec(nodes=5, keys=70, txns=40, mops=4, faults=8)
+    assert [sim.block_threads(wide, n, 132) for n in (1, 1024, 10 ** 6)] \
+        == [256, 256, 128]
+    monkeypatch.setattr(sim, "THREADS", 96)
+    assert sim.block_threads(spec, 16384, 132) == 96
 
 
 def test_launch_counts_only_on_the_card():
