@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of jepsen_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--only crossover|closure|fuzz]
+    python3 chip_smoke.py [--seed N]
+        [--only crossover|closure|fuzz|linear|store]
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -57,8 +58,19 @@ simulated in one sim launch and scored through the closure kernels
 sim launch held bit for bit against its plain version and timed behind
 the spin beside a bound counted from the work its outputs need, at the
 256, 1,024 and 16,384 batches also at 32 to 256 threads a block
-(`--only fuzz`: those phases alone). Every phase prints one JSON
-line; the last lines are the kernel table (per kernel and main-path
+(`--only fuzz`: those phases alone). Then the `linear` phase: every
+corpus case through the `linear` algorithm on the host and through
+`competition` on the card (linear raced against K2's counterpart), at
+a 2-s limit a case, every K2 launch held against its plain version, the
+winners counted and the card's busy time behind an abandoned loser
+measured (`--only linear`); and the `store` phase: the register cell
+(every bar at 1) and cycle_append with a store dir and an analysis
+journal under a temporary directory (run 1 writes each key's
+results.edn, history.txt and linear.svg, or timeline-cycle.html; the
+journaled run 2 launches nothing and gives run 1's dict), and the fuzz
+loop (FuzzLoop(clusters=256), 4 rounds) on the card and on the host
+engines, whose corpus files must be byte-identical (`--only store`).
+Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
 wgl_search also the tables in shared memory, scratch bytes and the share
@@ -220,11 +232,12 @@ def bound_ms(t_bytes: float, t_ops: float) -> tuple:
 
 def compare(kernel, launch) -> dict:
     """Replay one captured `search` of `kernel` through the kernel and
-    its plain version (`compare_vec` or `compare_row`)."""
+    its plain version (`compare_vec`, `compare_row` or `compare_search`,
+    which `compare_all` also gives several launches of one shape)."""
     if kernel.name == "wgl_row":
         return compare_row(kernel.mod, launch, kernel)
     if kernel.name == "wgl_search":
-        return compare_search(kernel.mod, launch, kernel)
+        return compare_search(kernel.mod, [launch], kernel)[0]
     return compare_vec(kernel.mod, launch, kernel)
 
 
@@ -421,64 +434,79 @@ def bound_search(ws, packed, launch, small) -> tuple:
     return nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
 
 
-def compare_search(ws, launch, kernel) -> dict:
-    """Replay one captured wgl_search `search` (wgl_search.CAPTURE): the
-    kernel, timed, and the plain version on the same inputs on the card.
-    Verdict, steps and depth must be bit-identical on every compared
-    lane, or this raises. Lanes whose kernel search took more steps than
-    `search_plain_limit` are left out of the full plain run and run again
-    through both under that many steps."""
+def compare_search(ws, launches, kernel, cap=None) -> list:
+    """Replay captured wgl_search `search`es of one shape
+    (wgl_search.CAPTURE; model, n_pad, n_state and cache_bits alike):
+    each through the kernel, timed, with its own bound; and the lanes of
+    all of them through the plain version on the card in one lockstep
+    run (the lanes are independent, and the plain version's cost is its
+    longest lane's steps). Verdict, steps and depth must be
+    bit-identical on every compared lane, or this raises. Lanes whose
+    kernel search took more steps than `search_plain_limit` (or `cap`,
+    where lower) are left out of that run and run again through both
+    under that many steps. One dict a launch; the plain run's time and
+    the capped lanes stand on the first."""
     import torch
 
-    packed, msteps, jm, n_pad, n_state, cache_bits = launch
-    k_ms, small_k = kernel_ms(ws, lambda: ws.search(*launch))
-    lanes = packed.shape[0]
+    _, _, jm, n_pad, n_state, cache_bits = launches[0]
     limit = search_plain_limit(jm, n_state)
+    if cap is not None:
+        limit = min(limit, cap)
+    lay = None
+    outs, smalls = [], []
+    for launch in launches:
+        packed, msteps = launch[:2]
+        k_ms, small_k = kernel_ms(ws, lambda: ws.search(*launch))
+        t_b, t_o = bound_search(ws, packed, launch, small_k)
+        b_ms, b_by = bound_ms(t_b, t_o)
+        plan = ws.launch_plan(packed, jm, n_pad, n_state, cache_bits)
+        lay = lay or ws._layout(jm, n_pad, n_state, cache_bits,
+                                ws._smem_max(packed.device))
+        lanes = packed.shape[0]
+        top = int(small_k[1].max())
+        outs.append({
+            "model": jm.name, "lanes": lanes, "n_pad": n_pad,
+            "n_state": n_state, "cache_bits": cache_bits,
+            "cap": int(msteps.max()), "kernel_ms": k_ms, "plain_ms": None,
+            "plain_lanes": int((small_k[1] <= limit).sum()),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / k_ms,
+            "t_bytes": t_b, "t_ops": t_o, "steps": int(small_k[1].sum()),
+            "max_lane_steps": top, "us_per_step": 1000 * k_ms / max(1, top),
+            "scratch_bytes": 4 * lay.words * lanes,
+            "smem_bytes": plan.bytes, "lanes_per_block": 1,
+            "smem_tables": list(plan.smem),
+            "verdicts": small_k[0].tolist() if lanes <= 16 else None})
+        smalls.append(small_k)
+    if len(launches) > 1:
+        packed = torch.cat([la[0] for la in launches])
+        msteps = torch.cat([la[1] for la in launches])
+        small_k = torch.cat(smalls, 1)
+        outs[0]["plain_launches"] = len(launches)
     long = small_k[1] > limit
     cols = (~long).nonzero()[:, 0]
-    n_cmp = len(cols)
-    small = small_k
-    if n_cmp == lanes:
-        sub, sub_steps = packed, msteps
+    if len(cols) == packed.shape[0]:
+        sub, sub_steps, small = packed, msteps, small_k
     else:
         sub = packed[cols].contiguous()
         sub_steps = msteps[cols].contiguous()
         small = small_k[:, cols]
-    p_ms = None
-    if n_cmp:
-        p_ms, small_p = cuda_ms(lambda: ws.search_plain(
+    if len(cols):
+        outs[0]["plain_ms"], small_p = cuda_ms(lambda: ws.search_plain(
             sub, sub_steps, jm, n_pad, n_state, cache_bits))
-        check_equal(kernel, jm.name, small, small_p)
-    t_b, t_o = bound_search(ws, packed, launch, small_k)
-    b_ms, b_by = bound_ms(t_b, t_o)
-    plan = ws.launch_plan(packed, jm, n_pad, n_state, cache_bits)
-    lay = ws._layout(jm, n_pad, n_state, cache_bits,
-                     ws._smem_max(packed.device))
-    top = int(small_k[1].max())
-    out = {"model": jm.name, "lanes": lanes, "n_pad": n_pad,
-           "n_state": n_state, "cache_bits": cache_bits,
-           "cap": int(msteps.max()), "kernel_ms": k_ms, "plain_ms": p_ms,
-           "plain_lanes": n_cmp, "bound_ms": b_ms, "bound_by": b_by,
-           "bound_share": b_ms / k_ms, "t_bytes": t_b, "t_ops": t_o,
-           "steps": int(small_k[1].sum()), "max_lane_steps": top,
-           "us_per_step": 1000 * k_ms / max(1, top),
-           "scratch_bytes": 4 * lay.words * lanes,
-           "smem_bytes": plan.bytes, "lanes_per_block": 1,
-           "smem_tables": list(plan.smem),
-           "verdicts": small_k[0].tolist() if lanes <= 16 else None}
+        check_equal(kernel, f"{jm.name} n_pad {n_pad}", small, small_p)
     if bool(long.any()):
         lcols = long.nonzero()[:, 0]
         t0 = time.perf_counter()
         sub = packed[lcols].contiguous()
         sub_steps = torch.full_like(msteps[lcols], limit)
-        check_equal(kernel, f"{jm.name} capped",
+        check_equal(kernel, f"{jm.name} n_pad {n_pad} capped",
                     ws.search(sub, sub_steps, jm, n_pad, n_state, cache_bits),
                     ws.search_plain(sub, sub_steps, jm, n_pad, n_state,
                                     cache_bits))
         torch.cuda.synchronize()
-        out.update(long_lanes=len(lcols), long_cap=limit,
-                   long_s=time.perf_counter() - t0)
-    return out
+        outs[0].update(long_lanes=len(lcols), long_cap=limit,
+                       long_s=time.perf_counter() - t0)
+    return outs
 
 
 def shifted(hist, d: int):
@@ -701,60 +729,96 @@ def launch_digest(launch) -> str:
     return h.hexdigest()
 
 
-def compare_once(k, launch, cell: str) -> dict:
-    """compare(k, launch), or the result of the identical launch an
-    earlier path made, marked `same_launch_as` that path."""
-    key = (k.name, launch_digest(launch))
-    if key not in COMPARED:
-        COMPARED[key] = (cell, compare(k, launch))
-    first, p = COMPARED[key]
-    return p if first == cell else {**p, "same_launch_as": first}
+def search_shape(launch) -> tuple:
+    """The shape of one captured wgl_search launch: model, n_pad, n_state
+    and cache_bits."""
+    _, _, jm, n_pad, n_state, cache_bits = launch
+    return jm.name, n_pad, n_state, cache_bits
 
 
-def replay(kernels, seen, cell: str) -> dict:
-    """Every launch a path made, replayed through `compare` (once for
-    identical launches: `compare_once`). Each kernel the path launched
-    gets a `cells` entry for it: the path's launches and their own kernel
-    time, and per replayed launch its kernel time, its longest lane's
-    steps and µs a step of that lane, its shared memory plan and its
-    bound. The first path that launches a kernel also sets that kernel's
-    top-level figures."""
+def compare_all(k, captured, cell: str, cap=None) -> list:
+    """compare() of every launch of `captured`, in order, each once: the
+    identical launch of an earlier path gives that path's result, marked
+    `same_launch_as` it. wgl_search's launches are compared a shape at a
+    time (`compare_search`, lanes past `cap` steps under it)."""
+    keys = [(k.name, launch_digest(launch)) for launch in captured]
+    fresh = {key: launch for key, launch in zip(keys, captured)
+             if key not in COMPARED}
+    if k.name == "wgl_search":
+        groups: dict = {}
+        for key, launch in fresh.items():
+            groups.setdefault(search_shape(launch), []).append(key)
+        for group in groups.values():
+            for key, p in zip(group, compare_search(
+                    k.mod, [fresh[g] for g in group], k, cap)):
+                COMPARED[key] = (cell, p)
+    else:
+        for key, launch in fresh.items():
+            COMPARED[key] = (cell, compare(k, launch))
+    out = []
+    for key in keys:
+        first, p = COMPARED[key]
+        out.append(p if first == cell else {**p, "same_launch_as": first})
+    return out
+
+
+# launches of a cell listed one by one in its `per_launch`; a cell with
+# more lists its slowest and the range of their bound shares
+PER_LAUNCH_LISTED = 16
+
+
+def replay(kernels, seen, cell: str, cap=None) -> dict:
+    """Every launch a path made, replayed through `compare_all` (once for
+    identical launches; wgl_search's lanes past `cap` steps compared
+    under it). Each kernel the path launched gets a `cells` entry for
+    it: the path's launches and their own kernel time, and per replayed
+    launch its kernel time, its longest lane's steps and µs a step of
+    that lane, its shared memory plan and its bound. The first path that
+    launches a kernel also sets that kernel's top-level figures."""
     out = {}
     for k in wgl(kernels):
         launched, path_ms, captured = seen[k.name]
-        passes = [compare_once(k, launch, cell) for launch in captured]
+        passes = compare_all(k, captured, cell, cap)
         out[k.name] = passes
         if not passes:
             continue
         b_ms, b_by = bound_ms(sum(p["t_bytes"] for p in passes),
                               sum(p["t_ops"] for p in passes))
         slowest = max(passes, key=lambda p: p["kernel_ms"])
+        per_launch = [{
+            "kernel_ms": p["kernel_ms"], "lanes": p["lanes"],
+            "n_pad": p["n_pad"], "max_lane_steps": p["max_lane_steps"],
+            "us_per_step": 1000 * p["kernel_ms"]
+            / max(1, p["max_lane_steps"]),
+            "smem_bytes": p["smem_bytes"],
+            "lanes_per_block": p["lanes_per_block"],
+            "smem_tables": p.get("smem_tables"),
+            "scratch_bytes": p.get("scratch_bytes"),
+            "bound_ms": p["bound_ms"],
+            "bound_share": p["bound_ms"] / p["kernel_ms"]}
+            for p in passes]
+        shares = [p["bound_share"] for p in per_launch]
         k.cells[cell] = {
             "launches": launched, "path_kernel_ms": path_ms,
             "kernel_ms": sum(p["kernel_ms"] for p in passes),
+            "plain_ms": sum(p["plain_ms"] or 0.0 for p in passes),
             "max_lane_steps": max(p["max_lane_steps"] for p in passes),
             "us_per_step": 1000 * slowest["kernel_ms"]
             / max(1, slowest["max_lane_steps"]),
             "bound_ms": b_ms, "bound_by": b_by,
-            "per_launch": [{
-                "kernel_ms": p["kernel_ms"], "lanes": p["lanes"],
-                "n_pad": p["n_pad"], "max_lane_steps": p["max_lane_steps"],
-                "us_per_step": 1000 * p["kernel_ms"]
-                / max(1, p["max_lane_steps"]),
-                "smem_bytes": p["smem_bytes"],
-                "lanes_per_block": p["lanes_per_block"],
-                "smem_tables": p.get("smem_tables"),
-                "scratch_bytes": p.get("scratch_bytes"),
-                "bound_ms": p["bound_ms"],
-                "bound_share": p["bound_ms"] / p["kernel_ms"]}
-                for p in passes]}
+            "bound_share_range": [min(shares), max(shares)],
+            "capped_lanes": sum(p.get("long_lanes", 0) for p in passes),
+            "per_launch": sorted(
+                per_launch, key=lambda p: -p["kernel_ms"]
+            )[:PER_LAUNCH_LISTED] if len(per_launch) > PER_LAUNCH_LISTED
+            else per_launch}
         k.widest[cell] = max(captured, key=lambda c: c[0].shape[-1])
         if k.shape is None:
             lanes = sum(p["lanes"] for p in passes)
             k.shape = (f"{lanes} lanes in {len(passes)} launches, n_pad "
                        f"{captured[0][3]}: every search of the {cell} cell")
             k.ms = sum(p["kernel_ms"] for p in passes)
-            k.plain_ms = sum(p["plain_ms"] or 0.0 for p in passes)
+            k.plain_ms = k.cells[cell]["plain_ms"]
             k.bound_ms, k.bound_by = b_ms, b_by
     return out
 
@@ -2345,6 +2409,344 @@ def phase_fuzzing(args, kernels, ck, sim) -> None:
     phase_fuzz_fixtures(args, kernels, sim)
 
 
+# -- linear, competition, the store, the journal and the fuzz loop --------
+
+# per-case time limit of the linear and competition phase (s)
+LINEAR_LIMIT_S = 2
+# steps past which a K2 lane launched under competition is compared with
+# the plain version under this common budget (its 2-s limit gives lanes
+# 100,000 steps, ~30 s of the plain version's lockstep each)
+COMPETITION_CAP = 2_000
+
+
+def corpus_cases():
+    """(case, fresh model, the port's history) for every corpus case."""
+    from jepsen_tpu_torch import carry, models
+
+    model_of = {"cas-register": models.CASRegister,
+                "register": models.Register, "mutex": models.Mutex,
+                "unordered-queue": models.UnorderedQueue,
+                "fifo-queue": models.FIFOQueue,
+                "multi-register": models.MultiRegister}
+    with open(os.path.join(HERE, CORPUS)) as fh:
+        cases = [json.loads(line) for line in fh if line.strip()]
+    return [(c, model_of[c["model"]], carry.history_from_dicts(c["history"]))
+            for c in cases]
+
+
+def phase_linear(args, kernels, search) -> None:
+    """Every corpus case through the `linear` algorithm on the host, then
+    through `competition` on the card (linear raced against K2's
+    counterpart where the model encodes), each at a LINEAR_LIMIT_S limit.
+    linear: `linearizable(m, "linear").check`, or for the cases whose
+    corpus verdict is "unknown" under their recorded `params.budget`,
+    `linear.analysis` under that budget's max_configs: each verdict the
+    corpus's, "unknown" counted apart. competition: one main path over
+    every case (counts set to 0 before, read after `_drain_racers`,
+    which must raise nothing); each definite verdict the corpus's (for
+    the budget cases: the native search's); the winners' counts; after
+    each check, the seconds until the abandoned K2 loser's thread is done
+    and the card is idle; every captured K2 launch held against
+    search_plain (`replay`, lanes past COMPETITION_CAP steps under it)."""
+    import torch
+
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.ops import linear, wgl_native
+
+    lin = lin_module()
+    cases = corpus_cases()
+    t0 = time.perf_counter()
+    tally = {"matched": 0, "unknown": 0, "unknown_cases": [],
+             "mismatches": []}
+    for case, model, hist in cases:
+        budget = case["params"].get("budget")
+        if case["expected"] == "unknown":
+            d = lin.Linearizable()._result(linear.analysis(
+                model(), hist, time_limit=LINEAR_LIMIT_S,
+                max_configs=budget["max_configs"]))
+        else:
+            d = linearizable(model(), "linear",
+                             time_limit=LINEAR_LIMIT_S).check({}, hist, {})
+        if d["valid"] == case["expected"]:
+            tally["matched"] += 1
+        elif d["valid"] == "unknown":
+            tally["unknown"] += 1
+            tally["unknown_cases"].append(case["name"])
+        else:
+            tally["mismatches"].append((case["name"], d["valid"]))
+    linear_s = time.perf_counter() - t0
+    assert not tally["mismatches"], tally["mismatches"]
+
+    wins0 = dict(lin.COMPETITION_WINS)
+    busy: list = []
+    check_s: list = []
+    verdicts: list = []
+
+    def path():
+        for case, model, hist in cases:
+            t1 = time.perf_counter()
+            d = linearizable(model(), "competition",
+                             time_limit=LINEAR_LIMIT_S).check({}, hist, {})
+            t2 = time.perf_counter()
+            for t in list(lin._abandoned_racers):
+                if t.name == "competition-wgl_search":
+                    t.join()
+            torch.cuda.synchronize()
+            check_s.append(t2 - t1)
+            busy.append(time.perf_counter() - t2)
+            verdicts.append(d["valid"])
+        lin._drain_racers()
+
+    _, wall, seen = run_path(kernels, path)
+    launches = {k: v[0] for k, v in seen.items() if v[0]}
+    assert launches.get("wgl_search", 0) >= 1, launches
+    assert set(launches) == {"wgl_search"}, launches
+    mismatches, undecided = [], []
+    for (case, model, hist), v in zip(cases, verdicts):
+        want = case["expected"]
+        if want == "unknown":
+            want = wgl_native.analysis(model(), hist).valid
+        if v == "unknown":
+            undecided.append(case["name"])
+        elif v != want:
+            mismatches.append((case["name"], v, want))
+    assert not mismatches, mismatches
+    wins = {k: lin.COMPETITION_WINS[k] - wins0[k] for k in wins0}
+    passes = replay(kernels, seen, "competition", cap=COMPETITION_CAP)
+    cell = search.cells["competition"]
+    top = sorted(range(len(busy)), key=lambda i: -busy[i])[:5]
+    emit({"phase": "linear", "nvidia_smi": args.smi, "cases": len(cases),
+          "limit_s": LINEAR_LIMIT_S,
+          "linear": {"wall_s": linear_s, **tally},
+          "competition": {
+              "wall_s": wall, "checks_s": sum(check_s),
+              "busy_after_return_s": sum(busy),
+              "busy_after_return_max_s": max(busy),
+              "busiest": [(cases[i][0]["name"], busy[i]) for i in top],
+              "winners": wins, "unknown": len(undecided),
+              "unknown_cases": undecided, "launches": launches,
+              "kernel_ms": seen["wgl_search"][1],
+              "device_idle": 1 - seen["wgl_search"][1] / 1000 / wall,
+              "kernel_vs_plain": {
+                  "launches_compared": len(passes["wgl_search"]),
+                  "shapes": len({search_shape(c)
+                                 for c in seen["wgl_search"][2]}),
+                  **{f: cell[f] for f in (
+                      "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                      "bound_share_range", "capped_lanes")},
+                  "cap": COMPETITION_CAP, "matches_plain": True}}})
+
+
+# the store phase's sizes: the register cell (BASELINE.md:18), the
+# cycle_append history, the fuzz loop's round (FuzzLoop's default)
+STORE_KEYS = 4096
+STORE_INVOCATIONS = 64
+STORE_CYCLE_OPS = 5000
+STORE_FUZZ_CLUSTERS = 256
+
+
+def store_files(root) -> dict:
+    """Files under root by name: {basename: count}."""
+    out: dict = {}
+    for _, _, files in os.walk(root):
+        for f in files:
+            out[f] = out.get(f, 0) + 1
+    return out
+
+
+def json_normal(d):
+    """A result dict as the journal's JSON carries it."""
+    from jepsen_tpu_torch import store
+
+    return json.loads(json.dumps(store._json_keys(d),
+                                 default=store._json_default))
+
+
+def store_test(td: str, name: str) -> dict:
+    """A test map with a store dir under td and an analysis journal."""
+    import datetime
+
+    from jepsen_tpu_torch import store
+
+    test = {"name": name, "store_dir": td,
+            "start_time": store.time_str(datetime.datetime.now())}
+    test["_analysis_journal"] = store.AnalysisJournal(test)
+    return test
+
+
+def store_register(args, kernels, td: str) -> dict:
+    """The register cell (4096 keys x 64 invocations, every 8th key with
+    an impossible read) through independent.checker(linearizable(
+    CASRegister(), "auto")) with every bar at 1 and a store dir and
+    journal: run 1 writes results.edn and history.txt for every key and
+    linear.svg for every invalid one, launching K1 (its launches
+    replayed); run 2 with the same journal and run 3 with the journal
+    read again from disk check no key, launch nothing and give run 1's
+    dict."""
+    from jepsen_tpu_torch import independent, store
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.workloads.register import keyed_history
+
+    hist = keyed_history(STORE_KEYS, STORE_INVOCATIONS, n_process=5,
+                         bad_every=8, seed=args.seed)
+    chk = independent.checker(linearizable(CASRegister(), algorithm="auto"))
+    test = store_test(td, "store_register")
+    runs = []
+    with card_bars(1):
+        for label in ("run1", "run2", "run3"):
+            if label == "run3":
+                test["_analysis_journal"].close()
+                test["_analysis_journal"] = store.AnalysisJournal(test)
+            res, wall, seen = run_path(kernels,
+                                       lambda: chk.check(test, hist, {}))
+            runs.append((label, res, wall, seen))
+    test["_analysis_journal"].close()
+    (_, r1, w1, s1), (_, r2, w2, s2), (_, r3, w3, s3) = runs
+    assert s1["wgl_vec"][0] >= 1, s1["wgl_vec"][0]
+    for s in (s2, s3):
+        assert not any(v[0] for v in s.values()), s
+    assert r2 == r1, "run 2 (the same journal) != run 1"
+    assert json_normal(r3) == json_normal(r1), "run 3 (journal from disk)"
+    assert len(r1["failures"]) == STORE_KEYS // 8 and r1["valid"] is False
+    files = store_files(store.path(test))
+    assert files.get("results.edn") == STORE_KEYS, files
+    assert files.get("history.txt") == STORE_KEYS, files
+    assert files.get("linear.svg") == STORE_KEYS // 8, files
+    svg = [r.get("counterexample_svg") for r in r1["results"].values()
+           if r["valid"] is False]
+    assert all(p and os.path.exists(p) for p in svg)
+    passes = replay(kernels, s1, "store_register")
+    return {"keys": STORE_KEYS, "files": files,
+            "run1_wall_s": w1, "run2_wall_s": w2, "run3_wall_s": w3,
+            "run1_launches": {k: v[0] for k, v in s1.items() if v[0]},
+            "journal_lines": len(store.AnalysisJournal(test)),
+            "kernel_vs_plain": {k: len(v) for k, v in passes.items() if v}}
+
+
+def store_cycle(args, kernels, ck, td: str) -> dict:
+    """cycle_append's history (5,000 ops, G1c and G-single injected; op
+    times 1 ms apart so the timeline draws every op) through
+    `cycle.checker()` with a store dir and journal: run 1 launches K3
+    (every bucket replayed) and journals each closure, run 2 with the
+    journal launches no K3 kernel and gives run 1's dict; run 1 writes
+    timeline-cycle.html with the witness cycles."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.checker import cycle
+    from jepsen_tpu_torch.workloads import list_append
+
+    hist = [o.with_(time=1_000_000 * i) for i, o in enumerate(
+        list_append.simulate(STORE_CYCLE_OPS, seed=args.seed,
+                             inject=("G1c", "G-single")))]
+    chk = cycle.checker()
+    test = store_test(td, "store_cycle")
+    r1, w1, s1 = run_path(kernels, lambda: chk.check(test, hist, {}))
+    n_closures = len(test["_analysis_journal"])
+    r2, w2, s2 = run_path(kernels, lambda: chk.check(test, hist, {}))
+    test["_analysis_journal"].close()
+    assert any(s1[k][0] for k in ck), s1
+    assert not any(v[0] for v in s2.values()), s2
+    assert normalise(r2) == normalise(r1)
+    assert r1["anomaly-types"] == ["G1c", "G-single"], r1["anomaly-types"]
+    page = store.path(test, "timeline-cycle.html")
+    with open(page) as fh:
+        html = fh.read()
+    assert 'class="witness"' in html
+    buckets = replay_closure(ck, s1["unpack"][2])
+    closure_cell(ck, "store_cycle", s1, buckets)
+    return {"ops": len(hist), "run1_wall_s": w1, "run2_wall_s": w2,
+            "closures_journaled": n_closures,
+            "run1_launches": {k: v[0] for k, v in s1.items() if v[0]},
+            "timeline_bytes": len(html),
+            "witness_arrows": html.count("<line "),
+            "buckets_replayed": len(buckets)}
+
+
+def store_fuzz_loop(args, kernels, ck, sim, td: str) -> dict:
+    """FuzzLoop(clusters=256, seed) on the card for 4 rounds (one main
+    path: 4 sim launches, each round's batch held against sim_plain, the
+    closure buckets replayed), and the same loop with engine="host" and
+    score_engine="host": corpus.json and anomalies.jsonl byte-identical;
+    the wall of each round."""
+    import numpy as np
+
+    from jepsen_tpu_torch.fuzz import loop, sim as sim_mod
+    from jepsen_tpu_torch.fuzz.schedule import canonicalize
+
+    batches: list = []
+    real = loop.simulate_batch
+
+    def recorded(scheds, wseeds, spec, **kw):
+        batches.append((np.asarray(scheds), np.asarray(wseeds), spec))
+        return real(scheds, wseeds, spec, **kw)
+
+    def rounds(lp) -> list:
+        walls = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            lp.run_round()
+            walls.append(time.perf_counter() - t0)
+        return walls
+
+    card = loop.FuzzLoop(os.path.join(td, "card"),
+                         clusters=STORE_FUZZ_CLUSTERS, seed=args.seed)
+    loop.simulate_batch = recorded
+    try:
+        card_walls, wall, seen = run_path(kernels, lambda: rounds(card))
+    finally:
+        loop.simulate_batch = real
+    host = loop.FuzzLoop(os.path.join(td, "host"),
+                         clusters=STORE_FUZZ_CLUSTERS,
+                         seed=args.seed, engine="host", score_engine="host")
+    host_walls = rounds(host)
+    for f in (loop.STATE_FILE, loop.ANOMALIES_FILE):
+        with open(os.path.join(td, "card", f), "rb") as a, \
+                open(os.path.join(td, "host", f), "rb") as b:
+            assert a.read() == b.read(), f"card {f} != host {f}"
+    assert seen["sim"][0] == 4, seen["sim"][0]
+    held_rounds = []
+    for scheds, wseeds, spec in batches:
+        s = np.stack([canonicalize(x, spec) for x in scheds])
+        s, w = sim_mod._as_batch(s, wseeds, spec)
+        figs = sim_vs_plain(sim, s, w.astype(np.int64), spec)
+        held_rounds.append({k: figs[k] for k in (
+            "clusters", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "share", "matches_plain")})
+    buckets = replay_closure(ck, seen["unpack"][2])
+    closure_cell(ck, "store_fuzz_loop", seen, buckets)
+    sim.cells["store_fuzz_loop"] = {"launches": seen["sim"][0],
+                                    "path_kernel_ms": seen["sim"][1],
+                                    "rounds": held_rounds}
+    if sim.ms is None:
+        first = held_rounds[0]
+        sim.ms, sim.plain_ms = first["kernel_ms"], first["plain_ms"]
+        sim.bound_ms, sim.bound_by = first["bound_ms"], first["bound_by"]
+        sim.shape = (f"[{first['clusters']}, 8, 6] schedules: the fuzz "
+                     "loop's first round")
+    return {"clusters": STORE_FUZZ_CLUSTERS, "rounds": 4, "card_round_s": card_walls,
+            "host_round_s": host_walls, "card_wall_s": wall,
+            "launches": {k: v[0] for k, v in seen.items() if v[0]},
+            "summary": {k: v for k, v in card.corpus.summary().items()},
+            "corpus_identical": True, "sim_vs_plain": held_rounds,
+            "closure_buckets_replayed": len(buckets)}
+
+
+def phase_store(args, kernels, ck, sim) -> None:
+    """The store, the analysis journal and the artifacts on three paths
+    (`store_register`, `store_cycle`, `store_fuzz_loop`), each writing
+    under a temporary directory removed after it; one line a path."""
+    import tempfile
+
+    for name, fn in (("store_register", lambda td: store_register(
+                          args, kernels, td)),
+                     ("store_cycle", lambda td: store_cycle(
+                         args, kernels, ck, td)),
+                     ("store_fuzz_loop", lambda td: store_fuzz_loop(
+                         args, kernels, ck, sim, td))):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as td:
+            emit({"phase": name, "nvidia_smi": args.smi, **fn(td)})
+
+
 def lookup_us(mod, reps: int = 20) -> dict:
     """Host µs of one lookup of kernel module `mod`'s library through
     its `build`: "cached", as every wrapper makes it at each launch, and
@@ -2412,6 +2814,7 @@ def run(args) -> int:
     from jepsen_tpu_torch.ops import closure, wgl_row, wgl_search, wgl_vec
 
     smi = nvidia_smi()
+    args.smi = smi
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "torch_device": kind,
           "capability": describe("cuda")["capability"],
@@ -2443,6 +2846,17 @@ def run(args) -> int:
     if args.only == "fuzz":
         phase_fuzzing(args, kernels, ck, sim)
         emit({"kernels": [k.row() for k in (*ck.values(), sim)
+                          if not k.library]})
+        print(smi, flush=True)
+        return 0
+    if args.only == "linear":
+        phase_linear(args, kernels, search)
+        emit({"kernels": [search.row()]})
+        print(smi, flush=True)
+        return 0
+    if args.only == "store":
+        phase_store(args, kernels, ck, sim)
+        emit({"kernels": [k.row() for k in (vec, *ck.values(), sim)
                           if not k.library]})
         print(smi, flush=True)
         return 0
@@ -2508,11 +2922,13 @@ def run(args) -> int:
 
     phase_crossover(args, SMOKE_CROSSOVER_REPS, SMOKE_CROSSOVER_QUEUE_SEEDS)
     phase_corpus(args)
+    phase_linear(args, kernels, search)
 
     phase_closure_vs_plain(args, ck)
     phase_cycles(args, kernels, ck)
 
     phase_fuzzing(args, kernels, ck, sim)
+    phase_store(args, kernels, ck, sim)
 
     mm = ck["matmul"]
     emit({"kernels": [k.row() for k in kernels if not k.library],
@@ -2529,13 +2945,17 @@ def run(args) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("crossover", "closure", "fuzz"),
+    ap.add_argument("--only", choices=("crossover", "closure", "fuzz",
+                                       "linear", "store"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
                     "fuzz: the sim kernel at six specs and the three fuzz "
-                    "cells) and print their lines and the nvidia-smi line "
-                    "(no smoke result)")
+                    "cells; linear: the corpus through linear and "
+                    "competition; store: the register cell, cycle_append "
+                    "and the fuzz loop with a store and journal) and "
+                    "print their lines and the nvidia-smi line (no smoke "
+                    "result)")
     return run(ap.parse_args())
 
 

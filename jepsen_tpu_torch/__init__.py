@@ -17,8 +17,19 @@ Its main path is the per-key linearizability check users run through
                                             length, vector state)
            ops.wgl_host.analysis           (no int32 encoding)
 
-beside the transactional cycle checker (`checker.cycle`, closures in
-ops/csrc/closure.cu).
+and, under the algorithms "linear" and "competition", per history:
+
+    ops.linear.analysis                    (knossos.linear, on the host)
+    raced against ops.wgl_search.analysis  (K2's counterpart, where the
+                                            model encodes; else native or
+                                            the host search)
+
+Beside it: the transactional cycle checker (`checker.cycle`, closures in
+ops/csrc/closure.cu); the fuzz loop (`fuzz.loop.FuzzLoop`: one launch of
+ops/csrc/sim.cu a round, then the scoring closures); and the store
+(`store`: the JAX package's on-disk layout, the analysis journal that
+lets a killed analysis resume, and each check's artifacts — per-key
+results.edn and history.txt, linear.svg, timeline-cycle.html).
 
 The package imports torch and numpy only — never jax and nothing of
 `jepsen_tpu`; what it needs from there it keeps as its own copy.

@@ -15,6 +15,10 @@ from ..ops._build import BuildError
 
 VALID_PRIORITIES = {True: 0, "unknown": 0.5, False: 1}
 
+#: faults of the card or of a build: never turned into "unknown"
+#: (check_safe, and the "competition" race in linearizable.py)
+FAULTS = (KernelError, BuildError, CudaUnavailable)
+
 
 def merge_valid(valids) -> Any:
     """The highest-priority validity: any False wins, else any "unknown",
@@ -39,7 +43,7 @@ def check_safe(checker: Checker, test, history, opts=None) -> dict:
     those re-raise, so a fault of the card never reads as "unknown"."""
     try:
         return checker.check(test, history, opts or {})
-    except (KernelError, BuildError, CudaUnavailable):
+    except FAULTS:
         raise
     except Exception:  # noqa: BLE001
         return {"valid": "unknown", "error": traceback.format_exc()}

@@ -28,10 +28,17 @@ failures (non-prefix reads, duplicate writes, phantom values) degrade
 to "unknown" with the offending detail under "error", and so does a
 `test["deadline"]` that passes before the closure is done
 ({"valid": "unknown", "error": "deadline"}).
+
+With an analysis journal on the test (`test["_analysis_journal"]`, a
+store.AnalysisJournal), journaled closures are reused and never
+launched again. On a falsified history of a test with a store dir (name
+and start_time), timeline-cycle.html with the witness cycles drawn as
+relation-labelled arrows is written there (checker/timeline.py).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 
 from .. import Checker
@@ -108,12 +115,41 @@ class CycleChecker(Checker):
             r = classify(g, self.anomalies, realtime=self.realtime,
                          engine=self.engine, device=self.device,
                          max_witnesses=self.max_witnesses,
+                         journal=(test or {}).get("_analysis_journal"),
                          budget=None if budget is None else float(budget))
         except IllegalInference as e:
             return {"valid": "unknown", "error": e.info}
         except DeadlineExpired:
+            # closures that completed are journaled: a retry salvages them
             return {"valid": "unknown", "error": "deadline"}
-        return {"valid": not r["anomaly-types"], **r}
+        out = {"valid": not r["anomaly-types"], **r}
+        self._render_invalid(test, history, out, opts)
+        return out
+
+    @staticmethod
+    def _render_invalid(test, history, result, opts) -> None:
+        """On a falsified history with a store attached, write a
+        timeline with the witness cycles drawn as relation-labelled
+        arrows (checker/timeline.py). A rendering failure is logged and
+        does not mask the verdict."""
+        if result["valid"] is not False:
+            return
+        if not (test and test.get("name") and test.get("start_time")):
+            return
+        try:
+            from ... import store
+            from .. import timeline
+
+            ws = [w for ws in result["anomalies"].values() for w in ws]
+            doc = timeline.render(test, history, witness=ws)
+            p = store.path_(
+                test, list((opts or {}).get("subdirectory") or []),
+                "timeline-cycle.html")
+            with open(p, "w") as f:
+                f.write(doc)
+        except Exception:  # noqa: BLE001 — rendering must not mask verdicts
+            logging.getLogger("jepsen_tpu_torch.checker.cycle").warning(
+                "timeline-cycle.html rendering failed", exc_info=True)
 
     @staticmethod
     def _unwrap(o):

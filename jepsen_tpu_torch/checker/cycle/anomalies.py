@@ -32,10 +32,19 @@ by default (engine None), the host DFS with engine "host". The engine is
 chosen before anything launches; a kernel fault raises. Witness recovery
 (a concrete shortest cycle per anomaly) is a host BFS on the flagged
 component.
+
+With an analysis journal (`classify(..., journal=)`, a
+store.AnalysisJournal), each component x mask job is keyed by its
+content; a journaled closure is reused and never sent to the engine,
+and each closure the engine completes is journaled as a packed bitmap
+(the JAX package's format, so either package's journal serves the
+other).
 """
 
 from __future__ import annotations
 
+import hashlib
+import logging
 import time
 
 import numpy as np
@@ -88,23 +97,51 @@ def components(full: np.ndarray) -> list:
             if len(c) > 1 or full[c[0], c[0]]]
 
 
-def _closures(mats, engine=None, device=None, budget=None) -> list:
+def _job_key(rels, sub: np.ndarray) -> str:
+    """Content identity of one closure job (relation mask + the exact
+    component submatrix), so journaled closures are only reused for
+    bit-identical inputs."""
+    h = hashlib.sha1()
+    h.update(("|".join(rels) + f"#{sub.shape[0]}#").encode())
+    h.update(np.packbits(sub).tobytes())
+    return h.hexdigest()
+
+
+def _pack_closure(m: np.ndarray) -> dict:
+    return {"n": int(m.shape[0]),
+            "bits": np.packbits(m).tobytes().hex()}
+
+
+def _unpack_closure(d) -> np.ndarray:
+    n = int(d["n"])
+    bits = np.frombuffer(bytes.fromhex(d["bits"]), dtype=np.uint8)
+    return np.unpackbits(bits, count=n * n).astype(bool).reshape(n, n)
+
+
+def _closures(mats, engine=None, device=None, budget=None,
+              on_closed=None) -> list:
     """Closure of every matrix: on the card (`closure.reach_batch`,
     `device` None = CUDA) for engine None, by the host DFS for "host".
     `budget` is an absolute time.monotonic() deadline, checked before
     each pad bucket (before the whole batch on the host); past it this
-    raises closure.DeadlineExpired."""
+    raises closure.DeadlineExpired. `on_closed(i, closure)` is called
+    for each matrix as it completes."""
     if not mats:
         return []
     if engine == "host":
         if budget is not None and time.monotonic() >= budget:
             raise closure.DeadlineExpired(
                 "deadline passed before the host closure")
-        return closure_host.reach_batch(mats)
+        out = closure_host.reach_batch(mats)
+        if on_closed is not None:
+            for i, m in enumerate(out):
+                on_closed(i, m)
+        return out
     if engine is not None:
         raise ValueError(f"unknown closure engine {engine!r} "
                          f"(known: {ENGINES})")
-    return closure.reach_batch(mats, device=device, budget=budget)
+    return closure.reach_batch(mats, device=device, budget=budget,
+                               on_closed=on_closed)
 
 
 def _lap(name: str, t0: float) -> float:
@@ -143,16 +180,19 @@ def _witness(g: DepGraph, comp, allowed, a, b) -> dict:
 
 
 def classify(g: DepGraph, anomalies=ANOMALIES, *, realtime=False,
-             engine=None, device=None, max_witnesses=4,
+             engine=None, device=None, max_witnesses=4, journal=None,
              budget=None) -> dict:
     """Find every requested anomaly in a dependency graph.
 
     Returns {"anomaly-types": [...], "anomalies": {type: [witness]},
     "cycle-count": int, "node-count": int, "component-count": int}.
     Witness lists are capped at max_witnesses per type; the hit COUNT
-    (cycle-count) is exact. `budget` (absolute time.monotonic()
-    deadline) bounds the closure step: past it this raises
-    closure.DeadlineExpired."""
+    (cycle-count) is exact. `journal` (a store.AnalysisJournal) makes
+    the closure step resumable: journaled closures are reused and only
+    the remaining jobs go to the engine, each journaled as it completes.
+    `budget` (absolute time.monotonic() deadline) bounds the closure
+    step: past it this raises closure.DeadlineExpired, the closures
+    already completed journaled first."""
     for a in anomalies:
         if a not in _MASKS:
             raise ValueError(f"unknown anomaly {a!r} "
@@ -174,12 +214,39 @@ def classify(g: DepGraph, anomalies=ANOMALIES, *, realtime=False,
     jobs = [(rels, c) for rels in keys for c in comps]
     mats = [masks[rels][np.ix_(c, c)] for rels, c in jobs]
     closed: list = [None] * len(jobs)
+    jkeys: list = [None] * len(jobs)
+    if journal is not None:
+        for i, ((rels, _), m) in enumerate(zip(jobs, mats)):
+            jkeys[i] = _job_key(rels, m)
+            r = journal.get("closure", jkeys[i])
+            if r is not None:
+                try:
+                    closed[i] = _unpack_closure(r)
+                except (KeyError, TypeError, ValueError):
+                    closed[i] = None
+        skips = sum(1 for x in closed if x is not None)
+        if skips:
+            logging.getLogger("jepsen_tpu_torch.checker.cycle").info(
+                "analysis journal: reusing %d of %d closures", skips,
+                len(jobs))
     # largest first, as the JAX package submits (results realign by
     # index; the engine buckets by pad size either way)
-    todo = sorted(range(len(jobs)), key=lambda i: -mats[i].shape[0])
-    for i, sub in zip(todo, _closures([mats[i] for i in todo],
-                                      engine=engine, device=device,
-                                      budget=budget)):
+    todo = sorted((i for i, x in enumerate(closed) if x is None),
+                  key=lambda i: -mats[i].shape[0])
+
+    got: dict = {}
+    try:
+        subs = _closures([mats[i] for i in todo], engine=engine,
+                         device=device, budget=budget,
+                         on_closed=got.__setitem__)
+    finally:
+        # in submission order, as the JAX package journals them, also
+        # when the budget ran out after some buckets
+        if journal is not None:
+            for j in sorted(got):
+                journal.record("closure", jkeys[todo[j]],
+                               _pack_closure(got[j]))
+    for i, sub in zip(todo, subs):
         closed[i] = sub
     # reassemble per-mask full-size closure (block-diagonal by
     # construction: no path leaves a weak component)

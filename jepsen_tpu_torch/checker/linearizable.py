@@ -20,6 +20,24 @@ Algorithms:
              memo), for the models with an int32 encoding; lanes over a
              thread pool.
   "host"     ops/wgl_host.py — the Python search (knossos.wgl analog).
+  "linear"   ops/linear.py — just-in-time linearization over
+             configurations (knossos.linear analog): one in-order sweep
+             carrying every reachable (state, early-linearized)
+             configuration. `check_batch` runs `check` per lane.
+  "competition" linear raced against one WGL entrant, the first
+             definite verdict winning (knossos.competition,
+             checker.clj:125-127): the card's search
+             (wgl_search.analysis, K2's counterpart) when the model has
+             a kernel encoding and the lane's payloads encode, else
+             native when it takes the lane, else the host search. The
+             losing thread is abandoned (`_abandoned_racers`, joined at
+             exit under one shared 120-s bound). Unlike the JAX
+             package, no error of the card's search and no build
+             fault of an entrant is turned into "unknown": `check`
+             raises it when it arrives before the race is decided,
+             and `_drain_racers()` raises one that an abandoned loser
+             met later. A missing card raises from `check` before the
+             race starts. `check_batch` runs `check` per lane.
   "auto"     first the P-compositional split (ops/pcomp.py) where the
              model declares one and every history decomposes: every
              item's micro-lanes flatten into one batch per sub-model,
@@ -53,12 +71,19 @@ budget-checked engine call, so `check` of such a history checks the
 budget first. The micro-lanes of one check share one time_limit.
 
 Results have the JAX package's shape: valid, op + final_paths for an
-invalid history (truncated to TRUNCATE ops), error for an unknown one
-that has a reason, cache_size, steps.
+invalid history (truncated to TRUNCATE ops), linear's configs
+(truncated to TRUNCATE), error for an unknown one that has a reason,
+cache_size, steps. On an invalid verdict of a test with a store dir
+(name and start_time), `check` and `check_batch` write linear.svg of
+the failed window there (checker/linear_report.py) and name it under
+"counterexample_svg".
 """
 
 from __future__ import annotations
 
+import atexit
+import logging
+import threading
 import time
 from typing import Any
 
@@ -66,12 +91,46 @@ from ..device import resolve
 from ..history import entries as make_entries
 from ..models import Model
 from ..models import jit as mjit
-from ..ops import pcomp, wgl_host, wgl_native, wgl_row, wgl_search, wgl_vec
+from ..ops import (linear as linear_mod, pcomp, wgl_host, wgl_native,
+                   wgl_row, wgl_search, wgl_vec)
 from ..ops.common import STEPS_PER_SEC_ESTIMATE
-from . import Checker
+from . import FAULTS, Checker
 
 TRUNCATE = 10
-ALGORITHMS = ("auto", "gpu_vec", "gpu_row", "gpu_search", "native", "host")
+ALGORITHMS = ("auto", "gpu_vec", "gpu_row", "gpu_search", "native", "host",
+              "linear", "competition")
+
+#: threads of entrants that lost a "competition" race and still run; each
+#: is named "competition-<entrant>"
+_abandoned_racers: list = []
+#: faults those threads met after their race was decided, raised by
+#: `_drain_racers`
+_racer_faults: list = []
+_racers_lock = threading.Lock()
+
+#: races won by each entrant since the process started (chip_smoke.py
+#: reads them around its competition run)
+COMPETITION_WINS = {"linear": 0, "wgl_search": 0, "native": 0, "host": 0}
+
+
+@atexit.register
+def _drain_racers():
+    """Join every abandoned racer under one shared 120-s bound (however
+    many races), then raise the first fault one of them met after its
+    race was decided."""
+    deadline = time.monotonic() + 120
+    with _racers_lock:
+        racers = list(_abandoned_racers)
+    for t in racers:
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+    with _racers_lock:
+        _abandoned_racers[:] = [t for t in _abandoned_racers if t.is_alive()]
+        faults = list(_racer_faults)
+        _racer_faults.clear()
+    if faults:
+        raise faults[0]
+
+
 ENGINES = {"gpu_vec": wgl_vec, "gpu_row": wgl_row, "gpu_search": wgl_search}
 
 #: the native triage's step budget under "auto" (the JAX package's
@@ -366,25 +425,133 @@ class Linearizable(Checker):
 
     def check(self, test, history, opts=None) -> dict:
         model = self._model(test)
-        es = make_entries(list(history))
+        history = list(history)
+        es = make_entries(history)
         budget = self._budget(test)
-        if _expired(budget) and self._split(model, [es]) is None:
+        if self.algorithm == "competition":
+            d = self._competition(model, es)
+        elif self.algorithm == "linear":
+            d = self._result(
+                _deadline_result() if _expired(budget)
+                else linear_mod.analysis(model, es,
+                                         time_limit=self.time_limit))
+        elif _expired(budget) and self._split(model, [es]) is None:
             # the JAX package checks one history that does not split in
             # one budget-checked engine call, triage or not
-            return self._result(_deadline_result())
-        (r,) = self._check_all(model, [es], budget)
-        return self._result(r)
+            d = self._result(_deadline_result())
+        else:
+            (r,) = self._check_all(model, [es], budget)
+            d = self._result(r)
+        self._render_invalid(test, history, d, opts)
+        return d
 
     def check_batch(self, test, items) -> list[dict]:
         """Check many independent histories in one pass — the batched
         path the independent checker takes. `items` is a list of
-        (history, per_item_opts); returns one result dict per item."""
+        (history, per_item_opts); returns one result dict per item.
+        Under "linear" and "competition", `check` per item."""
+        items = [(list(h), o) for h, o in items]
+        if self.algorithm in ("linear", "competition"):
+            return [self.check(test, h, o) for h, o in items]
         model = self._model(test)
-        ess = [make_entries(list(h)) for h, _ in items]
+        ess = [make_entries(h) for h, _ in items]
         if not ess:
             return []
-        return [self._result(r)
-                for r in self._check_all(model, ess, self._budget(test))]
+        out = [self._result(r)
+               for r in self._check_all(model, ess, self._budget(test))]
+        for (h, o), d in zip(items, out):
+            self._render_invalid(test, h, d, o)
+        return out
+
+    @staticmethod
+    def _render_invalid(test, history, d, opts) -> None:
+        """On an invalid verdict, write linear.svg of the failed window
+        into the test's store dir (checker.clj:130-137). A rendering
+        failure is logged and does not mask the verdict."""
+        if d.get("valid") is not False:
+            return
+        from . import linear_report
+        from .perf import out_path
+
+        path = out_path(test or {}, opts, "linear.svg")
+        if path is None:
+            return
+        try:
+            written = linear_report.render_analysis(history, d, path)
+            if written:
+                d["counterexample_svg"] = written
+        except Exception:  # noqa: BLE001 — rendering must not mask verdicts
+            logging.getLogger("jepsen_tpu_torch.checker.linearizable"
+                              ).warning("linear.svg rendering failed",
+                                        exc_info=True)
+
+    def _wgl_entrant(self, model, es) -> tuple:
+        """(name, thunk) of competition's WGL entrant: the card's search
+        when the model has a kernel encoding and the lane's payloads
+        encode, else native when it takes the lane, else the host
+        search."""
+        jm = mjit.for_model(model)
+        if jm is not None and jm.lane_eligible(es):
+            # a missing card raises here, before any race is run
+            device = resolve(self.device)
+            return "wgl_search", lambda: wgl_search.analysis(
+                model, es, time_limit=self.time_limit, device=device)
+        if wgl_native.eligible(model, es):
+            return "native", lambda: wgl_native.analysis(
+                model, es, time_limit=self.time_limit)
+        return "host", lambda: wgl_host.analysis(
+            model, es, time_limit=self.time_limit)
+
+    def _competition(self, model, es) -> dict:
+        """Race linear against the WGL entrant (`_wgl_entrant`); the
+        first definite verdict wins (knossos.competition,
+        checker.clj:125-127). A host entrant's exception reads "unknown"
+        with its text under "error", as in the JAX package, except a
+        fault of a build (FAULTS). Every exception of the card's search
+        is a fault (a failed launch, an out-of-memory, an illegal
+        address that surfaces at a later sync). A fault is raised here
+        when it arrives before the race is decided, else kept for
+        `_drain_racers`."""
+        entrants = [("linear", lambda: linear_mod.analysis(
+            model, es, time_limit=self.time_limit)),
+            self._wgl_entrant(model, es)]
+        done = threading.Event()
+        results: dict = {}
+        faults: list = []
+
+        def run(name, fn):
+            try:
+                r = fn()
+            except Exception as e:  # noqa: BLE001
+                if name != "wgl_search" and not isinstance(e, FAULTS):
+                    r = wgl_host.WGLResult(valid="unknown", error=str(e))
+                else:
+                    with _racers_lock:
+                        (_racer_faults if done.is_set() else faults).append(e)
+                        done.set()
+                    return
+            with _racers_lock:
+                results[name] = r
+                if r.valid != "unknown" or len(results) == len(entrants):
+                    done.set()
+
+        threads = [threading.Thread(target=run, args=(name, fn),
+                                    name=f"competition-{name}", daemon=True)
+                   for name, fn in entrants]
+        for t in threads:
+            t.start()
+        done.wait()
+        with _racers_lock:
+            for t in threads:
+                if t.is_alive():
+                    _abandoned_racers.append(t)
+            if faults:
+                raise faults[0]
+            for name, r in results.items():
+                if r.valid != "unknown":
+                    COMPETITION_WINS[name] += 1
+                    return self._result(r)
+            return self._result(next(iter(results.values())))
 
     def _result(self, r) -> dict:
         d: dict[str, Any] = {"valid": r.valid}
@@ -395,8 +562,13 @@ class Linearizable(Checker):
                 d["final_paths"] = [
                     [o.to_dict() for o in r.best_linearization[:TRUNCATE]]
                 ]
-        if r.valid == "unknown" and r.error:
-            d["error"] = r.error
+        # knossos.linear results carry :configs (checker.clj:138-141)
+        configs = getattr(r, "configs", None)
+        if configs:
+            d["configs"] = configs[:TRUNCATE]
+        error = getattr(r, "error", None)
+        if r.valid == "unknown" and error:
+            d["error"] = error
         d["cache_size"] = r.cache_size
         d["steps"] = r.steps
         return d

@@ -1,5 +1,5 @@
 """Fault-schedule fuzzing of a simulated list-append cluster (the port's
-copy of `jepsen_tpu/fuzz`, without the corpus loop).
+copy of `jepsen_tpu/fuzz`).
 
 schedule.py  fixed-shape [F, 6] int32 fault schedules over six nemesis
              families, seeded generation and mutation (numpy and
@@ -13,21 +13,29 @@ score.py     trace -> verdict + coverage: decode each cluster into a
              (checker/cycle/deps) and classify Adya anomalies with every
              trace's closures in one call of the closure engine.
 
-The coverage-guided loop (`jepsen_tpu/fuzz/loop.py`) needs the store and
-is not ported.
+loop.py      the coverage-guided loop: each round one sim launch and
+             one scoring batch, new coverage kept in a crash-consistent
+             corpus (corpus.json, anomalies.jsonl) committed through
+             the store; `FuzzLoop(dir, clusters=256, seed=0).run(4)`.
 """
 
 from __future__ import annotations
 
+from . import loop
+from .loop import Corpus, FuzzLoop, run_fuzz
 from .schedule import FAMILIES, SimSpec, random_schedule
 from .score import decode, score_batch
 from .sim import simulate_batch
 
 __all__ = [
     "FAMILIES",
+    "Corpus",
+    "FuzzLoop",
     "SimSpec",
     "decode",
+    "loop",
     "random_schedule",
+    "run_fuzz",
     "score_batch",
     "simulate_batch",
 ]

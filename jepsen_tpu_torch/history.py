@@ -1,5 +1,5 @@
 """Operation histories (the port's own copy of the parts of
-`jepsen_tpu.history` the per-key linearizability check needs).
+`jepsen_tpu.history` the port's checkers and store need).
 
 Reference semantics: knossos.op + knossos.history and jepsen's history
 vector. An operation is a record with
@@ -20,9 +20,20 @@ stays concurrent with every later op.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any, Iterable, Sequence
+from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
+
+# Op types (tensor encoding values)
+INVOKE, OK, FAIL, INFO = 0, 1, 2, 3
+TYPE_NAMES = ("invoke", "ok", "fail", "info")
+TYPE_INDEX = {n: i for i, n in enumerate(TYPE_NAMES)}
+
+# Reserved process encodings for non-client processes in tensors
+NEMESIS_PROCESS = -1
+
+# int64 sentinel for "no value" in tensor columns
+NIL = np.int64(2**62)
 
 
 @dataclass
@@ -180,6 +191,215 @@ def complete(history: Sequence[Op]) -> list[Op]:
                 out[j] = out[j].with_(value=o.value)
     return out
 
+
+# ---------------------------------------------------------------------------
+# Tensor encoding (the store's history.npz)
+
+class FSchema:
+    """Maps workload op functions and values onto fixed int64 columns.
+
+    A schema declares the known :f names (index = encoding) and how a
+    value encodes into `width` int64 columns. The default covers
+    register-style workloads: read/write take one scalar column, cas takes
+    two. Unencodable values raise, so lossy conversions are explicit.
+    """
+
+    def __init__(
+        self,
+        fs: Sequence[str],
+        width: int = 2,
+        encode_value: Callable[[Any, Any], Sequence] | None = None,
+        decode_value: Callable[[Any, Sequence], Any] | None = None,
+    ):
+        self.fs = list(fs)
+        self.f_index = {f: i for i, f in enumerate(self.fs)}
+        self.width = width
+        self._encode = encode_value or self._default_encode
+        self._decode = decode_value or self._default_decode
+
+    @staticmethod
+    def _encode_scalar(v):
+        if v is None:
+            return NIL
+        v = int(v)
+        if abs(v) >= NIL:
+            raise OverflowError(
+                f"value {v} collides with the NIL sentinel (|v| >= 2^62)"
+            )
+        return np.int64(v)
+
+    def _default_encode(self, f, value):
+        cols = [NIL] * self.width
+        if value is None:
+            return cols
+        if isinstance(value, (tuple, list)):
+            for i, v in enumerate(value):
+                cols[i] = self._encode_scalar(v)
+        else:
+            cols[0] = self._encode_scalar(value)
+        return cols
+
+    def _default_decode(self, f, cols):
+        vals = [None if c == NIL else int(c) for c in cols]
+        if f == "cas":
+            return (vals[0], vals[1])
+        return vals[0]
+
+
+REGISTER_SCHEMA = FSchema(["read", "write", "cas"], width=2)
+
+
+class TensorHistory:
+    """Structure-of-arrays history: one row per op.
+
+    Columns: process int64, type int64 (INVOKE/OK/FAIL/INFO), f int64
+    (schema index), value int64[width], time int64, index int64. In the
+    port it is the store's history.npz, byte-compatible with the JAX
+    package's.
+    """
+
+    COLUMNS = ("process", "type", "f", "time", "index")
+
+    def __init__(
+        self,
+        process: np.ndarray,
+        type_: np.ndarray,
+        f: np.ndarray,
+        value: np.ndarray,
+        time: np.ndarray,
+        index_: np.ndarray,
+        schema: FSchema,
+        process_names: dict | None = None,
+        aux: dict | None = None,
+    ):
+        self.process = process
+        self.type = type_
+        self.f = f
+        self.value = value
+        self.time = time
+        self.index = index_
+        self.schema = schema
+        # encoding -> original process name, for non-int processes
+        self.process_names = process_names or {}
+        # row -> original (f, value) for ops outside the schema (nemesis
+        # fs with arbitrary payloads): columns hold NIL, this restores
+        # them losslessly on decode
+        self.aux = aux or {}
+
+    def __len__(self) -> int:
+        return len(self.process)
+
+    @staticmethod
+    def encode(
+        history: Sequence[Op], schema: FSchema = REGISTER_SCHEMA
+    ) -> "TensorHistory":
+        n = len(history)
+        process = np.empty(n, np.int64)
+        type_ = np.empty(n, np.int64)
+        f = np.empty(n, np.int64)
+        value = np.full((n, schema.width), NIL, np.int64)
+        time = np.empty(n, np.int64)
+        index_ = np.empty(n, np.int64)
+        names: dict = {}
+        name_codes: dict = {}
+        aux: dict = {}
+        for i, o in enumerate(history):
+            if isinstance(o.process, int):
+                process[i] = o.process
+            else:
+                code = name_codes.setdefault(
+                    o.process, NEMESIS_PROCESS - len(name_codes)
+                )
+                names[code] = o.process
+                process[i] = code
+            type_[i] = TYPE_INDEX[o.type]
+            if o.f in schema.f_index:
+                # In-schema (client) ops encode strictly: overflow raises
+                f[i] = schema.f_index[o.f]
+                value[i] = schema._encode(o.f, o.value)
+            else:
+                # Out-of-schema ops (nemesis start/stop with arbitrary
+                # payloads): columns stay NIL, original kept in aux
+                f[i] = -1
+                aux[i] = (o.f, o.value)
+            time[i] = o.time
+            index_[i] = o.index if o.index >= 0 else i
+        return TensorHistory(
+            process, type_, f, value, time, index_, schema, names, aux
+        )
+
+    def decode(self) -> list[Op]:
+        out = []
+        for i in range(len(self)):
+            p = int(self.process[i])
+            proc = self.process_names.get(p, p)
+            fi = int(self.f[i])
+            if i in self.aux:
+                fname, val = self.aux[i]
+            elif 0 <= fi < len(self.schema.fs):
+                fname = self.schema.fs[fi]
+                val = self.schema._decode(fname, self.value[i])
+            else:
+                fname, val = None, None
+            out.append(
+                Op(
+                    process=proc,
+                    type=TYPE_NAMES[int(self.type[i])],
+                    f=fname,
+                    value=val,
+                    time=int(self.time[i]),
+                    index=int(self.index[i]),
+                )
+            )
+        return out
+
+    def save(self, path) -> None:
+        import json
+
+        aux_json = json.dumps(
+            {str(k): [v[0], repr(v[1])] for k, v in self.aux.items()}
+        )
+        np.savez_compressed(
+            path,
+            process=self.process,
+            type=self.type,
+            f=self.f,
+            value=self.value,
+            time=self.time,
+            index=self.index,
+            fs=np.array(self.schema.fs),
+            process_names_k=np.array(list(self.process_names.keys()), np.int64),
+            process_names_v=np.array([str(v) for v in self.process_names.values()]),
+            aux=np.array(aux_json),
+        )
+
+    @staticmethod
+    def load(path) -> "TensorHistory":
+        import ast
+        import json
+
+        z = np.load(path, allow_pickle=False)
+        schema = FSchema([str(x) for x in z["fs"]], width=z["value"].shape[1])
+        names = {
+            int(k): str(v)
+            for k, v in zip(z["process_names_k"], z["process_names_v"])
+        }
+        aux = {}
+        if "aux" in z:
+            for k, (fname, vrepr) in json.loads(str(z["aux"])).items():
+                try:
+                    val = ast.literal_eval(vrepr)
+                except (ValueError, SyntaxError):
+                    val = vrepr
+                aux[int(k)] = (fname, val)
+        return TensorHistory(
+            z["process"], z["type"], z["f"], z["value"], z["time"], z["index"],
+            schema, names, aux,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Entry form: the search input
 
 @dataclass
 class Entries:

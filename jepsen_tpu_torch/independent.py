@@ -5,10 +5,19 @@
 Values are wrapped in KVTuple(key, v); a key's subhistory keeps every
 op whose value is NOT a tuple for a different key (so nemesis/info ops
 appear in every subhistory), unwrapping matching tuples.
+
+With a store dir on the test (name and start_time), each key's
+results.edn and history.txt go to independent/<key>/ (as the JAX
+package writes them); with an analysis journal on the test
+(`test["_analysis_journal"]`, a store.AnalysisJournal), keys whose
+verdicts it holds are not checked again and new verdicts are recorded
+after the check.
 """
 
 from __future__ import annotations
 
+import hashlib
+import logging
 from typing import NamedTuple
 
 from .checker import Checker, check_safe, merge_valid
@@ -76,7 +85,11 @@ class IndependentChecker(Checker):
     call propagates: re-running per key under check_safe would turn a
     kernel fault into "unknown" verdicts. Other sub-checkers (the cycle
     checker), and a history of one key, go key by key under check_safe,
-    which re-raises kernel, build and missing-CUDA faults."""
+    which re-raises kernel, build and missing-CUDA faults.
+
+    The JAX package counts journal skips in its supervisor's telemetry
+    ("journal_skips"); the port has no supervisor, so the skip count is
+    only logged, as the JAX package also does."""
 
     def __init__(self, checker: Checker):
         self.checker = checker
@@ -87,21 +100,68 @@ class IndependentChecker(Checker):
         ks = sorted(history_keys(history), key=str)
         subs = _split(history, ks)
 
+        # resumable analysis: keys whose verdicts the journal holds are
+        # skipped; the identity covers the subhistory's content, so a
+        # key whose history grew is checked again
+        journal = (test or {}).get("_analysis_journal")
+        journaled: dict = {}
+        jkeys: dict = {}
+        if journal is not None:
+            remaining = []
+            for k in ks:
+                jkeys[k] = _journal_key(k, subs[k])
+                r = journal.get("independent-key", jkeys[k])
+                if r is not None:
+                    journaled[k] = r
+                else:
+                    remaining.append(k)
+            if journaled:
+                logging.getLogger("jepsen_tpu_torch.independent").info(
+                    "analysis journal: skipping %d finished key(s), "
+                    "%d to check", len(journaled), len(remaining))
+            ks = remaining
+
         def item_opts(k):
             subdir = list(opts.get("subdirectory") or []) + [DIR, str(k)]
             return {**opts, "subdirectory": subdir, "history_key": k}
 
         if len(ks) > 1 and hasattr(self.checker, "check_batch"):
-            rs = self.checker.check_batch(
-                test, [(subs[k], item_opts(k)) for k in ks])
+            items = [(subs[k], item_opts(k)) for k in ks]
+            rs = self.checker.check_batch(test, items)
             results = dict(zip(ks, rs))
+            for k, (sub, o) in zip(ks, items):
+                self._write_artifacts(test, o["subdirectory"], sub,
+                                      results[k])
         else:
             def check_key(k):
-                return k, check_safe(self.checker, test, subs[k],
-                                     item_opts(k))
+                o = item_opts(k)
+                r = check_safe(self.checker, test, subs[k], o)
+                self._write_artifacts(test, o["subdirectory"], subs[k], r)
+                return k, r
 
             results = dict(bounded_pmap(check_key, ks))
+        if journal is not None:
+            for k, r in results.items():
+                journal.record("independent-key", jkeys[k], r)
+            results = {**journaled, **results}
         return combine_results(results)
+
+    @staticmethod
+    def _write_artifacts(test, subdir, sub, result) -> None:
+        """Each key's results.edn and history.txt under the test's store
+        dir (independent.clj:269-287), when the test has one. A failed
+        write is logged and does not mask the verdict."""
+        if not (test and test.get("start_time")):
+            return
+        from . import store
+
+        try:
+            store.write_edn(test, subdir + ["results.edn"], result)
+            store.write_history_txt(test, subdir + ["history.txt"], sub)
+        except Exception:  # noqa: BLE001 — artifacts are best-effort
+            logging.getLogger("jepsen_tpu_torch.independent").warning(
+                "couldn't write %s's artifacts", "/".join(subdir),
+                exc_info=True)
 
 
 def combine_results(results: dict) -> dict:
@@ -122,6 +182,17 @@ def combine_results(results: dict) -> dict:
     if anomaly_types:
         out["anomaly-types"] = anomaly_types
     return out
+
+
+def _journal_key(k, sub) -> str:
+    """A stable journal identity for one key's analysis: the key plus a
+    digest of its subhistory's verdict-relevant fields (the JAX
+    package's, so either package's journal serves the other)."""
+    h = hashlib.sha1()
+    for o in sub:
+        h.update(repr((o.process, o.type, o.f, o.value,
+                       o.index, o.error)).encode())
+    return f"{k}#{len(sub)}#{h.hexdigest()[:16]}"
 
 
 def checker(c: Checker) -> IndependentChecker:

@@ -1,5 +1,6 @@
 """Consistency models as pure state-transition functions (the port's
-copy of the `jepsen_tpu.models` the kernel path covers).
+copy of `jepsen_tpu.models`: the models of the kernel path, and the
+host-only NoOp and GrowOnlySet).
 
 Parity target: knossos.model — `step(f, value)` returns a new model
 state or an `Inconsistent`. `value` follows the completed-op
@@ -57,6 +58,14 @@ class Model:
         with unknown payload) may be dropped from every component.
         Return None when the history doesn't decompose."""
         return None
+
+
+@dataclass(frozen=True)
+class NoOp(Model):
+    """Every operation is fine (knossos.model/noop)."""
+
+    def step(self, f, value):
+        return self
 
 
 @dataclass(frozen=True)
@@ -280,7 +289,28 @@ class MultiRegister(Model):
                 for k, idx in groups.items()]
 
 
+@dataclass(frozen=True)
+class GrowOnlySet(Model):
+    """A set supporting add and read-everything (knossos model/set shape;
+    used by set workloads)."""
+
+    items: frozenset = frozenset()
+
+    def step(self, f, value):
+        if f == "add":
+            return GrowOnlySet(self.items | {value})
+        if f == "read":
+            if value is None or frozenset(value) == self.items:
+                return self
+            return Inconsistent(f"read {value!r} but set is {sorted(self.items)!r}")
+        return Inconsistent(f"unknown op {f!r}")
+
+
 # convenience constructors mirroring knossos.model's lowercase fns
+def noop() -> NoOp:
+    return NoOp()
+
+
 def register(value=None) -> Register:
     return Register(value)
 

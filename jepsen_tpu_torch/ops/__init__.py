@@ -12,6 +12,9 @@ wgl_search — the probed-memo search for lanes of any length and a
            version; also the lane encodings wgl_row shares.
 wgl_row  — that search for lanes of up to 4064 entries, one lane per
            CUDA warp (csrc/wgl_row.cu), with a plain PyTorch version.
+linear   — just-in-time linearization over configurations
+           (knossos.linear), the entrant that races the WGL search
+           under "competition".
 pcomp    — P-compositional decomposition of a history into micro-lanes
            (the unordered queue by value, multi-register by key).
 """

@@ -446,7 +446,7 @@ def closure_block_plain(words0: torch.Tensor, p: int):
     return words, ran
 
 
-def _reach(adjs, dev, block, budget) -> list:
+def _reach(adjs, dev, block, budget, on_closed=None) -> list:
     adjs = [np.asarray(a, dtype=bool) for a in adjs]
     for a in adjs:
         if a.ndim != 2 or a.shape[0] != a.shape[1]:
@@ -466,17 +466,22 @@ def _reach(adjs, dev, block, budget) -> list:
         closed = block(words0, p).cpu().numpy()
         for j, i in enumerate(idxs):
             out[i] = _unpack(closed[j], adjs[i].shape[0])
+            if on_closed is not None:
+                on_closed(i, out[i])
     return out
 
 
-def reach_batch(adjs, device=None, budget: float | None = None) -> list:
+def reach_batch(adjs, device=None, budget: float | None = None,
+                on_closed=None) -> list:
     """Closure of each bool adjacency matrix in `adjs`, aligned with the
     input. Matrices are bucketed by pad size, each bucket one batched
     fixpoint through the kernels (device None = CUDA, raising when it is
     absent; "cpu" runs the plain versions). `budget` is an absolute
     time.monotonic() deadline, checked before each bucket: past it this
-    raises DeadlineExpired."""
-    return _reach(adjs, resolve(device), closure_block, budget)
+    raises DeadlineExpired. `on_closed(i, closure)` is called for each
+    matrix as its bucket completes (before a later bucket's deadline
+    can raise)."""
+    return _reach(adjs, resolve(device), closure_block, budget, on_closed)
 
 
 def reach_batch_plain(adjs, device="cpu") -> list:

@@ -7,6 +7,12 @@ import concurrent.futures
 import os
 from typing import Callable, Iterable
 
+NANOS_PER_MS = 1_000_000
+
+
+def nanos_to_ms(n: float) -> float:
+    return n / NANOS_PER_MS
+
 
 def bounded_pmap(fn: Callable, coll: Iterable, bound: int | None = None) -> list:
     """Pooled parallel map with at most `bound` workers (util.clj bounded

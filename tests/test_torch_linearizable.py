@@ -326,10 +326,12 @@ def test_default_device_is_cuda():
 def test_port_imports_no_jax():
     """CPU checks through jepsen_tpu_torch (linearizable on native and
     under "auto", on gpu_vec, gpu_row, gpu_search and the
-    P-compositional split with "auto" steered to the card engines, and
-    cycle; the fuzz simulator and its scoring) load neither jax nor any
-    module of the JAX package (jepsen_tpu_torch's own name shares the
-    jepsen_tpu prefix, so match whole package names)."""
+    P-compositional split with "auto" steered to the card engines, under
+    "linear" and "competition", and cycle; the fuzz simulator and its
+    scoring; the store, the analysis journal and the artifacts of both
+    checkers, the fuzz loop, and every module of those) load neither jax
+    nor any module of the JAX package (jepsen_tpu_torch's own name shares
+    the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
         import sys
         from jepsen_tpu_torch import independent
@@ -377,6 +379,29 @@ def test_port_imports_no_jax():
         r = cycle.checker(device="cpu").check(
             {}, list_append.simulate(400, seed=0), {})
         assert r["anomaly-types"] == ["G1c", "G-single"], r
+        import tempfile
+        from jepsen_tpu_torch import store
+        from jepsen_tpu_torch.checker import linear_report, perf, timeline
+        from jepsen_tpu_torch.fuzz import loop
+        from jepsen_tpu_torch.models import GrowOnlySet, NoOp
+        from jepsen_tpu_torch.ops import linear
+        for alg in ("linear", "competition"):
+            r = independent.checker(linearizable(
+                CASRegister(), algorithm=alg, device="cpu")).check({}, h, {})
+            assert r["valid"] is False, r
+        assert lin_mod._drain_racers() is None
+        with tempfile.TemporaryDirectory() as td:
+            t = {"name": "nojax", "start_time": "20260101T000000.000",
+                 "store_dir": td}
+            t["_analysis_journal"] = store.AnalysisJournal(t)
+            r = independent.checker(linearizable(
+                CASRegister(), device="cpu")).check(t, h, {})
+            assert r["valid"] is False and len(t["_analysis_journal"]) == 4
+            r = cycle.checker(device="cpu").check(
+                t, list_append.simulate(200, seed=1), {})
+            assert r["valid"] is False
+            assert loop.FuzzLoop(td + "/fz", clusters=4, device="cpu").run(
+                1)["clusters-run"] == 4
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
