@@ -2,7 +2,7 @@
 """Chip smoke test of jepsen_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
-        [--only crossover|closure|fuzz|linear|store]
+        [--only crossover|closure|fuzz|linear|store|online|serve]
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -70,7 +70,28 @@ results.edn, history.txt and linear.svg, or timeline-cycle.html; the
 journaled run 2 launches nothing and gives run 1's dict), and the fuzz
 loop (FuzzLoop(clusters=256), 4 rounds) on the card and on the host
 engines, whose corpus files must be byte-identical (`--only store`).
-Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
+Then the `online` phase: the JAX package's online bench stream (34
+register keys of 150 invocations, ~10k ops) through `WGLFrontier` over
+the registry's register workload in windows of 512, with every bar at 1
+(each window's dirty keys through K1) and beside it with the measured
+bars, each window's verdict equal to a one-shot check of that prefix;
+and 4,000 list-append ops with a G1c at the middle through
+`StreamSession(window=256, abort_on_invalid=True)` over `CycleFrontier`
+on the card, which must abort before the end, each advance's dict equal
+to `CycleChecker.check` of that prefix, K3's launches counted, timed and
+replayed (`--only online`). Then the `serve` phase: 100 register
+histories from 5 clients through an in-process `VerdictDaemon` on the
+card (bars at 1, then the measured bars; every verdict as built), a
+blamed cycle job through the sacrificial subprocess on the card, the
+bundle's warm pass in process (K1, K5 and K2 at n_pad 32 and 64, K3 at
+pads 32 and 64, every launch replayed) and its `ensure()` in two fresh
+processes (stale, then warm), and `python -m jepsen_tpu_torch watch` on
+the three EDN fixtures, exit codes as expected.json says (`--only
+serve`). The subprocesses' launches cannot be counted or replayed from
+here, so each subprocess path also runs in this process as a main path
+of its own, every launch replayed: `run_watch` on the three fixtures,
+the sacrificial child's `run_one` on the same blamed job, and the warm
+pass (the same fixed inputs as `ensure()`'s). Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
 wgl_search also the tables in shared memory, scratch bytes and the share
@@ -2747,6 +2768,478 @@ def phase_store(args, kernels, ck, sim) -> None:
             emit({"phase": name, "nvidia_smi": args.smi, **fn(td)})
 
 
+# -- online checking and the verdict daemon -----------------------------
+
+# the JAX package's online bench stream (bench.py:1292-1312): 34 keys of
+# 150 invocations by 5 processes over 5 values, appended key after key,
+# advanced in windows of 512 ops
+STREAM_KEYS = 34
+STREAM_INVOCATIONS = 150
+STREAM_WINDOW = 512
+# its time-to-abort stream (bench.py:1316-1329): 4,000 list-append ops
+# with a G1c injected at the middle, windows of 256
+ABORT_OPS = 4000
+ABORT_WINDOW = 256
+# its daemon cell (bench.py:1138-1174): 100 mixed register histories
+# from 5 clients
+SERVE_HISTORIES = 100
+SERVE_CLIENTS = 5
+
+
+def percentile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))]
+
+
+def stream_history(seed: int) -> list:
+    """The online bench's keyed CAS-register stream."""
+    from jepsen_tpu_torch.history import index
+    from jepsen_tpu_torch.independent import tuple_
+    from jepsen_tpu_torch.workloads.register import register_history
+
+    hist = []
+    for k in range(STREAM_KEYS):
+        for o in register_history(n_process=5, n_ops=STREAM_INVOCATIONS,
+                                  n_values=5, cas=True, seed=seed + k):
+            hist.append(o.with_(value=tuple_(k, o.value)))
+    return index(hist)
+
+
+def register_stream(kernels, hist, cell: str, expect) -> dict:
+    """One run of the register stream through `WGLFrontier` over the
+    registry's register workload on the card, a window of STREAM_WINDOW
+    ops an advance: the path (counts reset before, read after; every
+    search it launched replayed through `compare`), then each window's
+    verdict against a one-shot `IndependentChecker.check` of that prefix
+    under the same bars (outside the counted run). `expect`: the kernels
+    the path must launch (None: any)."""
+    from jepsen_tpu_torch.online import WGLFrontier
+    from jepsen_tpu_torch.serve.registry import WORKLOAD_FACTORIES
+
+    chk = WORKLOAD_FACTORIES["register"]()["checker"]
+    test = {"name": cell}
+
+    def stream():
+        f = WGLFrontier(chk, test=test)
+        out = []
+        for start in range(0, len(hist), STREAM_WINDOW):
+            f.extend(hist[start:start + STREAM_WINDOW])
+            dirty = len(f._dirty)
+            t0 = time.perf_counter()
+            v = f.advance()
+            out.append((len(f.ops), dirty, time.perf_counter() - t0, v))
+        return out
+
+    out, wall, seen = run_path(kernels, stream)
+    launches = {k: v[0] for k, v in seen.items()}
+    if expect is not None:
+        for k in kernels:
+            assert (launches[k.name] > 0) == (k.name in expect), (
+                cell, launches)
+    passes = replay(kernels, seen, cell)
+    t0 = time.perf_counter()
+    for n, _, _, v in out:
+        assert json_normal(v) == json_normal(chk.check(test, hist[:n], {})), \
+            (cell, n)
+    one_shot_s = time.perf_counter() - t0
+    final = out[-1][3]
+    assert final["valid"] is True, final["valid"]
+    lags = [lag for _, _, lag, _ in out]
+    kernel_ms = sum(v[1] for v in seen.values())
+    return {"windows": len(out), "wall_s": wall,
+            "ops_per_s": len(hist) / wall,
+            "advance_p50_ms": 1000 * percentile(lags, 0.5),
+            "advance_p95_ms": 1000 * percentile(lags, 0.95),
+            "advance_ms": [1000 * x for x in lags],
+            "dirty_keys": [d for _, d, _, _ in out],
+            "launches": {k: v for k, v in launches.items() if v},
+            "kernel_ms": kernel_ms, "device_idle": 1 - kernel_ms / 1000 / wall,
+            "kernel_vs_plain": {k: len(v) for k, v in passes.items() if v},
+            "one_shot_equal": True, "one_shot_s": one_shot_s}
+
+
+def phase_online_register_stream(args, kernels) -> None:
+    """The register stream with every bar at 1 (each window's dirty keys
+    through K1) and beside it with the measured bars (the path users
+    take); one line."""
+    hist = stream_history(args.seed)
+    with card_bars(1):
+        card = register_stream(kernels, hist, "online_register_stream",
+                               ("wgl_vec",))
+    auto = register_stream(kernels, hist, "online_register_stream_auto",
+                           None)
+    emit({"phase": "online_register_stream", "nvidia_smi": args.smi,
+          "ops": len(hist), "keys": STREAM_KEYS, "window": STREAM_WINDOW,
+          "bars_1": card, "measured_bars": auto})
+
+
+def phase_online_cycle_abort(args, kernels, ck) -> None:
+    """The abort stream through `StreamSession(window=256,
+    abort_on_invalid=True)` over `CycleFrontier(cycle.checker())` on the
+    card: it must abort before the end with the G1c; every closure
+    bucket it ran is replayed through `replay_closure` (K3's launches
+    counted and timed per kernel, closure_word among them); each
+    advance's dict must equal `CycleChecker.check` of that prefix."""
+    from jepsen_tpu_torch.checker import cycle
+    from jepsen_tpu_torch.history import index
+    from jepsen_tpu_torch.online import CycleFrontier, StreamSession
+    from jepsen_tpu_torch.workloads import list_append
+
+    base = list_append.simulate(ABORT_OPS, seed=args.seed, inject=())
+    h = list(base[:len(base) // 2])
+    list_append.inject_g1c(h, proc=3, key_a=100_001, key_b=100_002)
+    h = index(h + list(base[len(base) // 2:]))
+    chk = cycle.checker()
+    emitted: list = []
+    lags: list = []
+
+    def stream():
+        frontier = CycleFrontier(chk)
+        real = frontier.advance
+
+        def timed_advance():
+            t0 = time.perf_counter()
+            v = real()
+            lags.append(time.perf_counter() - t0)
+            return v
+
+        frontier.advance = timed_advance
+        s = StreamSession(iter(h), frontier, window=ABORT_WINDOW,
+                          abort_on_invalid=True, emit=emitted.append)
+        return s, s.run()
+
+    (s, final), wall, seen = run_path(kernels, stream)
+    assert s.aborted and final["valid"] is False, final["valid"]
+    assert s.consumed < len(h), (s.consumed, len(h))
+    assert "G1c" in s.abort_info["anomaly-types"], s.abort_info
+    buckets = replay_closure(ck, seen["unpack"][2])
+    closure_cell(ck, "online_cycle_abort", seen, buckets)
+    t0 = time.perf_counter()
+    for rec in emitted:
+        assert normalise(rec["verdict"]) == normalise(
+            chk.check({}, h[:rec["prefix"]], {})), rec["prefix"]
+    batch_s = time.perf_counter() - t0
+    ms = {k: sum(bk[k]["ms"] for bk in buckets if k in bk)
+          for k in ck if seen[k][0]}
+    emit({"phase": "online_cycle_abort", "nvidia_smi": args.smi,
+          "ops": len(h), "window": ABORT_WINDOW,
+          "abort_prefix": s.abort_info["prefix"], "consumed": s.consumed,
+          "consumed_fraction": s.consumed / len(h),
+          "time_to_abort_s": wall, "advances": len(emitted),
+          "advance_ms": [1000 * x for x in lags],
+          "anomaly-types": s.abort_info["anomaly-types"],
+          "launches": {k: v[0] for k, v in seen.items() if v[0]},
+          "kernel_ms": ms, "device_idle": 1 - sum(ms.values()) / 1000 / wall,
+          "buckets": len(buckets), "batch_equal": True,
+          "batch_check_s": batch_s, "matches_plain": True})
+
+
+def serve_histories(seed: int) -> list:
+    """The daemon cell's submissions: (client, weight, history, valid),
+    80 % linearizable, each of 1, 2 or 4 keys of three writes and a read
+    (an impossible read in the rest), as bench.py builds them."""
+    import random
+
+    rng = random.Random(seed + 4242)
+    out = []
+    for i in range(SERVE_HISTORIES):
+        good = rng.random() < 0.8
+        hist, t = [], 0
+        for k in range(rng.choice((1, 2, 4))):
+            key = f"k{i}.{k}"
+            for val in (1, 2, 3):
+                hist.append({"process": k, "type": "invoke", "f": "write",
+                             "value": [key, val], "time": t})
+                hist.append({"process": k, "type": "ok", "f": "write",
+                             "value": [key, val], "time": t + 1})
+                t += 2
+            hist.append({"process": k, "type": "invoke", "f": "read",
+                         "value": [key, None], "time": t})
+            hist.append({"process": k, "type": "ok", "f": "read",
+                         "value": [key, 3 if good else 99], "time": t + 1})
+            t += 2
+        out.append((f"client-{i % SERVE_CLIENTS}",
+                    1 + (i % SERVE_CLIENTS == 0), hist, good))
+    return out
+
+
+def serve_run(kernels, subs, cell: str, expect) -> dict:
+    """The submissions through an in-process `VerdictDaemon` (a fresh
+    queue under TMPDIR, the registry on the card): submit all, wait for
+    every verdict; the path's counts reset before and read after, every
+    search it launched replayed."""
+    import tempfile
+
+    from jepsen_tpu_torch.serve import DurableQueue, EngineRegistry
+    from jepsen_tpu_torch.serve.daemon import VerdictDaemon
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as td:
+        q = DurableQueue(td)
+        dm = VerdictDaemon(q, EngineRegistry())
+
+        def drive():
+            dm.start()
+            ids = [q.submit(c, "register", h, weight=w)
+                   for c, w, h, _ in subs]
+            return [q.wait_for_verdict(j, timeout=600) for j in ids]
+
+        try:
+            verdicts, wall, seen = run_path(kernels, drive)
+        finally:
+            dm.draining.set()
+            dm.join(timeout=60)
+    assert not dm.faulted, dm.last_fault
+    for (_, _, _, good), v in zip(subs, verdicts):
+        assert v is not None and v["valid"] is good, (good, v)
+    launches = {k: v[0] for k, v in seen.items()}
+    if expect is not None:
+        for k in kernels:
+            assert (launches[k.name] > 0) == (k.name in expect), (
+                cell, launches)
+    passes = replay(kernels, seen, cell)
+    ops = sum(len(h) for _, _, h, _ in subs)
+    kernel_ms = sum(v[1] for v in seen.values())
+    return {"histories": len(subs), "ops": ops, "wall_s": wall,
+            "ops_per_s": ops / wall,
+            "launches": {k: v for k, v in launches.items() if v},
+            "lanes_per_launch": [p["lanes"] for p in passes.get(
+                "wgl_vec", [])],
+            "kernel_ms": kernel_ms,
+            "device_idle": 1 - kernel_ms / 1000 / wall,
+            "kernel_vs_plain": {k: len(v) for k, v in passes.items() if v}}
+
+
+def bundle_ensure(td: str) -> dict:
+    """`EngineBundle(td).ensure()` in a fresh process on the card: its
+    result's warm flag, elapsed seconds and buckets, and the process's
+    wall seconds."""
+    code = ("import json, sys\n"
+            "from jepsen_tpu_torch.serve.bundle import EngineBundle\n"
+            "r = EngineBundle(sys.argv[1]).ensure()\n"
+            "print(json.dumps({'warm': r['warm'], 'ensure_s': "
+            "r['elapsed_s'], 'buckets': r['manifest']['buckets']}))\n")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code, td], cwd=HERE,
+                         env={**os.environ, "PYTHONPATH": HERE},
+                         capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    assert out.returncode == 0, out.stderr[-2000:]
+    return {**json.loads(out.stdout.strip().splitlines()[-1]),
+            "process_s": wall}
+
+
+def bundle_warm(kernels, ck) -> dict:
+    """The bundle's warm pass in this process, as a main path (counts
+    reset before, read after): each of K1, K5 and K2 launched once at
+    n_pad 32 and once at 64, K3 once a pad (closure_word at 32, unpack,
+    the product and the threshold pass at 64); every search replayed
+    through `compare`, every closure bucket through `replay_closure`."""
+    import tempfile
+
+    from jepsen_tpu_torch.serve import EngineBundle, bundle
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bundle_") as td:
+        out, wall, seen = run_path(kernels, EngineBundle(td).ensure)
+    assert out["warm"] is False, out["warm"]
+    assert out["manifest"]["buckets"] == bundle.DEFAULT_BUCKETS
+    launches = {k: v[0] for k, v in seen.items()}
+    for name in ("wgl_vec", "wgl_row", "wgl_search"):
+        assert launches[name] == 2, launches
+    passes = replay(kernels, seen, "serve_bundle_warm")
+    buckets = replay_closure(ck, seen["unpack"][2])
+    closure_cell(ck, "serve_bundle_warm", seen, buckets)
+    return {"wall_s": wall, "ensure_s": out["elapsed_s"],
+            "launches": {k: v for k, v in launches.items() if v},
+            "kernel_vs_plain": {k: len(v) for k, v in passes.items() if v},
+            "closure_buckets": [(b["p"], b["rounds"]) for b in buckets]}
+
+
+def serve_sacrifice(args) -> dict:
+    """A cycle job that a dead daemon blamed (its attempt charged and
+    in flight, then the queue reopened) runs last, in `python -m
+    jepsen_tpu_torch.serve.sacrifice` on the card: K3 from the libraries
+    this run built, its verdict committed by the child and absorbed by
+    the daemon (G1c and G-single, as the batch check says)."""
+    import tempfile
+
+    from jepsen_tpu_torch.serve import DurableQueue, EngineRegistry, daemon
+
+    hist = sacrifice_job(args.seed)
+    saved = daemon.SUSPECT_BACKOFF_S
+    daemon.SUSPECT_BACKOFF_S = 0.0
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sacr_") as td:
+            q = DurableQueue(td)
+            jid = q.submit("blamed", "cycle", hist)
+            q.begin_attempts([jid])
+            q = DurableQueue(td)
+            assert q.suspect_ids() == [jid], q.suspect_ids()
+            dm = daemon.VerdictDaemon(q, EngineRegistry())
+            t0 = time.perf_counter()
+            dm.start()
+            try:
+                v = q.wait_for_verdict(jid, timeout=300)
+            finally:
+                dm.draining.set()
+                dm.join(timeout=60)
+            wall = time.perf_counter() - t0
+            attempts = q.attempts_of(jid)
+    finally:
+        daemon.SUSPECT_BACKOFF_S = saved
+    assert not dm.faulted, dm.last_fault
+    assert v is not None and v["valid"] is False, v
+    assert v["anomaly-types"] == ["G1c", "G-single"], v["anomaly-types"]
+    return {"ops": len(hist), "wall_s": wall, "attempts": attempts,
+            "anomaly-types": v["anomaly-types"]}
+
+
+def sacrifice_job(seed: int) -> list:
+    """The blamed cycle job of `serve_sacrifice` and
+    `sacrifice_in_process`: 400 list-append ops as the queue holds
+    them."""
+    from jepsen_tpu_torch.workloads import list_append
+
+    return [o.to_dict() for o in list_append.simulate(400, seed=seed)]
+
+
+def sacrifice_in_process(kernels, ck, seed: int) -> dict:
+    """The sacrificial child's check (`sacrifice.run_one`) of the blamed
+    job in this process on the card, as a main path (counts reset
+    before, read after; every closure bucket replayed through
+    `replay_closure`): the launches the child of `serve_sacrifice`
+    makes on the same job, which that subprocess cannot report."""
+    import tempfile
+
+    from jepsen_tpu_torch.serve import DurableQueue, sacrifice
+
+    hist = sacrifice_job(seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sacr_") as td:
+        jid = DurableQueue(td).submit("blamed", "cycle", hist)
+        code, wall, seen = run_path(kernels,
+                                    lambda: sacrifice.run_one(td, jid))
+        v = DurableQueue(td).verdict(jid)
+    assert code == 0, code
+    assert v is not None and v["anomaly-types"] == ["G1c", "G-single"], v
+    assert not any(seen[k.name][0] for k in wgl(kernels)), seen
+    buckets = replay_closure(ck, seen["unpack"][2])
+    closure_cell(ck, "serve_sacrifice", seen, buckets)
+    return {"wall_s": wall,
+            "launches": {k: v[0] for k, v in seen.items() if v[0]},
+            "closure_buckets": [(b["p"], b["rounds"]) for b in buckets],
+            "matches_plain": True}
+
+
+def watch_in_process(kernels, ck, fixtures: str, expected: dict) -> dict:
+    """`run_watch` on the three EDN fixtures in this process on the card,
+    with the options the `watch` subprocesses get, as a main path
+    (counts reset before, read after; every search replayed through
+    `compare`, every closure bucket through `replay_closure`): the
+    launches those subprocesses make, which they cannot report. Each
+    return code and last streamed verdict as expected.json says.
+    run_watch installs a SIGTERM handler of its own; this script's is
+    put back after it."""
+    import io
+    import signal
+
+    from jepsen_tpu_torch.online.watch import run_watch
+
+    def drive():
+        out = {}
+        for name, exp in sorted(expected.items()):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                code = run_watch({"trace": os.path.join(fixtures, name),
+                                  "workload": exp["workload"],
+                                  "window": 16})
+            out[name] = (code, buf.getvalue())
+        return out
+
+    saved = signal.getsignal(signal.SIGTERM)
+    try:
+        res, wall, seen = run_path(kernels, drive)
+    finally:
+        signal.signal(signal.SIGTERM, saved)
+    for name, (code, out) in res.items():
+        want = 1 if expected[name]["valid"] is False else 0
+        assert code == want, (name, code)
+        last = json.loads(out.strip().splitlines()[-1])
+        assert last["valid"] == expected[name]["valid"], (name, last)
+    passes = replay(kernels, seen, "serve_watch")
+    buckets = replay_closure(ck, seen["unpack"][2])
+    closure_cell(ck, "serve_watch", seen, buckets)
+    return {"wall_s": wall,
+            "exits": {name: code for name, (code, _) in res.items()},
+            "launches": {k: v[0] for k, v in seen.items() if v[0]},
+            "kernel_vs_plain": {k: len(v) for k, v in passes.items() if v},
+            "closure_buckets": [(b["p"], b["rounds"]) for b in buckets],
+            "matches_plain": True}
+
+
+def phase_serve_daemon(args, kernels, ck) -> None:
+    """The daemon cell with every bar at 1 (each pack through K1) and
+    beside it with the measured bars; the bundle's warm pass in this
+    process (`bundle_warm`); a blamed job through the sacrificial
+    subprocess (`serve_sacrifice`) and the child's check in this process
+    (`sacrifice_in_process`); `run_watch` on the three EDN fixtures in
+    this process (`watch_in_process`); then the bundle's ensure() in two
+    fresh processes (stale, then warm), while `python -m
+    jepsen_tpu_torch watch` runs on the three EDN fixtures on the card,
+    each exit code as expected.json says. The subprocesses show the
+    entry points' exit codes and verdicts; their launches are held in
+    the in-process runs of the same work."""
+    import tempfile
+
+    subs = serve_histories(args.seed)
+    with card_bars(1):
+        card = serve_run(kernels, subs, "serve_daemon", ("wgl_vec",))
+    auto = serve_run(kernels, subs, "serve_daemon_auto", None)
+    warm_pass = bundle_warm(kernels, ck)
+    sacrificed = serve_sacrifice(args)
+    child = sacrifice_in_process(kernels, ck, args.seed)
+    fixtures = os.path.join(HERE, "tests", "fixtures", "edn")
+    with open(os.path.join(fixtures, "expected.json")) as f:
+        expected = json.load(f)
+    watched = watch_in_process(kernels, ck, fixtures, expected)
+    env = {**os.environ, "PYTHONPATH": HERE}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "jepsen_tpu_torch", "watch",
+         os.path.join(fixtures, name), "--workload", exp["workload"],
+         "--window", "16"], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for name, exp in sorted(expected.items())}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_bundle_") as td:
+            stale = bundle_ensure(td)
+            warm = bundle_ensure(td)
+        watch = {}
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=300)
+            want = 1 if expected[name]["valid"] is False else 0
+            assert p.returncode == want, (name, p.returncode, err[-2000:])
+            last = json.loads(out.strip().splitlines()[-1])
+            assert last["valid"] == expected[name]["valid"], (name, last)
+            watch[name] = {"exit": p.returncode, "last": last}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert stale["warm"] is False and warm["warm"] is True, (stale, warm)
+    emit({"phase": "serve_daemon", "nvidia_smi": args.smi,
+          "bars_1": card, "measured_bars": auto,
+          "bundle": {"in_process": warm_pass, "stale": stale,
+                     "warm": warm},
+          "sacrifice": {**sacrificed, "in_process": child},
+          "watch": {**watch, "in_process": watched},
+          "subprocess_wall_s": time.perf_counter() - t0})
+
+
+def phase_online(args, kernels, ck) -> None:
+    phase_online_register_stream(args, kernels)
+    phase_online_cycle_abort(args, kernels, ck)
+
+
 def lookup_us(mod, reps: int = 20) -> dict:
     """Host µs of one lookup of kernel module `mod`'s library through
     its `build`: "cached", as every wrapper makes it at each launch, and
@@ -2860,6 +3353,18 @@ def run(args) -> int:
                           if not k.library]})
         print(smi, flush=True)
         return 0
+    if args.only == "online":
+        phase_online(args, kernels, ck)
+        emit({"kernels": [k.row() for k in (vec, *ck.values())
+                          if not k.library]})
+        print(smi, flush=True)
+        return 0
+    if args.only == "serve":
+        phase_serve_daemon(args, kernels, ck)
+        emit({"kernels": [k.row() for k in (vec, row, search, *ck.values())
+                          if not k.library]})
+        print(smi, flush=True)
+        return 0
 
     phase_kernel_vs_plain(args, vec)
     phase_row_vs_plain(args, row)
@@ -2930,6 +3435,9 @@ def run(args) -> int:
     phase_fuzzing(args, kernels, ck, sim)
     phase_store(args, kernels, ck, sim)
 
+    phase_online(args, kernels, ck)
+    phase_serve_daemon(args, kernels, ck)
+
     mm = ck["matmul"]
     emit({"kernels": [k.row() for k in kernels if not k.library],
           "matmul": {"call": "torch.matmul (bf16, the closure's product)",
@@ -2946,14 +3454,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("crossover", "closure", "fuzz",
-                                       "linear", "store"),
+                                       "linear", "store", "online",
+                                       "serve"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
                     "fuzz: the sim kernel at six specs and the three fuzz "
                     "cells; linear: the corpus through linear and "
                     "competition; store: the register cell, cycle_append "
-                    "and the fuzz loop with a store and journal) and "
+                    "and the fuzz loop with a store and journal; online: "
+                    "the register stream and the cycle abort stream; "
+                    "serve: the verdict daemon, the bundle and watch) and "
                     "print their lines and the nvidia-smi line (no smoke "
                     "result)")
     return run(ap.parse_args())

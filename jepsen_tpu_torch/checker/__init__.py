@@ -7,8 +7,11 @@ returns a dict with at least {"valid": True | False | "unknown"}.
 
 from __future__ import annotations
 
+import re
 import traceback
 from typing import Any, Mapping
+
+import torch
 
 from ..device import CudaUnavailable, KernelError
 from ..ops._build import BuildError
@@ -16,8 +19,26 @@ from ..ops._build import BuildError
 VALID_PRIORITIES = {True: 0, "unknown": 0.5, False: 1}
 
 #: faults of the card or of a build: never turned into "unknown"
-#: (check_safe, and the "competition" race in linearizable.py)
-FAULTS = (KernelError, BuildError, CudaUnavailable)
+#: (check_safe, the "competition" race in linearizable.py, the online
+#: frontiers, pack_check, the run monitor, the verdict daemon and its
+#: sacrificial child). torch raises a CUDA error (an illegal address
+#: that surfaces at a later sync, a device-side assert) as
+#: AcceleratorError where it has that type, else as a RuntimeError that
+#: names it; `is_fault` tells both apart from ordinary errors.
+FAULTS = (KernelError, BuildError, CudaUnavailable, torch.OutOfMemoryError,
+          *((torch.AcceleratorError,)
+            if hasattr(torch, "AcceleratorError") else ()))
+
+_CUDA_ERROR = re.compile(r"\bCUDA (?:driver )?error\b|CUBLAS_STATUS_")
+
+
+def is_fault(e: BaseException) -> bool:
+    """True for a fault of the card or of a build: one of FAULTS, or a
+    torch RuntimeError that carries a CUDA error. Every except clause of
+    the port that would otherwise read an exception as "unknown", an
+    advisory warning or a worker death asks this first."""
+    return isinstance(e, FAULTS) or (
+        isinstance(e, RuntimeError) and bool(_CUDA_ERROR.search(str(e))))
 
 
 def merge_valid(valids) -> Any:
@@ -39,17 +60,19 @@ class Checker:
 
 def check_safe(checker: Checker, test, history, opts=None) -> dict:
     """check(), but exceptions are wrapped as unknown verdicts — except
-    a kernel that failed to build or launch, or a card that is absent:
-    those re-raise, so a fault of the card never reads as "unknown"."""
+    a kernel that failed to build or launch, or a card that is absent or
+    out of memory, or a CUDA error (`is_fault`): those re-raise, so a
+    fault of the card never reads as "unknown"."""
     try:
         return checker.check(test, history, opts or {})
-    except FAULTS:
-        raise
-    except Exception:  # noqa: BLE001
+    except Exception as e:  # noqa: BLE001
+        if is_fault(e):
+            raise
         return {"valid": "unknown", "error": traceback.format_exc()}
 
 
 from . import cycle  # noqa: E402
 from .linearizable import linearizable  # noqa: E402
 
-__all__ = ["Checker", "check_safe", "cycle", "linearizable", "merge_valid"]
+__all__ = ["FAULTS", "Checker", "check_safe", "cycle", "is_fault",
+           "linearizable", "merge_valid"]

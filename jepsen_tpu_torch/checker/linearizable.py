@@ -94,7 +94,7 @@ from ..models import jit as mjit
 from ..ops import (linear as linear_mod, pcomp, wgl_host, wgl_native,
                    wgl_row, wgl_search, wgl_vec)
 from ..ops.common import STEPS_PER_SEC_ESTIMATE
-from . import FAULTS, Checker
+from . import Checker, is_fault
 
 TRUNCATE = 10
 ALGORITHMS = ("auto", "gpu_vec", "gpu_row", "gpu_search", "native", "host",
@@ -507,7 +507,7 @@ class Linearizable(Checker):
         first definite verdict wins (knossos.competition,
         checker.clj:125-127). A host entrant's exception reads "unknown"
         with its text under "error", as in the JAX package, except a
-        fault of a build (FAULTS). Every exception of the card's search
+        fault of a build (`is_fault`). Every exception of the card's search
         is a fault (a failed launch, an out-of-memory, an illegal
         address that surfaces at a later sync). A fault is raised here
         when it arrives before the race is decided, else kept for
@@ -523,7 +523,7 @@ class Linearizable(Checker):
             try:
                 r = fn()
             except Exception as e:  # noqa: BLE001
-                if name != "wgl_search" and not isinstance(e, FAULTS):
+                if name != "wgl_search" and not is_fault(e):
                     r = wgl_host.WGLResult(valid="unknown", error=str(e))
                 else:
                     with _racers_lock:

@@ -1,0 +1,189 @@
+"""Command-line runner of the port: `python -m jepsen_tpu_torch watch` and
+`python -m jepsen_tpu_torch serve --daemon` (the port's copy of the parts
+of `jepsen_tpu.cli` these two subcommands use).
+
+Exit codes, as the JAX package's: 0 success, 1 a definite falsification,
+254 bad arguments or an unknown command, 255 an internal error (a fault
+of the card included), and 143 when a SIGTERM drained the daemon.
+
+Both subcommands take `--device`: the default is the card (raising when
+CUDA is absent); `--device cpu` runs the kernels' plain versions. There
+is no web UI, no `doctor` (it examines a device mesh) and no `fuzz`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+from dataclasses import dataclass, field
+from typing import Callable
+
+log = logging.getLogger("jepsen_tpu_torch.cli")
+
+
+class CliError(Exception):
+    """Bad arguments: exits 254."""
+
+
+class _Parser(argparse.ArgumentParser):
+    """argparse, but option errors raise CliError (exit 254) instead of
+    argparse's exit(2)."""
+
+    def error(self, message):
+        raise CliError(message)
+
+
+@dataclass
+class Subcommand:
+    """One CLI subcommand."""
+
+    run: Callable[[dict], int | None]
+    opt_spec: Callable[[argparse.ArgumentParser], None] | None = None
+    usage: str | None = None
+    extra_opts: list = field(default_factory=list)
+
+
+def _device_opt(p) -> None:
+    p.add_argument(
+        "--device", default=None, metavar="DEVICE",
+        help="Where the checks run: the card (default; raises without "
+        "CUDA) or cpu (the kernels' plain versions)")
+
+
+def run_cli(subcommands: dict, argv: list[str]) -> int:
+    """Dispatch a subcommand; returns the process exit code."""
+    if not logging.getLogger().handlers:
+        logging.basicConfig(
+            level=logging.INFO, format="%(levelname)s [%(name)s] %(message)s")
+    command = argv[0] if argv else None
+    if command not in subcommands:
+        print(f"Usage: {sys.argv[0]} COMMAND [OPTIONS ...]")
+        print("Commands:", ", ".join(sorted(subcommands)))
+        return 254
+    sub = subcommands[command]
+    parser = _Parser(prog=f"{sys.argv[0]} {command}", description=sub.usage)
+    if sub.opt_spec is not None:
+        sub.opt_spec(parser)
+    for add in sub.extra_opts:
+        add(parser)
+    try:
+        try:
+            opts = vars(parser.parse_args(argv[1:]))
+            code = sub.run(opts)
+        except CliError as e:
+            print(str(e), file=sys.stderr)
+            return 254
+        return int(code) if code else 0
+    except SystemExit as e:  # argparse --help, or a run fn calling sys.exit
+        if isinstance(e.code, int) or e.code is None:
+            return e.code or 0
+        print(e.code, file=sys.stderr)
+        return 255
+    except Exception:  # noqa: BLE001
+        log.exception("internal error:")
+        return 255
+
+
+def main(subcommands: dict, argv: list[str] | None = None) -> None:
+    sys.exit(run_cli(subcommands, sys.argv[1:] if argv is None else argv))
+
+
+def serve_cmd() -> dict:
+    """The `serve --daemon` subcommand: the resident verdict service
+    (serve/): warmed kernels behind the durable check queue."""
+
+    def opt_spec(p):
+        p.add_argument("-b", "--host", default="127.0.0.1", help="Bind host")
+        p.add_argument("-p", "--port", type=int, default=8181,
+                       help="Bind port")
+        p.add_argument(
+            "--store-dir", default=None, metavar="DIR",
+            help="Root directory for the default queue (default ./store)")
+        p.add_argument(
+            "--daemon", action="store_true",
+            help="Run the resident verdict daemon (submit/verdict/stream "
+            "API); the port has no web UI, so this is required")
+        p.add_argument(
+            "--queue-dir", default=None, metavar="DIR",
+            help="Durable queue directory (default <store-dir>/serve-queue)")
+        p.add_argument(
+            "--bundle-dir", default=None, metavar="DIR",
+            help="Engine bundle directory; 'off' disables (default "
+            "<queue-dir>/bundle)")
+        p.add_argument(
+            "--max-pending", type=int, default=None, metavar="N",
+            help="Admission bound: reject submissions past N pending jobs "
+            "(HTTP 429 + Retry-After)")
+        p.add_argument(
+            "--max-attempts", type=int, default=None, metavar="N",
+            help="Dead-letter bound: quarantine a job whose check has "
+            "crashed the worker N times (default 3)")
+
+    def run(opts):
+        if not opts.get("daemon"):
+            raise CliError("serve needs --daemon (the port has no web UI)")
+        from .serve.daemon import run_daemon
+
+        return run_daemon(opts)
+
+    return {"serve": Subcommand(run=run, opt_spec=opt_spec,
+                                extra_opts=[_device_opt])}
+
+
+def watch_cmd() -> dict:
+    """The `watch` subcommand: stream a history WAL or foreign trace
+    (Jepsen EDN, OTLP-ish span JSONL) through the online frontiers,
+    printing one JSON verdict line per window. With a state dir the
+    verdicts are crash-safe: a killed watch resumed over the same stream
+    re-emits nothing and misses nothing."""
+
+    def opt_spec(p):
+        p.add_argument(
+            "trace", metavar="PATH",
+            help="history WAL (history.wal.jsonl), Jepsen EDN history, "
+            "or span-log JSONL")
+        p.add_argument(
+            "--follow", action="store_true",
+            help="Tail the WAL for appended ops instead of reading it once "
+            "(native WALs only)")
+        p.add_argument(
+            "--window", type=int, default=256, metavar="N",
+            help="Ops per verdict window (the lag bound)")
+        p.add_argument(
+            "--workload", default="cycle", metavar="NAME",
+            help="Registry workload that rehydrates + checks the ops "
+            "(cycle, register)")
+        p.add_argument(
+            "--state-dir", default=None, metavar="DIR",
+            help="Durable session state: the fsync'd verdict log and the "
+            "closure/per-key memo journal (resume after a kill)")
+        p.add_argument(
+            "--abort-on-invalid", action="store_true",
+            help="Stop consuming at the first definite falsification")
+        p.add_argument(
+            "--max-ops", type=int, default=None, metavar="N",
+            help="Stop after N ops (a deterministic end for a tailed "
+            "stream)")
+        p.add_argument(
+            "--poll", type=float, default=0.05, metavar="SECONDS",
+            help="Tail poll interval")
+        p.add_argument(
+            "--deadline-ms", type=int, default=None, metavar="MS",
+            help="Wall-clock budget per verdict window: keys that do not "
+            "fit get 'unknown: deadline' this window and are retried on "
+            "the next")
+
+    def run(opts):
+        from .online.watch import run_watch
+
+        try:
+            return run_watch(opts)
+        except ValueError as e:
+            raise CliError(str(e)) from e
+
+    return {"watch": Subcommand(
+        run=run, opt_spec=opt_spec, extra_opts=[_device_opt],
+        usage="Stream a WAL or foreign trace through the online checker "
+        "frontiers; one JSON verdict line per window, exit 1 on a "
+        "definite falsification.")}

@@ -112,8 +112,21 @@ def ok_op(process, f, value=None, **kw) -> Op:
     return Op(process, "ok", f, value, **kw)
 
 
+def fail_op(process, f, value=None, **kw) -> Op:
+    return Op(process, "fail", f, value, **kw)
+
+
+def info_op(process, f, value=None, **kw) -> Op:
+    return Op(process, "info", f, value, **kw)
+
+
 def op(d) -> Op:
     return d if isinstance(d, Op) else Op.from_dict(d)
+
+
+def ops(history: Iterable) -> list[Op]:
+    """Coerce a whole history of dicts/Ops to Op records."""
+    return [op(o) for o in history]
 
 
 def index(history: Sequence[Op]) -> list[Op]:
@@ -124,6 +137,15 @@ def index(history: Sequence[Op]) -> list[Op]:
 def client_ops(history: Iterable[Op]) -> list[Op]:
     """Only ops from integer (client) processes."""
     return [o for o in history if isinstance(o.process, int)]
+
+
+def processes(history: Iterable[Op]) -> list:
+    """Distinct processes in order of first appearance."""
+    seen: dict = {}
+    for o in history:
+        if o.process not in seen:
+            seen[o.process] = True
+    return list(seen)
 
 
 @dataclass
@@ -190,6 +212,11 @@ def complete(history: Sequence[Op]) -> list[Op]:
             if o.is_ok and o.value is not None:
                 out[j] = out[j].with_(value=o.value)
     return out
+
+
+def crashed_invokes(history: Sequence[Op]) -> list[Op]:
+    """Invocations whose outcome is unknown."""
+    return [p.invoke for p in pairs(history) if p.crashed]
 
 
 # ---------------------------------------------------------------------------

@@ -184,6 +184,42 @@ def combine_results(results: dict) -> dict:
     return out
 
 
+def pack_check(checker: IndependentChecker, test, jobs,
+               opts=None) -> list[dict]:
+    """Cross-run batch packing: check MANY independent histories in one
+    batched engine pass (the JAX package's `pack_check`). Every job's
+    per-key subhistories flatten into ONE check_batch call of the wrapped
+    sub-checker, so the engines see the union of all jobs' key lanes at
+    once; P-compositionality makes a key's verdict independent of the
+    job its lane arrived with. Each job's verdict recombines through
+    combine_results, so it equals IndependentChecker.check of that
+    history alone.
+
+    Unlike the JAX package, an exception of the packed pass propagates
+    (as IndependentChecker's does): re-checking job by job would turn a
+    kernel fault into "unknown" verdicts. Only a sub-checker without
+    check_batch is checked job by job."""
+    opts = dict(opts or {})
+    jobs = [list(h) for h in jobs]
+    if not hasattr(checker.checker, "check_batch"):
+        return [checker.check(test, h, opts) for h in jobs]
+    payload = []  # flat (job index, key, subhistory, per-item opts)
+    for j, history in enumerate(jobs):
+        ks = sorted(history_keys(history), key=str)
+        subs = _split(history, ks)
+        for k in ks:
+            subdir = list(opts.get("subdirectory") or []) + [DIR, str(k)]
+            payload.append((j, k, subs[k],
+                            {**opts, "subdirectory": subdir,
+                             "history_key": k}))
+    rs = checker.checker.check_batch(
+        test, [(sub, o) for _, _, sub, o in payload])
+    per_job: list = [dict() for _ in jobs]
+    for (j, k, _sub, _o), r in zip(payload, rs):
+        per_job[j][k] = r
+    return [combine_results(res) for res in per_job]
+
+
 def _journal_key(k, sub) -> str:
     """A stable journal identity for one key's analysis: the key plus a
     digest of its subhistory's verdict-relevant fields (the JAX

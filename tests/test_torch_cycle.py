@@ -25,7 +25,7 @@ from jepsen_tpu.workloads import list_append as jla
 from jepsen_tpu_torch import history as thist
 from jepsen_tpu_torch import independent
 from jepsen_tpu_torch import models as tmodels
-from jepsen_tpu_torch.checker import check_safe, cycle
+from jepsen_tpu_torch.checker import check_safe, cycle, is_fault
 from jepsen_tpu_torch.checker.cycle import anomalies, deps
 from jepsen_tpu_torch.checker.linearizable import linearizable
 from jepsen_tpu_torch.device import CudaUnavailable, KernelError
@@ -326,8 +326,22 @@ def test_linearizable_kernel_fault_propagates_with_one_key(monkeypatch):
         chk.check({}, hist, {})
 
 
+#: faults of the card as torch raises them: a CUDA error that surfaces
+#: at a later sync (AcceleratorError where torch has it, else a
+#: RuntimeError that names it), a failed cuBLAS call, out of memory
+TORCH_CARD_FAULTS = [
+    RuntimeError("CUDA error: an illegal memory access was encountered"),
+    RuntimeError("CUDA error: CUBLAS_STATUS_EXECUTION_FAILED when "
+                 "calling `cublasGemmEx(...)`"),
+    torch.OutOfMemoryError("CUDA out of memory"),
+    *([torch.AcceleratorError("CUDA error: device-side assert triggered")]
+      if hasattr(torch, "AcceleratorError") else []),
+]
+
+
 @pytest.mark.parametrize("exc", [
-    KernelError("launch"), BuildError("nvcc"), CudaUnavailable("no card")])
+    KernelError("launch"), BuildError("nvcc"), CudaUnavailable("no card"),
+    *TORCH_CARD_FAULTS])
 def test_check_safe_reraises_card_faults(exc):
     class Failing:
         def check(self, test, history, opts=None):
@@ -344,6 +358,20 @@ def test_check_safe_keeps_other_errors_unknown():
 
     r = check_safe(Failing(), {}, [])
     assert r["valid"] == "unknown" and "a model bug" in r["error"]
+
+
+@pytest.mark.parametrize("exc,fault", [
+    *((e, True) for e in TORCH_CARD_FAULTS),
+    (KernelError("launch"), True),
+    (RuntimeError("shape '[4]' is invalid for input of size 3"), False),
+    (RuntimeError("the CUDA errors log is empty"), False),
+    (ValueError("CUDA error: not a torch error"), False),
+])
+def test_is_fault_tells_card_faults_from_ordinary_errors(exc, fault):
+    """is_fault, which every except clause of the port asks before it
+    reads an exception as "unknown": faults of the card and of a build
+    are faults, an ordinary RuntimeError of torch is not."""
+    assert is_fault(exc) is fault
 
 
 def test_list_append_generator_matches_jax():

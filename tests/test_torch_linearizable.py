@@ -329,7 +329,9 @@ def test_port_imports_no_jax():
     P-compositional split with "auto" steered to the card engines, under
     "linear" and "competition", and cycle; the fuzz simulator and its
     scoring; the store, the analysis journal and the artifacts of both
-    checkers, the fuzz loop, and every module of those) load neither jax
+    checkers, the fuzz loop; the online frontiers and a stream session,
+    the registry, the bundle's warm pass and the verdict daemon, and
+    every module of those) load neither jax
     nor any module of the JAX package (jepsen_tpu_torch's own name shares
     the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -402,6 +404,31 @@ def test_port_imports_no_jax():
             assert r["valid"] is False
             assert loop.FuzzLoop(td + "/fz", clusters=4, device="cpu").run(
                 1)["clusters-run"] == 4
+        from jepsen_tpu_torch import cli, core, web
+        from jepsen_tpu_torch.online import (CycleFrontier, StreamSession,
+                                             WGLFrontier, client, ingest,
+                                             monitor, watch)
+        from jepsen_tpu_torch.serve import (bundle, daemon, queue, registry,
+                                            sacrifice)
+        s = StreamSession(iter(list_append.simulate(200, seed=1)),
+                          CycleFrontier(cycle.checker(device="cpu")),
+                          window=64, abort_on_invalid=True)
+        assert s.run()["valid"] is False and s.aborted
+        wf = WGLFrontier(registry.WORKLOAD_FACTORIES["register"](
+            device="cpu")["checker"])
+        wf.extend(h)
+        assert wf.advance()["valid"] is False
+        with tempfile.TemporaryDirectory() as td:
+            reg = registry.EngineRegistry(
+                bundle.EngineBundle(td + "/b", device="cpu"), device="cpu")
+            assert reg.warm()["warm"] is False
+            q = queue.DurableQueue(td + "/q")
+            dm = daemon.VerdictDaemon(q, reg)
+            dm.start()
+            jid = q.submit("c", "register", [o.to_dict() for o in h])
+            assert q.wait_for_verdict(jid, timeout=120)["valid"] is False
+            dm.draining.set()
+            dm.join(timeout=10)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
@@ -412,6 +439,54 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def imported_modules(stderr: str) -> set:
+    """Every module a `python -X importtime` run imported."""
+    return {ln.rsplit("|", 1)[1].strip() for ln in stderr.splitlines()
+            if ln.startswith("import time:") and "|" in ln}
+
+
+@pytest.mark.parametrize("entry", ["watch", "sacrifice"])
+def test_entry_points_load_no_jax(tmp_path, entry):
+    """`python -m jepsen_tpu_torch watch <fixture> --device cpu` and
+    `python -m jepsen_tpu_torch.serve.sacrifice <queue> <id> --device cpu`
+    run to their verdicts and import neither jax nor any module of the
+    JAX package (every import of the run, from -X importtime)."""
+    from jepsen_tpu_torch.serve.queue import DurableQueue
+
+    if entry == "watch":
+        args = ["-m", "jepsen_tpu_torch", "watch",
+                os.path.join(REPO, "tests", "fixtures", "edn",
+                             "list_append_g1c.edn"),
+                "--window", "16", "--device", "cpu"]
+        want = 1
+    else:
+        q = DurableQueue(str(tmp_path / "q"))
+        jid = q.submit("c", "register", [
+            {"process": 0, "type": "invoke", "f": "write",
+             "value": ["k", 1]},
+            {"process": 0, "type": "ok", "f": "write", "value": ["k", 1]},
+            {"process": 1, "type": "invoke", "f": "read",
+             "value": ["k", None]},
+            {"process": 1, "type": "ok", "f": "read", "value": ["k", 2]}])
+        args = ["-m", "jepsen_tpu_torch.serve.sacrifice", q.root, jid,
+                "--device", "cpu"]
+        want = 0
+    env = {**os.environ, "PYTHONPATH": REPO}
+    out = subprocess.run([sys.executable, "-X", "importtime", *args],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == want, out.stdout + out.stderr[-3000:]
+    mods = imported_modules(out.stderr)
+    assert "jepsen_tpu_torch.serve.registry" in mods
+    assert sorted(m for m in mods
+                  if m.split(".")[0] in ("jax", "jepsen_tpu")) == []
+    if entry == "watch":
+        assert "jepsen_tpu_torch.online.frontier" in mods
+        assert '"anomaly-types": ["G1c"]' in out.stdout
+    else:
+        assert DurableQueue(q.root).verdict(jid)["valid"] is False
 
 
 def capture(*mods):
