@@ -2,7 +2,7 @@
 """Chip smoke test of jepsen_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
-        [--only crossover|closure|fuzz|linear|store|online|serve]
+        [--only crossover|closure|fuzz|linear|store|online|serve|mesh]
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -91,7 +91,17 @@ serve`). The subprocesses' launches cannot be counted or replayed from
 here, so each subprocess path also runs in this process as a main path
 of its own, every launch replayed: `run_watch` on the three fixtures,
 the sacrificial child's `run_one` on the same blamed job, and the warm
-pass (the same fixed inputs as `ensure()`'s). Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
+pass (the same fixed inputs as `ensure()`'s). Then the `mesh` phase,
+the multi-device engines over the device list ["cuda:0"] * 2 and * 3
+(one card dealt as several; the routes opened by `device.devices()`
+answering that list): K2's deal of main_register_search's 4096 lanes
+and of main_fifo_long's 16 fifo lanes through the `wgl_mesh` route of
+`linearizable(..., algorithm="gpu_search")`, K1's block shards of the
+register cell's 4096 lanes, the cycle checker's `closure_mesh` route on
+cycle_append and cycle_append_20k's bucket fixpoints dealt over K3's
+row blocks, and `doctor.diagnose(devices=["cuda:0"] * 2)`: every dealt
+result equal to one device's, every shard launch held bit for bit
+against its plain version (`--only mesh`). Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
 wgl_search also the tables in shared memory, scratch bytes and the share
@@ -194,6 +204,9 @@ class Kernel:
 
     def __init__(self, name, mod, replaces):
         self.name, self.mod, self.replaces = name, mod, replaces
+        # the kernel module's own name (wgl_vec, wgl_row, wgl_search, ...):
+        # what a launch is replayed through
+        self.engine = mod.__name__.rsplit(".", 1)[1]
         self.launches = 0  # on the main paths
         self.compared = 0
         self.max_abs_err = 0
@@ -255,9 +268,9 @@ def compare(kernel, launch) -> dict:
     """Replay one captured `search` of `kernel` through the kernel and
     its plain version (`compare_vec`, `compare_row` or `compare_search`,
     which `compare_all` also gives several launches of one shape)."""
-    if kernel.name == "wgl_row":
+    if kernel.engine == "wgl_row":
         return compare_row(kernel.mod, launch, kernel)
-    if kernel.name == "wgl_search":
+    if kernel.engine == "wgl_search":
         return compare_search(kernel.mod, [launch], kernel)[0]
     return compare_vec(kernel.mod, launch, kernel)
 
@@ -462,11 +475,13 @@ def compare_search(ws, launches, kernel, cap=None) -> list:
     all of them through the plain version on the card in one lockstep
     run (the lanes are independent, and the plain version's cost is its
     longest lane's steps). Verdict, steps and depth must be
-    bit-identical on every compared lane, or this raises. Lanes whose
-    kernel search took more steps than `search_plain_limit` (or `cap`,
-    where lower) are left out of that run and run again through both
-    under that many steps. One dict a launch; the plain run's time and
-    the capped lanes stand on the first."""
+    bit-identical on every lane, or this raises: each timed launch's
+    lanes as that launch left them. Lanes whose kernel search took more
+    steps than `search_plain_limit` (or `cap`, where lower) run under
+    that many steps in that same plain run, beside the others at their
+    own budgets, and through the kernel again alone under that cap. One
+    dict a launch; the plain run's time and the capped lanes stand on
+    the first."""
     import torch
 
     _, _, jm, n_pad, n_state, cache_bits = launches[0]
@@ -504,29 +519,27 @@ def compare_search(ws, launches, kernel, cap=None) -> list:
         small_k = torch.cat(smalls, 1)
         outs[0]["plain_launches"] = len(launches)
     long = small_k[1] > limit
-    cols = (~long).nonzero()[:, 0]
-    if len(cols) == packed.shape[0]:
-        sub, sub_steps, small = packed, msteps, small_k
-    else:
-        sub = packed[cols].contiguous()
-        sub_steps = msteps[cols].contiguous()
-        small = small_k[:, cols]
-    if len(cols):
-        outs[0]["plain_ms"], small_p = cuda_ms(lambda: ws.search_plain(
-            sub, sub_steps, jm, n_pad, n_state, cache_bits))
-        check_equal(kernel, f"{jm.name} n_pad {n_pad}", small, small_p)
+    # one plain run takes every lane: the long ones under the cap, the
+    # others at their own budgets
+    steps_cmp = torch.where(long, torch.full_like(msteps, limit), msteps)
+    outs[0]["plain_ms"], small_p = cuda_ms(lambda: ws.search_plain(
+        packed, steps_cmp, jm, n_pad, n_state, cache_bits))
+    short = (~long).nonzero()[:, 0]
+    if len(short):
+        # the timed launches themselves, at their own shapes and budgets
+        check_equal(kernel, f"{jm.name} n_pad {n_pad}", small_k[:, short],
+                    small_p[:, short])
     if bool(long.any()):
         lcols = long.nonzero()[:, 0]
         t0 = time.perf_counter()
-        sub = packed[lcols].contiguous()
-        sub_steps = torch.full_like(msteps[lcols], limit)
-        check_equal(kernel, f"{jm.name} n_pad {n_pad} capped",
-                    ws.search(sub, sub_steps, jm, n_pad, n_state, cache_bits),
-                    ws.search_plain(sub, sub_steps, jm, n_pad, n_state,
-                                    cache_bits))
+        small_l = ws.search(packed[lcols].contiguous(),
+                            steps_cmp[lcols].contiguous(), jm, n_pad,
+                            n_state, cache_bits)
         torch.cuda.synchronize()
         outs[0].update(long_lanes=len(lcols), long_cap=limit,
                        long_s=time.perf_counter() - t0)
+        check_equal(kernel, f"{jm.name} n_pad {n_pad} capped", small_l,
+                    small_p[:, lcols])
     return outs
 
 
@@ -722,7 +735,7 @@ def auto_beside(kernels, cell: str, fn) -> tuple:
 def wgl(kernels) -> list:
     """The WGL search kernels of `kernels`."""
     return [k for k in kernels
-            if k.name in ("wgl_vec", "wgl_row", "wgl_search")]
+            if k.engine in ("wgl_vec", "wgl_row", "wgl_search")]
 
 
 # (kernel, launch digest) -> (cell, compare() result) of every launch
@@ -765,7 +778,7 @@ def compare_all(k, captured, cell: str, cap=None) -> list:
     keys = [(k.name, launch_digest(launch)) for launch in captured]
     fresh = {key: launch for key, launch in zip(keys, captured)
              if key not in COMPARED}
-    if k.name == "wgl_search":
+    if k.engine == "wgl_search":
         groups: dict = {}
         for key, launch in fresh.items():
             groups.setdefault(search_shape(launch), []).append(key)
@@ -1722,6 +1735,11 @@ def normalise(d):
         d, default=lambda o: o.to_dict() if hasattr(o, "to_dict") else str(o)))
 
 
+# cycle cell -> the bucket fixpoints its run captured (closure.CAPTURE),
+# which the mesh phase deals over several devices
+CYCLE_CAPTURE: dict = {}
+
+
 def phase_cycles(args, kernels, ck) -> None:
     """The cycle checker's three cells."""
     # the JAX package's list-append-5k bench history (bench.py:836): 2505
@@ -1780,6 +1798,7 @@ def phase_cycle(args, kernels, ck, name, n_ops, realtime=False,
             {}, hist, {})
         host_s = time.perf_counter() - t1
         assert normalise(res) == normalise(hr), "card != host DFS"
+    CYCLE_CAPTURE[name] = seen["unpack"][2]
     buckets = replay_closure(ck, seen["unpack"][2])
     closure_cell(ck, name, seen, buckets)
     # the run's own events also hold the host's call into each launch;
@@ -3240,6 +3259,339 @@ def phase_online(args, kernels, ck) -> None:
     phase_online_cycle_abort(args, kernels, ck)
 
 
+# -- the multi-device engines over a repeated device list ---------------
+
+# how many ways each engine is dealt: ["cuda:0"] * n (3 leaves empty
+# lanes in K2's chunks and pads K1's 32 blocks to 33)
+MESH_WAYS = (2, 3)
+# the register cell's keys and invocations a key (main_register's)
+MESH_KEYS = 4096
+MESH_INVOCATIONS = 64
+
+
+@contextlib.contextmanager
+def mesh_route(n: int, lanes_min: int | None = None):
+    """For the duration, `device.devices()` (every CUDA device) lists
+    ["cuda:0"] * n, so the mesh routes open on one card and deal it n
+    ways as they would deal n cards; with `lanes_min`, the WGL route's
+    bar is pinned to it (JEPSEN_TPU_TORCH_MESH_LANES_MIN). Yields the
+    list."""
+    from jepsen_tpu_torch import device
+
+    saved = device.devices
+    listed = saved(["cuda:0"] * n)
+    env = "JEPSEN_TPU_TORCH_MESH_LANES_MIN"
+    env_saved = os.environ.get(env)
+    device.devices = lambda spec=None: listed if spec is None \
+        else saved(spec)
+    if lanes_min is not None:
+        os.environ[env] = str(lanes_min)
+    try:
+        yield listed
+    finally:
+        device.devices = saved
+        if env_saved is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = env_saved
+
+
+class MeshClosureKernel(ClosureKernel):
+    """K3's row blocks: the unpack and threshold-pass launches of the
+    sharded fixpoint, counted together (the product is torch.matmul)."""
+
+    NAMES = ("unpack", "or_threshold_pack")
+
+    def collect(self) -> tuple:
+        return (sum(self.mod.LAUNCHES[n] for n in self.NAMES),
+                sum(a.elapsed_time(b) for n, a, b in self.mod.TIMED
+                    if n in self.NAMES),
+                self.mod.CAPTURE)
+
+
+def mesh_line(mk, cell, wall, one_wall, seen, **fields) -> dict:
+    """A WGL mesh cell's printed line: the dealt wall against the
+    one-device wall, the shards' launches, their kernel ms replayed,
+    plain ms, bound and share."""
+    c = mk.cells[cell]
+    return {"phase": cell, "wall_s": wall, "one_device_wall_s": one_wall,
+            "launches": seen[mk.name][0], "kernel_ms": c["kernel_ms"],
+            "path_kernel_ms": c["path_kernel_ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "bound_share": c["bound_ms"] / c["kernel_ms"],
+            "per_launch": c["per_launch"], "capped_lanes": c["capped_lanes"],
+            "matches_one_device": True, "matches_plain": True, **fields}
+
+
+def phase_mesh_k2(args, kernels, mk) -> None:
+    """K2's deal through the `wgl_mesh` route of
+    `independent.checker(linearizable(..., algorithm="gpu_search"))`:
+    main_register_search's 4096 register lanes over ["cuda:0"] * 2 and
+    * 3, and main_fifo_long's 16 invalid fifo lanes over * 3 (the route's
+    bar pinned to 1 for them); each dealt run a main path whose launches
+    (one a chunk) are replayed through the kernel and the plain version
+    (fifo lanes past the cell's cap compared under it), its result dict
+    field for field the one-device run's."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import CASRegister, FIFOQueue
+    from jepsen_tpu_torch.workloads.queue import queue_history
+    from jepsen_tpu_torch.workloads.register import (interleave_keys,
+                                                      keyed_history)
+
+    search = next(k for k in kernels if k.name == "wgl_search")
+    reg = keyed_history(MESH_KEYS, MESH_INVOCATIONS, n_process=5,
+                        bad_every=8, seed=args.seed)
+    fifo = interleave_keys(
+        [queue_history(n_process=5, n_ops=1980, fifo=True,
+                       seed=1000 * args.seed + s) for s in FIFO_SEEDS], 5)
+    cells = [("register", CASRegister, reg, MESH_WAYS, None),
+             ("fifo_long", FIFOQueue, fifo, (3,), 1)]
+    for name, model, hist, ways, lanes_min in cells:
+        def check():
+            return independent.checker(linearizable(
+                model(), algorithm="gpu_search")).check({}, hist, {})
+
+        one, one_wall, seen1 = run_path([search], check)
+        replay([search], seen1, f"mesh_k2_{name}_one_device")
+        for n in ways:
+            cell = f"mesh_k2_{name}_x{n}"
+            with mesh_route(n, lanes_min):
+                res, wall, seen = run_path([mk], check)
+            assert seen[mk.name][0] == n, (cell, seen[mk.name][0])
+            replay([mk], seen, cell)
+            assert normalise(res) == normalise(one), cell
+            emit(mesh_line(mk, cell, wall, one_wall, seen, devices=n,
+                           keys=len(res["results"]),
+                           verdicts=verdict_counts(
+                               r["valid"] for r in res["results"].values())))
+
+
+def phase_mesh_k1(args, kernels, mk) -> None:
+    """K1's block shards: the register cell's 4096 lanes (64
+    invocations, every 8th with an impossible first read; 32 blocks)
+    through `wgl_vec.analysis_batch(..., devices=["cuda:0"] * n)`, n 2
+    and 3 (3 pads the blocks to 33), each a main path whose shard
+    launches are replayed through the kernel and the plain version, its
+    results (verdict, steps, op, best linearization) the one-device
+    run's."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.history import entries
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops import wgl_vec
+    from jepsen_tpu_torch.workloads.register import keyed_history
+
+    vec = next(k for k in kernels if k.name == "wgl_vec")
+    hist = keyed_history(MESH_KEYS, MESH_INVOCATIONS, n_process=5,
+                         bad_every=8, seed=args.seed)
+    subs = independent._split(hist, list(range(MESH_KEYS)))
+    ess = [entries(subs[k]) for k in range(MESH_KEYS)]
+    model = CASRegister()
+    one, one_wall, seen1 = run_path(
+        [vec], lambda: wgl_vec.analysis_batch(model, ess))
+    replay([vec], seen1, "mesh_k1_register_one_device")
+    for n in MESH_WAYS:
+        cell = f"mesh_k1_register_x{n}"
+        devs = ["cuda:0"] * n
+        res, wall, seen = run_path(
+            [mk], lambda: wgl_vec.analysis_batch(model, ess, devices=devs))
+        assert seen[mk.name][0] == n * seen1[vec.name][0], (cell, seen)
+        replay([mk], seen, cell)
+        assert res == one, cell
+        emit(mesh_line(mk, cell, wall, one_wall, seen, devices=n,
+                       blocks=sum(la[0].shape[1] for la in
+                                  seen[mk.name][2][:n]) // wgl_vec.LANES,
+                       verdicts=verdict_counts(r.valid for r in res)))
+
+
+def replay_closure_mesh(mk, captured, devs) -> list:
+    """Every captured bucket fixpoint run again with its rows dealt over
+    `devs`, each shard launch checked as it runs: its unpack (once, and
+    of the gathered words each round) and threshold pass against the
+    plain version on the same inputs (words, flag and refreshed operand
+    bit for bit), each timed behind the GPU spin with its bound (bytes
+    read and written once over HBM bandwidth, 16 operand bytes a gained
+    byte, of the real rows only: the zero rows that pad the shards are
+    not the function's work); then the closed words and the rounds against
+    `_closure_block_mesh_plain` and the words against `closure_block` on
+    one device. Returns per bucket: pad size, batch, rounds, and per
+    kernel its launches, ms, plain ms and bound."""
+    import torch
+
+    from jepsen_tpu_torch.device import devices
+    from jepsen_tpu_torch.ops import closure as cl
+
+    devs = devices(devs)
+    out = []
+    for words0, p, rounds in captured:
+        words0 = words0.to(devs[0])
+        figs = {n: {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "t_bytes": 0.0}
+                for n in MeshClosureKernel.NAMES}
+
+        def add(name, ms, plain_ms, nbytes):
+            f = figs[name]
+            f["launches"] += 1
+            f["ms"] += ms
+            f["plain_ms"] += plain_ms
+            f["t_bytes"] += nbytes / HBM_BYTES_PER_S
+
+        def real(w):
+            # the real rows of `w` (a shard, or every shard gathered) per
+            # row it holds: the bound counts no padding row
+            return real_rows.get(w.data_ptr(), p) / w.shape[1]
+
+        def unpack_fn(w, p):
+            ms, got = spin_ms(cl, lambda: cl.unpack(w, p), "unpack")
+            p_ms, want = cuda_ms(lambda: cl.unpack_plain(w, p))
+            held(mk, f"p {p} unpack {tuple(w.shape)}", (got,), (want,))
+            add("unpack", ms, p_ms,
+                (4 * w.numel() + 2 * got.numel()) * real(w))
+            return got
+
+        def otp_fn(prod, words, flag, out, operand):
+            op_p, flag_p = operand.clone(), flag.clone()
+            p_ms, new_p = cuda_ms(lambda: cl.or_threshold_pack_plain(
+                prod, words, flag_p, operand=op_p))
+            # the pass writes the same operand chunks with the same
+            # values every launch, so it is timed on `operand` itself
+            ms, new = spin_ms(cl, lambda: cl.or_threshold_pack(
+                prod, words, flag, operand=operand), "or_threshold_pack")
+            held(mk, f"p {p} pass {tuple(words.shape)}",
+                 (new, flag, operand), (new_p, flag_p, op_p))
+            gained = int((words.view(torch.uint8)
+                          != new.view(torch.uint8)).sum())
+            add("or_threshold_pack", ms, p_ms, (2 * prod.numel()
+                + 8 * words.numel()) * real(words) + 4 + 16 * gained)
+            out.copy_(new)
+            return out
+
+        shards = cl._mesh_shards(words0, p, devs)
+        r = cl.shard_rows(p, len(devs))
+        real_rows = {w.data_ptr(): max(0, min(r, p - k * r))
+                     for k, w in enumerate(shards)}
+        ran = cl._squaring(shards, p, rounds, unpack_fn, otp_fn)
+        got = cl._mesh_gather(shards, p, devs[0])
+        want, ran_p = cl._closure_block_mesh_plain(words0, p, devs)
+        held(mk, f"p {p} fixpoint", (got,), (want,))
+        assert ran == ran_p, (p, ran, ran_p)
+        held(mk, f"p {p} one device", (got,), (cl.closure_block(words0, p),))
+        bucket = {"p": p, "b": words0.shape[0], "devices": len(devs),
+                  "shard_rows": r, "rounds": ran}
+        for name, f in figs.items():
+            b_ms, b_by = bound_ms(f.pop("t_bytes"), 0.0)
+            bucket[name] = {**f, "bound_ms": b_ms, "bound_by": b_by}
+        out.append(bucket)
+    return out
+
+
+def mesh_closure_figs(buckets) -> dict:
+    """Launches, ms, plain ms and bound of K3's shard launches summed
+    over replayed buckets."""
+    f = {k: sum(bk[n][k] for bk in buckets for n in MeshClosureKernel.NAMES)
+         for k in ("launches", "ms", "plain_ms", "bound_ms")}
+    f["bound_share"] = f["bound_ms"] / f["ms"] if f["ms"] else None
+    return f
+
+
+def phase_mesh_k3(args, kernels, mk) -> None:
+    """K3's row blocks: the cycle checker's main path on cycle_append
+    (5,000 ops, G1c and G-single) through the `closure_mesh` route over
+    ["cuda:0"] * 2 and * 3 (its giant component is past `mesh_min_n`, so
+    the whole batch, the one-word bucket too, is sharded), its dict the
+    host DFS engine's and its launches the fixpoint's (unpack once a
+    shard and once a round a shard, the threshold pass and the product
+    once a round a shard); every bucket replayed shard launch by shard
+    launch (`replay_closure_mesh`). Then cycle_append_20k's captured
+    buckets (its run in the cycle phase, or one run here) dealt 2 and 3
+    ways the same way: the kernel ms, bound and share of the K3 mesh
+    row."""
+    from jepsen_tpu_torch.checker import cycle
+    from jepsen_tpu_torch.ops import closure
+    from jepsen_tpu_torch.workloads import list_append
+
+    hist = list_append.simulate(5000, seed=args.seed,
+                                inject=("G1c", "G-single"))
+    t0 = time.perf_counter()
+    host = cycle.checker(engine="host").check({}, hist, {})
+    host_s = time.perf_counter() - t0
+    for n in MESH_WAYS:
+        cell = f"mesh_k3_cycle_append_x{n}"
+        with mesh_route(n) as devs:
+            res, wall, seen = run_path(
+                [mk], lambda: cycle.checker().check({}, hist, {}))
+        assert normalise(res) == normalise(host), cell
+        buckets = replay_closure_mesh(mk, seen[mk.name][2], devs)
+        want = sum(n * (1 + 2 * bk["rounds"]) for bk in buckets)
+        assert seen[mk.name][0] == want, (cell, seen[mk.name][0], want)
+        figs = mesh_closure_figs(buckets)
+        mk.cells[cell] = {"launches": seen[mk.name][0],
+                          "path_kernel_ms": seen[mk.name][1], **figs}
+        emit({"phase": cell, "devices": n, "wall_s": wall,
+              "host_dfs_wall_s": host_s, "launches": seen[mk.name][0],
+              "path_kernel_ms": seen[mk.name][1], **figs,
+              "buckets": buckets, "anomaly-types": res["anomaly-types"],
+              "matches_host": True, "matches_plain": True})
+    captured = CYCLE_CAPTURE.get("cycle_append_20k")
+    one_wall = None
+    if captured is None:
+        big = list_append.simulate(20000, seed=args.seed,
+                                   inject=("G1c", "G-single"))
+        closure.CAPTURE = []
+        t0 = time.perf_counter()
+        cycle.checker().check({}, big, {})
+        one_wall = time.perf_counter() - t0
+        captured, closure.CAPTURE = closure.CAPTURE, None
+    for n in MESH_WAYS:
+        cell = f"mesh_k3_20k_buckets_x{n}"
+        t0 = time.perf_counter()
+        buckets = replay_closure_mesh(mk, captured, ["cuda:0"] * n)
+        figs = mesh_closure_figs(buckets)
+        mk.cells[cell] = figs
+        if mk.ms is None and n == MESH_WAYS[0]:
+            mk.ms, mk.plain_ms = figs["ms"], figs["plain_ms"]
+            mk.bound_ms, mk.bound_by = figs["bound_ms"], "bytes"
+            mk.shape = (f"{cell}: " + ", ".join(
+                f"[{bk['b']}, {bk['p']}, {bk['p']}] over {n}"
+                for bk in buckets))
+        emit({"phase": cell, "devices": n, "replay_s":
+              time.perf_counter() - t0, "one_device_check_s": one_wall,
+              **figs, "buckets": buckets, "matches_one_device": True,
+              "matches_plain": True})
+
+
+def phase_mesh_doctor(args, kernels, mk3) -> None:
+    """`doctor.diagnose(devices=["cuda:0"] * 2)` as a main path: it must
+    be ok; its K1 and K2 launches (per device and dealt) are replayed
+    through the kernel and the plain version, its closure buckets shard
+    launch by shard launch."""
+    from jepsen_tpu_torch import doctor
+
+    vec = next(k for k in kernels if k.name == "wgl_vec")
+    search = next(k for k in kernels if k.name == "wgl_search")
+    devs = ["cuda:0"] * 2
+    report, wall, seen = run_path([vec, search, mk3],
+                                  lambda: doctor.diagnose(devices=devs))
+    assert report["ok"], report
+    passes = replay([vec, search], seen, "mesh_doctor")
+    buckets = replay_closure_mesh(mk3, seen[mk3.name][2], devs)
+    emit({"phase": "mesh_doctor", "wall_s": wall, "report": report,
+          "launches": {k: v[0] for k, v in seen.items()},
+          "kernel_vs_plain": {k: len(v) for k, v in passes.items() if v},
+          "closure_buckets": [(b["p"], b["rounds"]) for b in buckets],
+          "matches_plain": True})
+
+
+def phase_mesh(args, kernels, meshk) -> None:
+    """K2's deal, K1's block shards, K3's row blocks and the doctor,
+    over ["cuda:0"] repeated (module docstring)."""
+    t0 = time.perf_counter()
+    phase_mesh_k2(args, kernels, meshk["K2 deal"])
+    phase_mesh_k1(args, kernels, meshk["K1 mesh"])
+    phase_mesh_k3(args, kernels, meshk["K3 mesh"])
+    phase_mesh_doctor(args, kernels, meshk["K3 mesh"])
+    emit({"phase": "mesh", "wall_s": time.perf_counter() - t0})
+
+
 def lookup_us(mod, reps: int = 20) -> dict:
     """Host µs of one lookup of kernel module `mod`'s library through
     its `build`: "cached", as every wrapper makes it at each launch, and
@@ -3325,6 +3677,11 @@ def run(args) -> int:
                                   library=True)}
     sim = Kernel("sim", sim_mod, "jepsen_tpu/fuzz/sim.py:115")
     kernels = [vec, row, search, *ck.values(), sim]
+    meshk = {"K1 mesh": Kernel("K1 mesh", wgl_vec,
+                               "jepsen_tpu/ops/wgl_pallas_vec.py:848"),
+             "K2 deal": Kernel("K2 deal", wgl_search,
+                               "jepsen_tpu/ops/wgl_tpu.py:639"),
+             "K3 mesh": MeshClosureKernel("K3 mesh", closure, f"{k3}:157")}
     build_all(kernels)
     if args.only == "crossover":
         phase_crossover(args)
@@ -3363,6 +3720,11 @@ def run(args) -> int:
         phase_serve_daemon(args, kernels, ck)
         emit({"kernels": [k.row() for k in (vec, row, search, *ck.values())
                           if not k.library]})
+        print(smi, flush=True)
+        return 0
+    if args.only == "mesh":
+        phase_mesh(args, kernels, meshk)
+        emit({"kernels": [k.row() for k in (vec, search, *meshk.values())]})
         print(smi, flush=True)
         return 0
 
@@ -3438,8 +3800,11 @@ def run(args) -> int:
     phase_online(args, kernels, ck)
     phase_serve_daemon(args, kernels, ck)
 
+    phase_mesh(args, kernels, meshk)
+
     mm = ck["matmul"]
-    emit({"kernels": [k.row() for k in kernels if not k.library],
+    emit({"kernels": [k.row() for k in (*kernels, *meshk.values())
+                      if not k.library],
           "matmul": {"call": "torch.matmul (bf16, the closure's product)",
                      "launches": mm.launches, "ms": mm.ms,
                      "bound_ms": mm.bound_ms, "bound_by": mm.bound_by,
@@ -3455,7 +3820,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("crossover", "closure", "fuzz",
                                        "linear", "store", "online",
-                                       "serve"),
+                                       "serve", "mesh"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
@@ -3464,7 +3829,9 @@ def main() -> int:
                     "competition; store: the register cell, cycle_append "
                     "and the fuzz loop with a store and journal; online: "
                     "the register stream and the cycle abort stream; "
-                    "serve: the verdict daemon, the bundle and watch) and "
+                    "serve: the verdict daemon, the bundle and watch; "
+                    "mesh: K2's deal, K1's block shards, K3's row blocks "
+                    "and the doctor over a repeated device list) and "
                     "print their lines and the nvidia-smi line (no smoke "
                     "result)")
     return run(ap.parse_args())

@@ -1,6 +1,7 @@
-"""`python -m jepsen_tpu_torch watch ...` and `... serve --daemon ...`."""
+"""`python -m jepsen_tpu_torch watch ...`, `... serve --daemon ...` and
+`... doctor ...`."""
 
-from .cli import main, serve_cmd, watch_cmd
+from .cli import doctor_cmd, main, serve_cmd, watch_cmd
 
 if __name__ == "__main__":
-    main({**serve_cmd(), **watch_cmd()})
+    main({**serve_cmd(), **watch_cmd(), **doctor_cmd()})

@@ -71,11 +71,15 @@ class CycleChecker(Checker):
                    (e.g. (0,) for the causal counter registers)
     realtime       also infer realtime edges and allow them in cycles
                    (strict serializability flavor)
-    engine         None -> the closure on the card (ops/closure.py);
-                   "host" -> the host DFS
+    engine         None -> the closure on the card (ops/closure.py),
+                   over every card when the mesh route takes the batch
+                   (anomalies module docstring); "host" -> the host DFS;
+                   "mesh" -> the rows sharded over `devices`
     max_witnesses  witness cycles kept per anomaly type
     device         where engine None runs: None = CUDA (raising when it
                    is absent), "cpu" = the kernels' plain versions
+    devices        the device list of engine "mesh" (None: every CUDA
+                   device; `device.devices`)
 
     `test["deadline"]`, an absolute time.monotonic() instant, is
     checked before each pad bucket's closure.
@@ -83,7 +87,7 @@ class CycleChecker(Checker):
 
     def __init__(self, anomalies=ANOMALIES, *, version_order="write-once",
                  init_values=(), realtime=False, engine=None,
-                 max_witnesses=4, device=None):
+                 max_witnesses=4, device=None, devices=None):
         for a in anomalies:
             if a not in ANOMALIES:
                 raise ValueError(
@@ -97,6 +101,7 @@ class CycleChecker(Checker):
         self.engine = engine
         self.max_witnesses = max_witnesses
         self.device = device
+        self.devices = devices
 
     def graph(self, history, key=None) -> DepGraph:
         """The inferred dependency graph (exposed for tests/tools)."""
@@ -114,6 +119,7 @@ class CycleChecker(Checker):
             _anomalies._lap("extract", t0)
             r = classify(g, self.anomalies, realtime=self.realtime,
                          engine=self.engine, device=self.device,
+                         devices=self.devices,
                          max_witnesses=self.max_witnesses,
                          journal=(test or {}).get("_analysis_journal"),
                          budget=None if budget is None else float(budget))

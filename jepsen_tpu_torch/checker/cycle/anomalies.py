@@ -28,8 +28,14 @@ relation is simply OR-ed into every mask.
 The graph is first split into weakly-connected components (cycles
 cannot cross components), and every component x mask matrix goes to
 the closure engine in ONE batch: `ops/closure.reach_batch` on the card
-by default (engine None), the host DFS with engine "host". The engine is
-chosen before anything launches; a kernel fault raises. Witness recovery
+by default (engine None), the host DFS with engine "host", the rows
+sharded over a device list with engine "mesh" (`closure.reach_batch_mesh`
+over `devices`, every CUDA device by default). Engine None takes the mesh
+itself (the JAX package's `closure_mesh` rung, `supervisor.py:428-448`)
+when the device is the default one, two or more CUDA devices exist
+(`device.mesh`) and the largest matrix has at least
+`calibrate.mesh_min_n()` nodes. The engine is chosen before anything
+launches; a kernel fault raises, with no demotion. Witness recovery
 (a concrete shortest cycle per anomaly) is a host BFS on the flagged
 component.
 
@@ -49,11 +55,13 @@ import time
 
 import numpy as np
 
+from ... import device as device_mod
 from ...ops import closure, closure_host
+from .. import calibrate
 from .deps import DepGraph
 
 ANOMALIES = ("G0", "G1c", "G-single", "G2")
-ENGINES = (None, "host")
+ENGINES = (None, "host", "mesh")
 
 #: when a dict, `classify` adds the host seconds of its steps to it
 #: ("components", "closure", "hits_witnesses") and CycleChecker.check
@@ -119,9 +127,11 @@ def _unpack_closure(d) -> np.ndarray:
 
 
 def _closures(mats, engine=None, device=None, budget=None,
-              on_closed=None) -> list:
+              on_closed=None, devices=None) -> list:
     """Closure of every matrix: on the card (`closure.reach_batch`,
-    `device` None = CUDA) for engine None, by the host DFS for "host".
+    `device` None = CUDA) for engine None — over every card when the
+    mesh route takes the batch (module docstring) —, by the host DFS for
+    "host", and over `devices` (None: every CUDA device) for "mesh".
     `budget` is an absolute time.monotonic() deadline, checked before
     each pad bucket (before the whole batch on the host); past it this
     raises closure.DeadlineExpired. `on_closed(i, closure)` is called
@@ -137,9 +147,17 @@ def _closures(mats, engine=None, device=None, budget=None,
             for i, m in enumerate(out):
                 on_closed(i, m)
         return out
+    if engine == "mesh":
+        return closure.reach_batch_mesh(mats, devices=devices, budget=budget,
+                                        on_closed=on_closed)
     if engine is not None:
         raise ValueError(f"unknown closure engine {engine!r} "
                          f"(known: {ENGINES})")
+    mesh = device_mod.mesh(device)
+    if mesh is not None and max(a.shape[0] for a in mats) \
+            >= calibrate.mesh_min_n():
+        return closure.reach_batch(mats, devices=mesh, budget=budget,
+                                   on_closed=on_closed)
     return closure.reach_batch(mats, device=device, budget=budget,
                                on_closed=on_closed)
 
@@ -181,7 +199,7 @@ def _witness(g: DepGraph, comp, allowed, a, b) -> dict:
 
 def classify(g: DepGraph, anomalies=ANOMALIES, *, realtime=False,
              engine=None, device=None, max_witnesses=4, journal=None,
-             budget=None) -> dict:
+             budget=None, devices=None) -> dict:
     """Find every requested anomaly in a dependency graph.
 
     Returns {"anomaly-types": [...], "anomalies": {type: [witness]},
@@ -237,7 +255,7 @@ def classify(g: DepGraph, anomalies=ANOMALIES, *, realtime=False,
     got: dict = {}
     try:
         subs = _closures([mats[i] for i in todo], engine=engine,
-                         device=device, budget=budget,
+                         device=device, budget=budget, devices=devices,
                          on_closed=got.__setitem__)
     finally:
         # in submission order, as the JAX package journals them, also

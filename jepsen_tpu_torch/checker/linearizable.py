@@ -60,6 +60,16 @@ Algorithms:
              library that fails raises. A single `check` is a batch of
              one.
 
+The mesh route (the JAX package's `wgl_mesh` rung, its eligibility in
+`checker/supervisor.py:489-506`): with the default device (None) and two
+or more CUDA devices (`device.mesh`), a `gpu_search` call — explicit, or
+a card group of "auto" — whose lanes number at least the card count and
+`calibrate.mesh_lanes_min()` is dealt over every card
+(`wgl_search.analysis_batch(devices=...)`). The route is decided before
+anything launches, and there is no demotion: a fault of a shard raises.
+With one card, or an explicit device, every call is the single-device
+one.
+
 `test["deadline"]` (an absolute time.monotonic() instant) is checked
 before every engine call but `auto`'s native triage: past it, the lanes
 that call would have taken come back {"valid": "unknown", "error":
@@ -87,6 +97,7 @@ import threading
 import time
 from typing import Any
 
+from .. import device as device_mod
 from ..device import resolve
 from ..history import entries as make_entries
 from ..models import Model
@@ -94,7 +105,7 @@ from ..models import jit as mjit
 from ..ops import (linear as linear_mod, pcomp, wgl_host, wgl_native,
                    wgl_row, wgl_search, wgl_vec)
 from ..ops.common import STEPS_PER_SEC_ESTIMATE
-from . import Checker, is_fault
+from . import Checker, calibrate, is_fault
 
 TRUNCATE = 10
 ALGORITHMS = ("auto", "gpu_vec", "gpu_row", "gpu_search", "native", "host",
@@ -281,6 +292,17 @@ class Linearizable(Checker):
             lim = rem if lim is None else min(lim, rem)
         return lim
 
+    def _mesh(self, engine, ess) -> list | None:
+        """The cards a call of `engine` over `ess` is dealt over (module
+        docstring, the mesh route), or None for the single-device call."""
+        if engine != "gpu_search":
+            return None
+        devs = device_mod.mesh(self.device)
+        if devs is None or len(ess) < max(len(devs),
+                                          calibrate.mesh_lanes_min()):
+            return None
+        return devs
+
     def _call(self, engine, model, ess, budget=None, time_limit=None,
               max_steps=None, jms=None) -> list:
         """One engine call over `ess`; when the budget has passed, none:
@@ -293,6 +315,10 @@ class Linearizable(Checker):
         if _expired(budget):
             return [_deadline_result() for _ in ess]
         if engine in ENGINES:
+            mesh = self._mesh(engine, ess)
+            if mesh is not None:
+                return wgl_search.analysis_batch(
+                    model, ess, max_steps=self._max_steps(), devices=mesh)
             return ENGINES[engine].analysis_batch(
                 model, ess, max_steps=self._max_steps(), device=self.device)
         if engine == "native":

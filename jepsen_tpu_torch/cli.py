@@ -1,14 +1,17 @@
-"""Command-line runner of the port: `python -m jepsen_tpu_torch watch` and
-`python -m jepsen_tpu_torch serve --daemon` (the port's copy of the parts
-of `jepsen_tpu.cli` these two subcommands use).
+"""Command-line runner of the port: `python -m jepsen_tpu_torch watch`,
+`python -m jepsen_tpu_torch serve --daemon` and `python -m
+jepsen_tpu_torch doctor` (the port's copy of the parts of
+`jepsen_tpu.cli` these subcommands use).
 
 Exit codes, as the JAX package's: 0 success, 1 a definite falsification,
 254 bad arguments or an unknown command, 255 an internal error (a fault
 of the card included), and 143 when a SIGTERM drained the daemon.
 
-Both subcommands take `--device`: the default is the card (raising when
-CUDA is absent); `--device cpu` runs the kernels' plain versions. There
-is no web UI, no `doctor` (it examines a device mesh) and no `fuzz`.
+`watch` and `serve` take `--device`: the default is the card (raising
+when CUDA is absent); `--device cpu` runs the kernels' plain versions.
+`doctor` examines a device list (every card by default, `--devices`, or
+`--mesh N` CPU entries) and exits 0 when it is healthy, 1 otherwise.
+There is no web UI and no `fuzz`.
 """
 
 from __future__ import annotations
@@ -187,3 +190,50 @@ def watch_cmd() -> dict:
         usage="Stream a WAL or foreign trace through the online checker "
         "frontiers; one JSON verdict line per window, exit 1 on a "
         "definite falsification.")}
+
+
+def doctor_cmd() -> dict:
+    """The `doctor` subcommand: examine a device list — topology,
+    per-device K2 parity against the host search, the dealt K2, K1's
+    block shards and K3's row blocks against the host, memory headroom
+    (jepsen_tpu_torch/doctor.py) — printing the report as JSON."""
+
+    def opt_spec(p):
+        p.add_argument(
+            "--mesh", type=int, default=None, metavar="N",
+            help="Examine N CPU entries (the plain versions dealt N ways, "
+            "the counterpart of a virtual CPU mesh)")
+        p.add_argument(
+            "--devices", default=None, metavar="LIST",
+            help="Comma-separated devices to examine, repeats allowed "
+            "(e.g. cuda:0,cuda:0); default every CUDA device")
+        p.add_argument(
+            "--closure-n", type=int, default=100, metavar="N",
+            help="Side of the biggest closure parity matrix")
+
+    def run(opts):
+        import json
+
+        from .doctor import diagnose
+
+        if opts.get("mesh") is not None and opts.get("devices"):
+            raise CliError("give --mesh or --devices, not both")
+        devices = None
+        if opts.get("mesh") is not None:
+            if opts["mesh"] < 1:
+                raise CliError("--mesh takes a positive count")
+            devices = ["cpu"] * opts["mesh"]
+        elif opts.get("devices"):
+            devices = [d.strip() for d in opts["devices"].split(",")]
+        try:
+            report = diagnose(devices=devices,
+                              closure_n=opts.get("closure_n", 100))
+        except ValueError as e:
+            raise CliError(str(e)) from e
+        print(json.dumps(report, indent=2, sort_keys=True))
+        return 0 if report["ok"] else 1
+
+    return {"doctor": Subcommand(
+        run=run, opt_spec=opt_spec,
+        usage="Examine a device list: topology, per-device parity, the "
+        "dealt and sharded paths' parity, memory headroom.")}

@@ -135,7 +135,7 @@ def coverage_key(score: dict, sched=None) -> str:
 
 def score_batch(results: list, spec: SimSpec = DEFAULT_SPEC,
                 scheds=None, engine: str | None = None, device=None,
-                budget: float | None = None) -> list:
+                budget: float | None = None, devices=None) -> list:
     """Score a batch of sim results; one dict per trace:
 
     {"anomaly-types", "cycle-count", "node-count", "component-count",
@@ -143,7 +143,9 @@ def score_batch(results: list, spec: SimSpec = DEFAULT_SPEC,
 
     All traces' closure jobs go to the closure engine as ONE batch:
     engine None is the card (`device` None = CUDA, "cpu" the plain
-    versions), "host" the host DFS. A trace whose inference fails
+    versions; over every card when the mesh route takes the batch),
+    "host" the host DFS, "mesh" the rows sharded over `devices` (None:
+    every CUDA device). A trace whose inference fails
     (cannot happen for sim traces, but the scorer also takes foreign
     fixtures) scores as coverage bucket "unknown" rather than poisoning
     the batch.
@@ -178,7 +180,8 @@ def score_batch(results: list, spec: SimSpec = DEFAULT_SPEC,
     closed: list = [None] * len(mats)
     try:
         subs = an_mod._closures([mats[i] for i in order], engine=engine,
-                                device=device, budget=budget)
+                                device=device, budget=budget,
+                                devices=devices)
     except closure.DeadlineExpired:
         subs = [None] * len(order)
     for i, sub in zip(order, subs):
@@ -243,7 +246,8 @@ def score_batch(results: list, spec: SimSpec = DEFAULT_SPEC,
 
 
 def check_trace(res: dict, spec: SimSpec = DEFAULT_SPEC,
-                engine: str | None = None, device=None) -> dict:
+                engine: str | None = None, device=None,
+                devices=None) -> dict:
     """Full standard-checker verdict for ONE trace (with witnesses) —
     decode + deps.extract + anomalies.classify, exactly the cycle
     checker's path."""
@@ -251,6 +255,6 @@ def check_trace(res: dict, spec: SimSpec = DEFAULT_SPEC,
         g = deps_mod.extract(decode(res, spec))
     except deps_mod.IllegalInference as e:
         return {"valid": "unknown", "error": str(e), "anomaly-types": []}
-    r = an_mod.classify(g, engine=engine, device=device)
+    r = an_mod.classify(g, engine=engine, device=device, devices=devices)
     r["valid"] = not r["anomaly-types"]
     return r

@@ -42,8 +42,25 @@ on another stream would race the product.
 
 Closures are irreflexive-path closures, as in the host engine:
 out[i, j] iff a path i -> ... -> j of >= 1 edge exists, so the diagonal
-marks nodes on cycles. The block-row split over several cards
-(`closure_tpu.reach_batch_mesh`) is not ported.
+marks nodes on cycles.
+
+Over several devices (`reach_batch(..., devices=[...])`, the port of
+`closure_tpu._closure_block_mesh`, the block-row sharded squaring): a
+bucket's rows are padded with zero rows to D shards of `shard_rows(p,
+D)` rows each (JAX's multiple of D, rounded up so that a shard's words
+of one matrix are whole tiles of closure.cu); zero rows create and
+destroy no path. Unlike the JAX package the batch is not padded to a
+power of two: that pad only spares jit a trace a batch size. Each
+shard keeps its rows' words and their bf16 operand on its device, and a
+round is, on every shard: gather every shard's words onto its device in
+shard order, unpack them (the full operand changes on every shard, so it
+is unpacked again each round), the product of the local operand with
+the full one, and the threshold pass on the local rows, refreshing the
+local operand in place and raising the shard's flag. The host ORs the
+flags (the JAX package's psum); the round cap and the early exit are
+the single-device path's, and one loop (`_squaring`) runs both. A
+device may repeat in the list, and the one-word bucket takes this path
+too, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -55,6 +72,7 @@ import time
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..device import KernelError, resolve
 from . import MIN_PAD, pad_size
 
@@ -71,6 +89,9 @@ CAPTURE: list | None = None
 
 # elements a plain version converts at once (bounds its int64 scratch)
 _PLAIN_CHUNK = 1 << 24
+# words a tile of closure.cu's unpack and threshold pass: a launch takes
+# a multiple of it
+TILE_WORDS = 32
 
 
 class DeadlineExpired(RuntimeError):
@@ -158,10 +179,9 @@ def closure_word_plain(words: torch.Tensor, rounds: int):
 
 def unpack_plain(words: torch.Tensor, p: int,
                  out: torch.Tensor | None = None) -> torch.Tensor:
-    """[b, p, p//32] int32 words -> [b, p, p] bf16 0/1."""
+    """[b, r, p//32] int32 words -> [b, r, p] bf16 0/1."""
     _check_words(words, p)
-    b = words.shape[0]
-    out = _out(out, (b, p, p), torch.bfloat16, words.device)
+    out = _out(out, (*words.shape[:2], p), torch.bfloat16, words.device)
     w = words.reshape(-1, p // 32)
     o = out.view(-1, p)
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
@@ -254,12 +274,14 @@ def _check_word(words) -> None:
 
 
 def _check_words(words, p: int) -> None:
+    """Words of a bucket of pad size p: [b, r, p/32] int32, contiguous;
+    r is p for whole matrices and a shard's row count under a mesh."""
     if p < MIN_PAD or p & (p - 1):
         raise ValueError(f"pad size {p} is not a power of two >= {MIN_PAD}")
     if words.dtype != torch.int32 or words.dim() != 3 \
-            or tuple(words.shape[1:]) != (p, p // 32) \
+            or words.shape[1] < 1 or words.shape[2] != p // 32 \
             or not words.is_contiguous():
-        raise ValueError(f"words must be contiguous [b, {p}, {p // 32}] "
+        raise ValueError(f"words must be contiguous [b, r, {p // 32}] "
                          f"int32, got {words.dtype} {tuple(words.shape)}")
 
 
@@ -268,10 +290,10 @@ def _check_otp(prod, words, flag, p: int, operand=None) -> None:
     for name, m in (("prod", prod), ("operand", operand)):
         if m is not None and (
                 m.dtype != torch.bfloat16
-                or tuple(m.shape) != (words.shape[0], p, p)
+                or tuple(m.shape) != (*words.shape[:2], p)
                 or not m.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous bf16 "
-                             f"[b, p, p] tensor")
+                             f"[b, r, p] tensor")
     if flag.dtype != torch.int32 or tuple(flag.shape) != (1,):
         raise ValueError("flag must be one int32")
     if not prod.device == words.device == flag.device:
@@ -337,14 +359,15 @@ def closure_word(words: torch.Tensor, rounds: int):
 
 def unpack(words: torch.Tensor, p: int,
            out: torch.Tensor | None = None) -> torch.Tensor:
-    """Packed [b, p, p//32] int32 words -> 0/1 bf16 [b, p, p] (into
+    """Packed [b, r, p//32] int32 words -> 0/1 bf16 [b, r, p] (into
     `out` when given): the kernel on a CUDA tensor, the plain version on
-    a CPU tensor."""
+    a CPU tensor. On the card a launch takes whole tiles: b*r*p/32 a
+    multiple of TILE_WORDS."""
     _check_words(words, p)
     if not _cuda(words):
         return unpack_plain(words, p, out)
     dev = words.device
-    out = _out(out, (words.shape[0], p, p), torch.bfloat16, dev)
+    out = _out(out, (*words.shape[:2], p), torch.bfloat16, dev)
     _aligned(words, out)
     with torch.cuda.device(dev):
         lib = build(dev)
@@ -386,35 +409,20 @@ def or_threshold_pack(prod: torch.Tensor, words: torch.Tensor,
     return out
 
 
-def matmul(m: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
-    """The round's product m.m of the bf16 0/1 operand (torch.matmul,
-    counted and timed on the card like the kernels)."""
+def matmul(m: torch.Tensor, out: torch.Tensor | None = None,
+           rhs: torch.Tensor | None = None) -> torch.Tensor:
+    """The round's product of the bf16 0/1 operand: m.m, or m.rhs under a
+    mesh (a shard's rows times the full operand); torch.matmul, counted
+    and timed on the card like the kernels."""
+    rhs = m if rhs is None else rhs
     if not _cuda(m):
-        return torch.matmul(m, m, out=out)
+        return torch.matmul(m, rhs, out=out)
     with _launch("matmul", m.device):
-        return torch.matmul(m, m, out=out)
+        return torch.matmul(m, rhs, out=out)
 
 
 # ---------------------------------------------------------------------------
 # The fixpoint
-
-def _squaring(words: torch.Tensor, p: int, rounds: int, unpack_fn,
-              otp_fn) -> int:
-    """R <- R | (R.R > 0) on `words` in place, at most `rounds` rounds,
-    stopping after the first round that changes no word: one unpack,
-    then a product and a threshold pass a round, the pass refreshing the
-    operand for the next product. Returns the rounds run."""
-    flag = torch.zeros(1, dtype=torch.int32, device=words.device)
-    m = unpack_fn(words, p)
-    prod = None
-    for t in range(rounds):
-        prod = matmul(m, out=prod)
-        flag.zero_()
-        otp_fn(prod, words, flag, out=words, operand=m)
-        if not int(flag.item()):
-            return t + 1
-    return rounds
-
 
 def closure_block(words0: torch.Tensor, p: int) -> torch.Tensor:
     """The closure of one pad bucket, [b, p, p//32] int32 packed (the
@@ -428,7 +436,7 @@ def closure_block(words0: torch.Tensor, p: int) -> torch.Tensor:
         out, _ = closure_word(words0.view(-1, 32), rounds)
         return out.view(words0.shape)
     words = words0.clone()
-    _squaring(words, p, rounds, unpack, or_threshold_pack)
+    _squaring([words], p, rounds, unpack, or_threshold_pack)
     return words
 
 
@@ -442,8 +450,121 @@ def closure_block_plain(words0: torch.Tensor, p: int):
         out, taken = closure_word_plain(words0.view(-1, 32), rounds)
         return out.view(words0.shape), taken
     words = words0.clone()
-    ran = _squaring(words, p, rounds, unpack_plain, or_threshold_pack_plain)
+    ran = _squaring([words], p, rounds, unpack_plain,
+                    or_threshold_pack_plain)
     return words, ran
+
+
+def shard_rows(p: int, d: int) -> int:
+    """Rows each of `d` shards holds of a pad-p bucket: ceil(p / d), as
+    closure_tpu pads to a multiple of the mesh, rounded up to whole tiles
+    of one matrix's words (r * p/32 a multiple of TILE_WORDS), which
+    closure.cu's launches take."""
+    unit = max(1, TILE_WORDS * 32 // p)  # rows of one tile
+    rows = -(-p // d)
+    return -(-rows // unit) * unit
+
+
+def _sync_shards(devs) -> None:
+    """Every device's current stream waits for the work queued so far on
+    every other's: an event recorded a shard after its gather, so no
+    shard's threshold pass rewrites its rows in place before every other
+    shard's copy of them is done. (torch orders a copy between two cards
+    with both current streams, and on one card the stream orders it;
+    the events make the order explicit whatever the copy does.)"""
+    cuda = [d for d in dict.fromkeys(devs) if d.type == "cuda"]
+    if len(cuda) < 2:
+        return
+    evs = []
+    for d in cuda:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(d))
+        evs.append(ev)
+    for d in cuda:
+        for ev in evs:
+            torch.cuda.current_stream(d).wait_event(ev)
+
+
+def _squaring(shards, p: int, rounds: int, unpack_fn, otp_fn) -> int:
+    """R <- R | (R.R > 0) on a bucket's words, changed in place, at most
+    `rounds` rounds, stopping after the first round that changes no
+    word. `shards` hold the bucket's rows, [b, r, p/32] words a device;
+    one shard is the whole [b, p, p/32] bucket on one device. Each
+    shard's operand is unpacked once; a round is then, on every shard,
+    the product of its operand with the full one and a threshold pass
+    that refreshes its operand in place for the next product. With one
+    shard the full operand is its own; with several it is unpacked again
+    each round from every shard's words gathered onto the shard's device
+    (module docstring). The flags are ORed on the host. Returns the
+    rounds run."""
+    devs = [w.device for w in shards]
+    flags = [torch.zeros(1, dtype=torch.int32, device=d) for d in devs]
+    local = [unpack_fn(w, p) for w in shards]
+    prods: list = [None] * len(shards)
+    fulls: list = [None] * len(shards)
+    for t in range(rounds):
+        if len(shards) > 1:
+            fulls = [torch.cat([w.to(d) for w in shards], 1) for d in devs]
+            _sync_shards(devs)
+        for k, full in enumerate(fulls):
+            rhs = None if full is None else unpack_fn(full, p)[:, :p]
+            prods[k] = matmul(local[k], out=prods[k], rhs=rhs)
+            flags[k].zero_()
+            otp_fn(prods[k], shards[k], flags[k], out=shards[k],
+                   operand=local[k])
+        if not any([int(f.item()) for f in flags]):
+            return t + 1
+    return rounds
+
+
+def _mesh_shards(words0: torch.Tensor, p: int, devs) -> list:
+    """The bucket's words [b, p, p/32] padded with zero rows to
+    len(devs) * shard_rows rows, cut into one contiguous [b, r, p/32]
+    shard a device. (The JAX package also pads the batch to a power of
+    two, so that jit does not trace again for each batch size; the port
+    has no such cache and keeps the batch as it is.)"""
+    _check_words(words0, p)
+    b, c = words0.shape[0], p // 32
+    r = shard_rows(p, len(devs))
+    padded = words0.new_zeros((b, len(devs) * r, c))
+    padded[:, :p] = words0
+    shards = []
+    for k, d in enumerate(devs):
+        w = torch.empty((b, r, c), dtype=torch.int32, device=d)
+        w.copy_(padded[:, k * r:(k + 1) * r])
+        shards.append(w)
+    return shards
+
+
+def _mesh_gather(shards, p: int, dev) -> torch.Tensor:
+    """The closed words back as [b, p, p/32] on `dev`."""
+    full = torch.cat([w.to(dev) for w in shards], 1)
+    return full[:, :p].contiguous()
+
+
+def _closure_block_mesh(words0: torch.Tensor, p: int, devices
+                        ) -> torch.Tensor:
+    """closure_block with the bucket's rows dealt over `devices` (two or
+    more; a device may repeat): the kernels on CUDA devices, the plain
+    versions on the CPU. Returns the closed words [b, p, p/32] on the
+    first device; `words0` is left as it was."""
+    devs = device_mod.devices(devices)
+    rounds = rounds_for(p)
+    if CAPTURE is not None:
+        CAPTURE.append((words0.clone(), p, rounds))
+    shards = _mesh_shards(words0, p, devs)
+    _squaring(shards, p, rounds, unpack, or_threshold_pack)
+    return _mesh_gather(shards, p, devs[0])
+
+
+def _closure_block_mesh_plain(words0: torch.Tensor, p: int, devices):
+    """_closure_block_mesh through the plain versions on any devices.
+    Returns (closed words, rounds run)."""
+    devs = device_mod.devices(devices)
+    shards = _mesh_shards(words0, p, devs)
+    ran = _squaring(shards, p, rounds_for(p), unpack_plain,
+                    or_threshold_pack_plain)
+    return _mesh_gather(shards, p, devs[0]), ran
 
 
 def _reach(adjs, dev, block, budget, on_closed=None) -> list:
@@ -472,7 +593,7 @@ def _reach(adjs, dev, block, budget, on_closed=None) -> list:
 
 
 def reach_batch(adjs, device=None, budget: float | None = None,
-                on_closed=None) -> list:
+                on_closed=None, devices=None) -> list:
     """Closure of each bool adjacency matrix in `adjs`, aligned with the
     input. Matrices are bucketed by pad size, each bucket one batched
     fixpoint through the kernels (device None = CUDA, raising when it is
@@ -480,8 +601,30 @@ def reach_batch(adjs, device=None, budget: float | None = None,
     time.monotonic() deadline, checked before each bucket: past it this
     raises DeadlineExpired. `on_closed(i, closure)` is called for each
     matrix as its bucket completes (before a later bucket's deadline
-    can raise)."""
-    return _reach(adjs, resolve(device), closure_block, budget, on_closed)
+    can raise). `devices` (a list for `device.devices`, not with
+    `device`) shards every bucket's rows over those devices when it
+    names two or more (`_closure_block_mesh`); a one-device list is the
+    single-device path on that device."""
+    if device is not None and devices is not None:
+        raise ValueError("give device or devices, not both")
+    if devices is None:
+        return _reach(adjs, resolve(device), closure_block, budget,
+                      on_closed)
+    devs = device_mod.devices(devices)
+    if len(devs) < 2:
+        return _reach(adjs, devs[0], closure_block, budget, on_closed)
+    # the packed words stay on the host until they are sharded
+    return _reach(adjs, torch.device("cpu"),
+                  lambda w, p: _closure_block_mesh(w, p, devs), budget,
+                  on_closed)
+
+
+def reach_batch_mesh(adjs, devices=None, budget: float | None = None,
+                     on_closed=None) -> list:
+    """reach_batch over `devices` (None: every CUDA device; the JAX
+    package's `closure_mesh` engine)."""
+    return reach_batch(adjs, budget=budget, on_closed=on_closed,
+                       devices=device_mod.devices(devices))
 
 
 def reach_batch_plain(adjs, device="cpu") -> list:
@@ -501,3 +644,17 @@ def probe(device=None) -> bool:
     a[0, 1] = a[1, 0] = True
     r = reach(a, device=device)
     return bool(r[0, 0] and r[0, 1] and not r[2, 2])
+
+
+def probe_mesh(devices=None) -> bool:
+    """A ring of 2*MIN_PAD + 5 nodes (past the one-word bucket, uneven
+    against the device count) closed over `devices` (None: every CUDA
+    device) and on the first of them alone: equal, and every node on
+    the cycle (closure_tpu.probe_mesh)."""
+    devs = device_mod.devices(devices)
+    n = 2 * MIN_PAD + 5
+    a = np.zeros((n, n), dtype=bool)
+    a[np.arange(n), (np.arange(n) + 1) % n] = True
+    (r,) = reach_batch([a], devices=devs)
+    (s,) = reach_batch([a], device=devs[0])
+    return bool(np.array_equal(r, s) and r[0, 0])

@@ -56,6 +56,17 @@ and `analysis_batch` splits a batch into launches of that many lanes
 tensor `search` runs `search_plain`, a lockstep PyTorch version of the
 same search over all lanes. Both return, per lane, wgl_tpu's verdict,
 steps and depth.
+
+Over several devices (`analysis_batch(..., devices=[...])`, the port of
+wgl_tpu.analysis_batch's mesh path): `deal` sorts the lanes longest-first
+by entry count and deals them round-robin into one contiguous chunk per
+device, padded to equal length with empty lanes (n_completed 0: VALID
+before any step, no steps); every chunk is packed, copied to its device
+and launched (split by `lanes_per_launch` there) before any result is
+read back, and the rows map back to lanes through `row_to_lane`. A
+device may repeat in the list: the deal, the launches and the gather are
+the same, and every lane's search does not depend on its chunk, so the
+results equal one device's.
 """
 
 from __future__ import annotations
@@ -66,6 +77,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..device import KernelError, resolve
 from ..history import Entries, entries as make_entries
 from ..models import jit as mjit
@@ -796,9 +808,40 @@ def _results(model, entries_list, small) -> list:
     return out
 
 
+def deal(lengths, n_dev: int) -> tuple:
+    """wgl_tpu.analysis_batch's deal (`:687-703`): lanes sorted
+    longest-first by `lengths` (stable for equal lengths) and dealt
+    round-robin into `n_dev` chunks. Returns (chunks, row_to_lane):
+    each chunk's lane indices, and for every row of the chunks laid end
+    to end, each padded to the longest with empty rows, the lane it
+    holds or -1 for an empty lane."""
+    order = sorted(range(len(lengths)), key=lambda i: -lengths[i])
+    chunks: list = [[] for _ in range(n_dev)]
+    for j, i in enumerate(order):
+        chunks[j % n_dev].append(i)
+    per = max(len(c) for c in chunks)
+    row_to_lane = []
+    for c in chunks:
+        row_to_lane += c + [-1] * (per - len(c))
+    return chunks, row_to_lane
+
+
+def _launch_all(packed, msteps, jm, n_pad: int, n_state: int,
+                cache_bits: int, dev) -> list:
+    """`search` over the lanes of (numpy) `packed` on `dev`, in launches
+    of `lanes_per_launch` lanes; the (3, lanes) results, still on the
+    device and unread."""
+    per = lanes_per_launch(jm, n_pad, n_state, cache_bits, _smem_max(dev))
+    packed = torch.from_numpy(packed).to(dev)
+    msteps = torch.from_numpy(msteps).to(dev)
+    return [search(packed[a:a + per], msteps[a:a + per], jm, n_pad,
+                   n_state, cache_bits)
+            for a in range(0, packed.shape[0], per)]
+
+
 def analysis_batch(model, entries_list, max_steps: int | None = None,
                    cache_bits: int = DEFAULT_CACHE_BITS,
-                   device=None) -> list:
+                   device=None, devices=None) -> list:
     """Check a batch of independent histories (Ops or Entries), one lane
     each, in as few launches as the scratch budget allows
     (`lanes_per_launch`); returns one WGLResult per lane. Raises
@@ -806,8 +849,15 @@ def analysis_batch(model, entries_list, max_steps: int | None = None,
     payloads do not encode — callers probe with `batch_eligible`.
 
     device None means CUDA (raising when absent); "cpu" runs the plain
-    version."""
-    dev = resolve(device)
+    version. `devices` (a list for `device.devices`, not with `device`)
+    deals the lanes over those devices (`deal`) when it names two or
+    more and there are at least as many lanes; a one-device list is the
+    single-device path on that device. A device that fails to launch
+    raises: nothing falls back to fewer devices."""
+    if device is not None and devices is not None:
+        raise ValueError("give device or devices, not both")
+    devs = device_mod.devices(devices) if devices is not None \
+        else [resolve(device)]
     jm = mjit.for_model(model)
     if jm is None:
         raise ValueError(f"no kernel model for {model!r}")
@@ -820,16 +870,34 @@ def analysis_batch(model, entries_list, max_steps: int | None = None,
                          "kernel encoding")
     if max_steps is None:
         max_steps = DEFAULT_MAX_STEPS
+    n = len(entries_list)
     n_pad = pad_size(max(len(es) for es in entries_list))
     n_state = state_width(jm, entries_list)
-    per = lanes_per_launch(jm, n_pad, n_state, cache_bits, _smem_max(dev))
-    packed = torch.from_numpy(_pack(entries_list, jm, n_pad)).to(dev)
-    msteps = torch.full((len(entries_list),), max_steps, dtype=torch.int32,
-                        device=dev)
-    small = torch.cat([
-        search(packed[a:a + per], msteps[a:a + per], jm, n_pad, n_state,
-               cache_bits)
-        for a in range(0, len(entries_list), per)], 1).cpu().numpy()
+    packed = _pack(entries_list, jm, n_pad)
+    msteps = np.full(n, max_steps, np.int32)
+    if len(devs) < 2 or n < len(devs):
+        small = torch.cat(_launch_all(packed, msteps, jm, n_pad, n_state,
+                                      cache_bits, devs[0]), 1)
+        return _results(model, entries_list, small.cpu().numpy())
+    _, row_to_lane = deal([len(es) for es in entries_list], len(devs))
+    rows = np.asarray(row_to_lane)
+    real = rows >= 0
+    # empty lanes: all-zero rows (n_completed 0) with a budget of 0, as
+    # wgl_tpu's zero-filled padding entries
+    dealt = np.zeros((len(rows), packed.shape[1]), np.int32)
+    dealt[real] = packed[rows[real]]
+    dealt_steps = np.zeros(len(rows), np.int32)
+    dealt_steps[real] = max_steps
+    per = len(rows) // len(devs)
+    # every chunk launched before any result is read back
+    parts = [_launch_all(dealt[d * per:(d + 1) * per],
+                         dealt_steps[d * per:(d + 1) * per], jm, n_pad,
+                         n_state, cache_bits, dev)
+             for d, dev in enumerate(devs)]
+    small_rows = np.concatenate(
+        [s.cpu().numpy() for part in parts for s in part], 1)
+    small = np.empty((small_rows.shape[0], n), np.int32)
+    small[:, rows[real]] = small_rows[:, real]
     return _results(model, entries_list, small)
 
 
@@ -848,3 +916,25 @@ def analysis(model, history, time_limit: float | None = None,
     (r,) = analysis_batch(model, [es], max_steps=max_steps,
                           cache_bits=cache_bits, device=device)
     return r
+
+
+def probe_mesh(devices=None) -> bool:
+    """One uneven batch dealt over `devices` (None: every CUDA device;
+    wgl_tpu.probe_mesh): 2*D + 1 CAS-register lanes of 1 to 3 writes,
+    so the chunks are padded with empty lanes; every lane must be
+    valid."""
+    from ..history import Op
+    from ..models import CASRegister
+
+    devs = device_mod.devices(devices)
+    ess = []
+    for lane in range(2 * len(devs) + 1):
+        h = []
+        for i in range(1 + lane % 3):
+            h.append(Op(0, "invoke", "write", i, time=2 * i, index=2 * i))
+            h.append(Op(0, "ok", "write", i, time=2 * i + 1,
+                        index=2 * i + 1))
+        ess.append(make_entries(h))
+    rs = analysis_batch(CASRegister(None), ess, max_steps=10_000,
+                        devices=devs)
+    return all(r.valid is True for r in rs)

@@ -39,6 +39,17 @@ undo rules are the same.
 dwarfs PASS1_CAP and there is more than one 128-lane block, every lane
 first runs under PASS1_CAP steps and only the survivors re-run (from
 scratch) with the full budget; their reported steps add both passes.
+
+Over several devices (`analysis_batch(..., devices=[...])`, the port of
+the JAX package's "blocks" mesh, `wgl_pallas_vec._launcher`'s shard_map
+branch): each pass lays its lanes out once, pads the blocks with empty
+lanes (all-zero columns: n = n_completed = 0, VALID before any step) to
+a multiple of the device count, and gives each device one contiguous
+column shard of n_blocks / D blocks — its own host-to-device copy and
+its own `search` launch, all launched before any result is read back.
+The result rows come back in shard order; a shard's best stacks are
+fetched only when one of its lanes refuted. The survivors of pass 1 are
+laid out and dealt again for pass 2. A device may repeat in the list.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..device import KernelError, resolve
 from ..history import Entries, entries as make_entries
 from ..models import jit as mjit
@@ -721,14 +733,20 @@ def search_plain(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
 
 
 def analysis_batch(model, entries_list, max_steps: int | None = None,
-                   device=None) -> list:
+                   device=None, devices=None) -> list:
     """Check a batch of independent histories (Ops or Entries), one lane
     each; returns one WGLResult per lane. Raises on ineligible
     models/sizes — callers probe with `batch_eligible` first.
 
     device None means CUDA (raising when absent); "cpu" runs the plain
-    version."""
-    dev = resolve(device)
+    version. `devices` (a list for `device.devices`, not with `device`)
+    shards every pass's blocks over those devices (module docstring)
+    when it names two or more; a one-device list is the single-device
+    path on that device. A shard that fails to launch raises."""
+    if device is not None and devices is not None:
+        raise ValueError("give device or devices, not both")
+    devs = device_mod.devices(devices) if devices is not None \
+        else [resolve(device)]
     jm = mjit.for_model(model)
     if jm is None:
         raise ValueError(f"no kernel model for {model!r}")
@@ -753,16 +771,32 @@ def analysis_batch(model, entries_list, max_steps: int | None = None,
 
     def launch(idx, cap):
         """One pass over the lanes `idx` (None = all) at step cap `cap`:
-        H2D copy of the packed buffer, one search, D2H of the results."""
+        the packed buffer's blocks padded to a multiple of the device
+        count and split in contiguous shards, one H2D copy and one
+        search a shard, then the D2H of the results (a shard's best
+        stacks only when one of its lanes refuted)."""
         buf, n_blocks = _layout(flats, idx, n_pad)
-        packed = torch.from_numpy(buf).to(dev)
-        msteps = torch.full((n_blocks * LANES,), cap, dtype=torch.int32,
-                            device=dev)
-        small, best = search(packed, msteps, jm, n_pad, n_state, cache_slots)
+        if n_blocks % len(devs):
+            pad_to = -(-n_blocks // len(devs)) * len(devs)
+            buf = np.pad(buf, ((0, 0), (0, (pad_to - n_blocks) * LANES)))
+            n_blocks = pad_to
+        width = n_blocks // len(devs) * LANES
+        outs = []
+        for k, d in enumerate(devs):
+            packed = torch.from_numpy(np.ascontiguousarray(
+                buf[:, k * width:(k + 1) * width])).to(d)
+            msteps = torch.full((width,), cap, dtype=torch.int32, device=d)
+            outs.append(search(packed, msteps, jm, n_pad, n_state,
+                               cache_slots))
+        smalls = [s.cpu().numpy() for s, _ in outs]
         w = n if idx is None else len(idx)
-        small = small.cpu().numpy()[:, :w]
-        best = best.cpu().numpy()[:, :w] if (small[0] == INVALID).any() \
-            else None
+        small = np.concatenate(smalls, 1)[:, :w]
+        best = None
+        if (small[0] == INVALID).any():
+            best = np.concatenate(
+                [b.cpu().numpy() if (sm[0] == INVALID).any()
+                 else np.zeros(b.shape, np.int32)
+                 for sm, (_, b) in zip(smalls, outs)], 1)[:, :w]
         return small, best
 
     def result(es, small, best, i, extra_steps=0):

@@ -17,9 +17,13 @@ each bucket of each kernel family once on the registry's device: K1
 pays no build, module load or shared-memory opt-in. A fresh manifest
 (every fingerprint field equal) makes the start ``warm``; a stale or
 torn one is rewritten. A kernel that fails to build or launch raises:
-the warm pass is not best-effort. The JAX package's mesh probes and its
-persisted calibration have no counterpart (the port's bars are
-constants, fingerprinted here).
+the warm pass is not best-effort. With two or more cards and the
+default device (`device.mesh`), the warm pass also deals K2 over every
+card at n_pad 32 (`search_mesh`) and shards K3's rows at pad 64
+(`closure_mesh`), and the fingerprint carries the card count; with one
+card none of this changes. The JAX package's persisted calibration has
+no counterpart (the port's bars are constants, fingerprinted here; the
+mesh crossover is measured in the process).
 """
 
 from __future__ import annotations
@@ -41,6 +45,18 @@ BUNDLE_FORMAT = 1
 #: of its launches takes)
 DEFAULT_BUCKETS = {"wgl_vec": [32, 64], "wgl_row": [32, 64],
                    "wgl_search": [32, 64], "closure": [32, 64]}
+#: ...and the mesh routes', warmed with two or more cards
+MESH_BUCKETS = {"search_mesh": [32], "closure_mesh": [64]}
+
+
+def buckets(device=None) -> dict:
+    """The warm pass's buckets: DEFAULT_BUCKETS, and MESH_BUCKETS when
+    `device.mesh(device)` lists two or more cards."""
+    from ..device import mesh
+
+    if mesh(device) is None:
+        return dict(DEFAULT_BUCKETS)
+    return {**DEFAULT_BUCKETS, **MESH_BUCKETS}
 
 
 def code_digest() -> str:
@@ -63,15 +79,19 @@ def fingerprint(device=None) -> dict:
 
     import torch
 
-    from ..device import describe
+    from ..device import describe, mesh
 
     lin = importlib.import_module("jepsen_tpu_torch.checker.linearizable")
     d = describe(device)
-    return {"format": BUNDLE_FORMAT, "code": code_digest(),
-            "torch": torch.__version__, "cuda": torch.version.cuda,
-            "device": d["name"], "capability": d["capability"],
-            "gpu_batch_min": sorted(
-                [list(k), v] for k, v in lin.GPU_BATCH_MIN.items())}
+    fp = {"format": BUNDLE_FORMAT, "code": code_digest(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": d["name"], "capability": d["capability"],
+          "gpu_batch_min": sorted(
+              [list(k), v] for k, v in lin.GPU_BATCH_MIN.items())}
+    cards = mesh(device)
+    if cards is not None:
+        fp["cards"] = len(cards)
+    return fp
 
 
 def _writes(n: int) -> list:
@@ -98,6 +118,36 @@ def _probe_search_bucket(mod, n_pad: int, device) -> None:
     if r.valid is not True:
         raise AssertionError(f"{mod.__name__} warm lane at n_pad {n_pad}: "
                              f"{r.valid}")
+
+
+def _probe_search_mesh_bucket(n_pad: int, devices) -> None:
+    """One K2 batch dealt over `devices` in the `n_pad` bucket: 2*D + 1
+    lanes (the chunks padded with empty lanes) of n_pad // 2 + 1
+    entries."""
+    from ..history import entries as make_entries
+    from ..models import CASRegister
+    from ..ops import wgl_search
+
+    ess = [make_entries(_writes(n_pad // 2 + 1))
+           for _ in range(2 * len(devices) + 1)]
+    rs = wgl_search.analysis_batch(CASRegister(None), ess, devices=devices)
+    if any(r.valid is not True for r in rs):
+        raise AssertionError(f"wgl_search mesh warm lanes at n_pad {n_pad}")
+
+
+def _probe_closure_mesh_bucket(pad: int, devices) -> None:
+    """One closure with its rows sharded over `devices` in the `pad`
+    bucket: the 2-cycle of _probe_closure_bucket."""
+    import numpy as np
+
+    from ..ops import closure
+
+    a = np.zeros((pad // 2 + 1,) * 2, dtype=bool)
+    a[0, 1] = a[1, 0] = True
+    (got,) = closure.reach_batch([a], devices=devices)
+    if not (got[0, 0] and got[1, 1]) or got.sum() != 4:
+        raise AssertionError(f"closure mesh warm bucket {pad}: wrong "
+                             "closure")
 
 
 def _probe_closure_bucket(pad: int, device) -> None:
@@ -143,10 +193,11 @@ class EngineBundle:
         """Build or load every kernel library and run each bucket once on
         the device. Returns {family: [buckets warmed]}; raises on the
         first kernel that fails to build or launch."""
-        from ..device import resolve
+        from ..device import mesh, resolve
         from ..ops import closure, wgl_native, wgl_row, wgl_search, wgl_vec
 
         dev = resolve(self.device)
+        cards = mesh(self.device)
         mods = {"wgl_vec": wgl_vec, "wgl_row": wgl_row,
                 "wgl_search": wgl_search}
         if dev.type == "cuda":
@@ -154,17 +205,22 @@ class EngineBundle:
                 mod.build(dev)
         wgl_native.build()
         warmed: dict = {}
-        for fam, pads in DEFAULT_BUCKETS.items():
+        for fam, pads in buckets(self.device).items():
             for pad in pads:
                 if fam == "closure":
                     _probe_closure_bucket(pad, self.device)
+                elif fam == "search_mesh":
+                    _probe_search_mesh_bucket(pad, cards)
+                elif fam == "closure_mesh":
+                    _probe_closure_mesh_bucket(pad, cards)
                 else:
                     _probe_search_bucket(mods[fam], pad, self.device)
                 warmed.setdefault(fam, []).append(pad)
         if dev.type == "cuda":
             import torch
 
-            torch.cuda.synchronize(dev)
+            for d in dict.fromkeys(cards or [dev]):
+                torch.cuda.synchronize(d)
         return warmed
 
     def ensure(self) -> dict:

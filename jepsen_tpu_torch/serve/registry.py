@@ -178,10 +178,15 @@ class EngineRegistry:
 
     def mesh_topology(self) -> dict:
         """The cards this daemon checks on — platform, count, names and
-        compute capabilities — for /healthz. Static per registry, so
-        computed once: /healthz is a liveness probe and must stay
-        cheap."""
+        compute capabilities — and whether the mesh routes are open
+        (`mesh_routes`: the registry checks on the default device and
+        `device.mesh` lists two or more cards, so "wgl_mesh" and
+        "closure_mesh" deal a batch that reaches their bars), for
+        /healthz. Static per registry, so computed once: /healthz is a
+        liveness probe and must stay cheap."""
         if self._topology is None:
+            from ..device import mesh
+
             if self.dev.type != "cuda":
                 self._topology = {"platform": "cpu", "devices": 0,
                                   "kinds": [], "capabilities": []}
@@ -196,6 +201,9 @@ class EngineRegistry:
                     "capabilities": sorted({
                         "%d.%d" % torch.cuda.get_device_capability(i)
                         for i in range(n)})}
+            is_open = mesh(self.device) is not None
+            self._topology["mesh_routes"] = {"wgl_mesh": is_open,
+                                             "closure_mesh": is_open}
         return self._topology
 
     def health(self) -> dict:

@@ -200,7 +200,7 @@ def test_fixpoint(emu, p):
     words0 = packed(p, 2, 1.5 / p, 70 + p)
     words = words0.clone()
     ran = closure._squaring(
-        words, p, closure.rounds_for(p),
+        [words], p, closure.rounds_for(p),
         lambda w, p: unpack_emu(emu, w, p),
         lambda prod, w, flag, out, operand: otp_emu(emu, prod, w, flag, out,
                                                     operand))

@@ -330,8 +330,9 @@ def test_port_imports_no_jax():
     "linear" and "competition", and cycle; the fuzz simulator and its
     scoring; the store, the analysis journal and the artifacts of both
     checkers, the fuzz loop; the online frontiers and a stream session,
-    the registry, the bundle's warm pass and the verdict daemon, and
-    every module of those) load neither jax
+    the registry, the bundle's warm pass and the verdict daemon; the
+    multi-device engines dealt over CPU entries, the mesh crossover's
+    bars and the doctor; and every module of those) load neither jax
     nor any module of the JAX package (jepsen_tpu_torch's own name shares
     the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -429,6 +430,23 @@ def test_port_imports_no_jax():
             assert q.wait_for_verdict(jid, timeout=120)["valid"] is False
             dm.draining.set()
             dm.join(timeout=10)
+        import numpy as np
+        from jepsen_tpu_torch import doctor
+        from jepsen_tpu_torch.checker import calibrate
+        from jepsen_tpu_torch.ops import closure
+        assert calibrate.mesh_min_n() >= 1 and calibrate.mesh_lanes_min() >= 1
+        assert wgl_search.probe_mesh(["cpu"] * 2)
+        assert closure.probe_mesh(["cpu"] * 2)
+        assert closure.reach_batch_mesh([np.eye(3, k=1, dtype=bool)],
+                                        devices=["cpu"] * 2)[0].sum() == 3
+        lanes = [register_history(n_process=2, n_ops=6, seed=s)
+                 for s in range(3)]
+        assert all(r.valid is True for r in wgl_vec.analysis_batch(
+            CASRegister(), lanes, devices=["cpu"] * 2))
+        r = cycle.checker(engine="mesh", devices=["cpu"] * 2).check(
+            {}, list_append.simulate(200, seed=1), {})
+        assert r["valid"] is False
+        assert doctor.diagnose(devices=["cpu"] * 2)["ok"]
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))

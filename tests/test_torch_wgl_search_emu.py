@@ -8,7 +8,8 @@ plan is reached by shrinking the budget the plan is made for: from the
 bitset alone in shared memory to every table there, the fingerprints in
 device memory at cache_bits 17, the 32-bit node ids and node map at
 n_pad 32768 and 65536, and fifo lanes whose keys share bitsets and
-counts but not live windows. Verdict, steps and depth
+counts but not live windows, and chunks padded with the deal's empty
+lanes. Verdict, steps and depth
 must equal `search_plain`'s bit for bit. The launch's plan check is held
 to refuse a plan it cannot run. On the card chip_smoke.py holds the
 compiled kernel to the same plain version."""
@@ -142,6 +143,36 @@ def test_fifo_live_windows(emu, cache_bits):
     at 8 slots, n_state 64."""
     ess = lanes_of("fifo-queue", 4, 24, seed=500, n_process=8)
     check(emu, "fifo-queue", ess, cache_bits, n_state=64, max_steps=2000)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_empty_lanes_of_a_deal(emu, name):
+    """A chunk the deal pads with empty lanes (all-zero rows: n_completed
+    0; budget 0 as `analysis_batch` gives them, or a full one): each
+    reads VALID after no step at depth 0, and the real lanes beside them
+    read what they read without them, bit for bit the plain version."""
+    ess = lanes_of(name, 3, 16, seed=700)
+    jm = tjit.BY_NAME[name]
+    n_pad = ws.pad_size(max(len(es) for es in ess))
+    n_state = ws.state_width(jm, ess)
+    alone = torch.from_numpy(ws._pack(ess, jm, n_pad))
+    packed = torch.zeros((5, alone.shape[1]), dtype=torch.int32)
+    packed[[0, 2, 3]] = alone
+    plan = ws._smem_plan(jm, n_pad, n_state, 13)
+    lay = ws._layout(jm, n_pad, n_state, 13)
+    for empty_budget in (0, 1000):
+        msteps = torch.tensor([1000, empty_budget, 1000, 1000, empty_budget],
+                              dtype=torch.int32)
+        small = torch.full((3, 5), -7, dtype=torch.int32)
+        scratch = torch.full((5 * lay.words,), 0x5A5A5A5A, dtype=torch.int32)
+        assert ws._launch(emu, packed, msteps, small, scratch, jm, n_pad,
+                          n_state, 13, plan, lay) == 0
+        want = ws.search_plain(packed, msteps, jm, n_pad, n_state, 13)
+        assert torch.equal(small, want), (small.tolist(), want.tolist())
+        assert small[:, [1, 4]].tolist() == [[1, 1], [0, 0], [0, 0]]
+        assert torch.equal(small[:, [0, 2, 3]], ws.search_plain(
+            alone, torch.full((3,), 1000, dtype=torch.int32), jm, n_pad,
+            n_state, 13))
 
 
 def test_launch_refuses_bad_plans(emu):
