@@ -2,7 +2,7 @@
 """Chip smoke test of jepsen_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
-        [--only crossover|closure|fuzz|linear|store|online|serve|mesh]
+        [--only crossover|closure|fuzz|linear|store|online|serve|mesh|checkers]
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -101,7 +101,26 @@ register cell's 4096 lanes, the cycle checker's `closure_mesh` route on
 cycle_append and cycle_append_20k's bucket fixpoints dealt over K3's
 row blocks, and `doctor.diagnose(devices=["cuda:0"] * 2)`: every dealt
 result equal to one device's, every shard launch held bit for bit
-against its plain version (`--only mesh`). Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
+against its plain version (`--only mesh`). Then the `checkers` phase,
+the checkers that reach the closure kernels through the cycle checker,
+each on a history from a seeded maker here (5 clients, 8 % of
+completions :info): adya's G2 checker on 8,192 keys of insert pairs
+(128 planted double inserts), long_fork's on 4,096 keys (a fork planted
+in every 64th group), causal's (the causal replay and the value-order
+cycle checker composed, a key a thread) on 1,024 keys (16 stale reads),
+each dict equal to the one on device="cpu" (and adya's counts and
+long_fork's validity to the legacy paths'), causal's first 64 keys
+again under independent.checker(processes=2) in spawned workers (equal
+to the thread path); the bank-setfull histories through the bank and
+set-full checkers on the host; `single_test_cmd(...)["analyze"]` over
+two stores (the register cell's keyed store written by
+IndependentChecker, and one 3,000-invocation register history analysed
+with --checker linearizable), exit codes and results files equal to the
+runs that wrote them; and `python -m jepsen_tpu_torch fuzz` in a
+subprocess, the command in process and with --device cpu, corpus files
+byte-identical; every K3 and K4 launch held against its plain version,
+and an empty kernel's launch timed as the launch floor (`--only
+checkers`). Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
 wgl_search also the tables in shared memory, scratch bytes and the share
@@ -2702,16 +2721,13 @@ def store_cycle(args, kernels, ck, td: str) -> dict:
             "buckets_replayed": len(buckets)}
 
 
-def store_fuzz_loop(args, kernels, ck, sim, td: str) -> dict:
-    """FuzzLoop(clusters=256, seed) on the card for 4 rounds (one main
-    path: 4 sim launches, each round's batch held against sim_plain, the
-    closure buckets replayed), and the same loop with engine="host" and
-    score_engine="host": corpus.json and anomalies.jsonl byte-identical;
-    the wall of each round."""
+@contextlib.contextmanager
+def recorded_sim_batches():
+    """The fuzz loop's simulate_batch, recording each batch it is given
+    ((scheds, wseeds, spec)) into the list this yields."""
     import numpy as np
 
-    from jepsen_tpu_torch.fuzz import loop, sim as sim_mod
-    from jepsen_tpu_torch.fuzz.schedule import canonicalize
+    from jepsen_tpu_torch.fuzz import loop
 
     batches: list = []
     real = loop.simulate_batch
@@ -2719,6 +2735,50 @@ def store_fuzz_loop(args, kernels, ck, sim, td: str) -> dict:
     def recorded(scheds, wseeds, spec, **kw):
         batches.append((np.asarray(scheds), np.asarray(wseeds), spec))
         return real(scheds, wseeds, spec, **kw)
+
+    loop.simulate_batch = recorded
+    try:
+        yield batches
+    finally:
+        loop.simulate_batch = real
+
+
+def hold_sim_batches(sim, batches, cell: str, seen, what: str) -> list:
+    """Each recorded fuzz-loop batch canonicalized as the loop launches
+    it and held against sim_plain (`sim_vs_plain`); the cell's row entry,
+    and the sim row's figures from the first batch if no earlier phase
+    set them. Returns the per-batch figures."""
+    import numpy as np
+
+    from jepsen_tpu_torch.fuzz import sim as sim_mod
+    from jepsen_tpu_torch.fuzz.schedule import canonicalize
+
+    held_rounds = []
+    for scheds, wseeds, spec in batches:
+        s = np.stack([canonicalize(x, spec) for x in scheds])
+        s, w = sim_mod._as_batch(s, wseeds, spec)
+        figs = sim_vs_plain(sim, s, w.astype(np.int64), spec)
+        held_rounds.append({k: figs[k] for k in (
+            "clusters", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "share", "matches_plain")})
+    sim.cells[cell] = {"launches": seen["sim"][0],
+                       "path_kernel_ms": seen["sim"][1],
+                       "rounds": held_rounds}
+    if sim.ms is None:
+        first = held_rounds[0]
+        sim.ms, sim.plain_ms = first["kernel_ms"], first["plain_ms"]
+        sim.bound_ms, sim.bound_by = first["bound_ms"], first["bound_by"]
+        sim.shape = f"[{first['clusters']}, 8, 6] schedules: {what}"
+    return held_rounds
+
+
+def store_fuzz_loop(args, kernels, ck, sim, td: str) -> dict:
+    """FuzzLoop(clusters=256, seed) on the card for 4 rounds (one main
+    path: 4 sim launches, each round's batch held against sim_plain, the
+    closure buckets replayed), and the same loop with engine="host" and
+    score_engine="host": corpus.json and anomalies.jsonl byte-identical;
+    the wall of each round."""
+    from jepsen_tpu_torch.fuzz import loop
 
     def rounds(lp) -> list:
         walls = []
@@ -2730,11 +2790,8 @@ def store_fuzz_loop(args, kernels, ck, sim, td: str) -> dict:
 
     card = loop.FuzzLoop(os.path.join(td, "card"),
                          clusters=STORE_FUZZ_CLUSTERS, seed=args.seed)
-    loop.simulate_batch = recorded
-    try:
+    with recorded_sim_batches() as batches:
         card_walls, wall, seen = run_path(kernels, lambda: rounds(card))
-    finally:
-        loop.simulate_batch = real
     host = loop.FuzzLoop(os.path.join(td, "host"),
                          clusters=STORE_FUZZ_CLUSTERS,
                          seed=args.seed, engine="host", score_engine="host")
@@ -2744,25 +2801,10 @@ def store_fuzz_loop(args, kernels, ck, sim, td: str) -> dict:
                 open(os.path.join(td, "host", f), "rb") as b:
             assert a.read() == b.read(), f"card {f} != host {f}"
     assert seen["sim"][0] == 4, seen["sim"][0]
-    held_rounds = []
-    for scheds, wseeds, spec in batches:
-        s = np.stack([canonicalize(x, spec) for x in scheds])
-        s, w = sim_mod._as_batch(s, wseeds, spec)
-        figs = sim_vs_plain(sim, s, w.astype(np.int64), spec)
-        held_rounds.append({k: figs[k] for k in (
-            "clusters", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-            "share", "matches_plain")})
+    held_rounds = hold_sim_batches(sim, batches, "store_fuzz_loop", seen,
+                                   "the fuzz loop's first round")
     buckets = replay_closure(ck, seen["unpack"][2])
     closure_cell(ck, "store_fuzz_loop", seen, buckets)
-    sim.cells["store_fuzz_loop"] = {"launches": seen["sim"][0],
-                                    "path_kernel_ms": seen["sim"][1],
-                                    "rounds": held_rounds}
-    if sim.ms is None:
-        first = held_rounds[0]
-        sim.ms, sim.plain_ms = first["kernel_ms"], first["plain_ms"]
-        sim.bound_ms, sim.bound_by = first["bound_ms"], first["bound_by"]
-        sim.shape = (f"[{first['clusters']}, 8, 6] schedules: the fuzz "
-                     "loop's first round")
     return {"clusters": STORE_FUZZ_CLUSTERS, "rounds": 4, "card_round_s": card_walls,
             "host_round_s": host_walls, "card_wall_s": wall,
             "launches": {k: v[0] for k, v in seen.items() if v[0]},
@@ -3592,6 +3634,658 @@ def phase_mesh(args, kernels, meshk) -> None:
     emit({"phase": "mesh", "wall_s": time.perf_counter() - t0})
 
 
+# -- the checkers that reach K3 through the cycle checker, the host
+# checkers, analyze and fuzz ---------------------------------------------
+
+# clients of every checker history, and the share of completions :info
+CHECKER_CLIENTS = 5
+CHECKER_INFO = 0.08
+# every PLANT_EVERY-th key (adya, causal) or group (long_fork) is bad
+PLANT_EVERY = 64
+ADYA_KEYS = 8192
+LONG_FORK_KEYS = 4096
+CAUSAL_KEYS = 1024
+# keys of causal's history checked by spawned workers, and the workers
+CAUSAL_PROCESS_KEYS = 64
+CAUSAL_WORKERS = 2
+
+
+def adya_history(n_keys: int, seed: int) -> list:
+    """Insert pairs shaped like the JAX package's g2_gen (adya.py:32-54):
+    per key two inserts by two of CHECKER_CLIENTS clients, both in
+    flight at once, one into table b ((None, id)) and one into table a
+    ((id, None)), ids unique over the history; one commits and the other
+    fails, but on every PLANT_EVERY-th key both commit (a G2). Outside
+    the planted keys CHECKER_INFO of the completions are :info. Values
+    are KVTuple(key, (a_id, b_id))."""
+    import random
+
+    from jepsen_tpu_torch.history import Op, index
+    from jepsen_tpu_torch.independent import tuple_
+
+    rng = random.Random(seed)
+    out = []
+    for k in range(n_keys):
+        procs = rng.sample(range(CHECKER_CLIENTS), 2)
+        vals = [tuple_(k, (None, 2 * k + 1)), tuple_(k, (2 * k + 2, None))]
+        winner = rng.randrange(2)
+        planted = k % PLANT_EVERY == 0
+        out += [Op(p, "invoke", "insert", v) for p, v in zip(procs, vals)]
+        for i in rng.sample(range(2), 2):
+            typ = "ok" if planted or i == winner else "fail"
+            if not planted and rng.random() < CHECKER_INFO:
+                typ = "info"
+            out.append(Op(procs[i], typ, "insert", vals[i]))
+    return [o.with_(time=o.index) for o in index(out)]
+
+
+def long_fork_history(n_keys: int, seed: int, n: int = 2) -> list:
+    """Ops shaped like the JAX package's LongForkGen (long_fork.py:66-103)
+    over CHECKER_CLIENTS clients: a client writes the next key ([["w", k,
+    1]]), then reads that key's group (each of its n keys, shuffled);
+    with no read-back due, it first reads, with probability 0.5, a group
+    another client has in flight. Clients interleave at random against
+    a serializable store: a write takes effect as it completes, and a
+    read sees the writes completed before it (no fork). CHECKER_INFO of
+    the completions are :info (such a write never takes effect), but
+    not the writes of every PLANT_EVERY-th group, which gets a fork
+    after the run: two reads, each seeing one of its first two writes
+    and not the other."""
+    import random
+
+    from jepsen_tpu_torch.history import Op, index
+
+    rng = random.Random(seed)
+    applied: set = set()
+    pending: dict = {}   # client -> its open op
+    mine: dict = {}      # client -> key whose group it reads back next
+    done: set = set()
+    nxt = 0
+    out = []
+
+    def group_read(k):
+        lo = k - k % n
+        ks = list(range(lo, lo + n))
+        rng.shuffle(ks)
+        return [["r", x, None] for x in ks]
+
+    def planted_key(k):
+        return (k // n) % PLANT_EVERY == 0
+
+    while len(done) < CHECKER_CLIENTS:
+        c = rng.choice([x for x in range(CHECKER_CLIENTS) if x not in done])
+        if c in pending:
+            o = pending.pop(c)
+            info = rng.random() < CHECKER_INFO
+            if o.f == "write":
+                k = o.value[0][1]
+                if info and not planted_key(k):
+                    out.append(o.with_(type="info"))
+                    continue
+                applied.add(k)
+                out.append(o.with_(type="ok"))
+            elif info:
+                out.append(o.with_(type="info"))
+            else:
+                out.append(o.with_(type="ok", value=[
+                    ["r", x, 1 if x in applied else None]
+                    for _, x, _ in o.value]))
+            continue
+        if mine.get(c) is not None:
+            o = Op(c, "invoke", "read", group_read(mine.pop(c)))
+        else:
+            active = [k for x, k in mine.items() if k is not None]
+            if active and rng.random() < 0.5:
+                o = Op(c, "invoke", "read", group_read(rng.choice(active)))
+            elif nxt < n_keys:
+                mine[c] = nxt
+                o = Op(c, "invoke", "write", [["w", nxt, 1]])
+                nxt += 1
+            else:
+                done.add(c)
+                continue
+        pending[c] = o
+        out.append(o)
+    for g in range(0, n_keys // n, PLANT_EVERY):
+        a, b = g * n, g * n + 1
+        for seen in (a, b):
+            c = rng.randrange(CHECKER_CLIENTS)
+            txn = group_read(a)
+            out.append(Op(c, "invoke", "read", txn))
+            out.append(Op(c, "ok", "read", [
+                ["r", x, 1 if x == seen else None] for _, x, _ in txn]))
+    return [o.with_(time=o.index) for o in index(out)]
+
+
+def causal_history(n_keys: int, seed: int) -> list:
+    """Ops shaped like the JAX package's causal generator
+    (causal.py:107-128): one worker a key runs ri w1 r w2 r (read-init,
+    write 1, read, write 2, read) against a causally consistent
+    register, CHECKER_CLIENTS workers at a time, interleaved at random,
+    each op carrying its site position and the link to the last position
+    its worker saw ("init" for a key's first op). CHECKER_INFO of the
+    reads complete :info (an :info write would break the counter order
+    the reference's model folds over, so writes complete ok). On every
+    PLANT_EVERY-th key the last read is stale, and ok: 1 after w2.
+    Values are KVTuple(key, value)."""
+    import random
+
+    from jepsen_tpu_torch.history import Op, index
+    from jepsen_tpu_torch.independent import tuple_
+
+    rng = random.Random(seed)
+    script = [("read-init", None, 0), ("write", 1, 1), ("read", None, 1),
+              ("write", 2, 2), ("read", None, 2)]
+    work: dict = {}   # worker -> [key, step, link, open op or None]
+    nxt = 0
+    pos = 0
+    out = []
+    while nxt < n_keys or work:
+        free = [w for w in range(CHECKER_CLIENTS) if w not in work]
+        if free and nxt < n_keys:
+            work[rng.choice(free)] = [nxt, 0, "init", None]
+            nxt += 1
+            continue
+        w = rng.choice(sorted(work))
+        st = work[w]
+        k, step, link, o = st
+        f, v_in, v_out = script[step]
+        if o is None:
+            pos += 1
+            st[3] = Op(w, "invoke", f, tuple_(k, v_in),
+                       extra={"position": pos, "link": link})
+            out.append(st[3])
+            continue
+        stale = step == 4 and k % PLANT_EVERY == 0
+        if stale:
+            v_out = 1
+        if f != "write" and not stale and rng.random() < CHECKER_INFO:
+            out.append(o.with_(type="info"))
+        else:
+            out.append(o.with_(type="ok", value=tuple_(k, v_out)))
+            st[2] = o.extra["position"]
+        st[1], st[3] = step + 1, None
+        if st[1] == len(script):
+            del work[w]
+    return [o.with_(time=o.index) for o in index(out)]
+
+
+def bank_setfull_histories() -> tuple:
+    """The JAX package's bank-setfull config (bench.py:403-465): 6,000
+    bank ops over 8 accounts (30 % whole-state reads, else transfers that
+    fail when the balance is short) with its test map, and 5,000
+    set-full adds by 5 clients with a whole-set read every 50."""
+    import random
+
+    from jepsen_tpu_torch.history import Op
+
+    rng = random.Random(3)
+    accounts = list(range(8))
+    balances = {a: 10 for a in accounts}
+    hist = []
+    t = 0
+    for i in range(6000):
+        p = i % 5
+        if rng.random() < 0.3:
+            hist.append(Op(p, "invoke", "read", None, time=t, index=t))
+            t += 1
+            hist.append(Op(p, "ok", "read", dict(balances), time=t, index=t))
+        else:
+            frm, to = rng.sample(accounts, 2)
+            amt = 1 + rng.randrange(5)
+            v = {"from": frm, "to": to, "amount": amt}
+            hist.append(Op(p, "invoke", "transfer", v, time=t, index=t))
+            t += 1
+            if balances[frm] - amt >= 0:
+                balances[frm] -= amt
+                balances[to] += amt
+                hist.append(Op(p, "ok", "transfer", v, time=t, index=t))
+            else:
+                hist.append(Op(p, "fail", "transfer", v, time=t, index=t))
+        t += 1
+    test_map = {"accounts": accounts, "total_amount": 80, "max_transfer": 5}
+    sf_hist = []
+    present = []
+    t = 0
+    for i in range(5000):
+        p = i % 5
+        sf_hist.append(Op(p, "invoke", "add", i, time=t, index=t))
+        t += 1
+        present.append(i)
+        sf_hist.append(Op(p, "ok", "add", i, time=t, index=t))
+        t += 1
+        if i % 50 == 49:
+            sf_hist.append(Op(p, "invoke", "read", None, time=t, index=t))
+            t += 1
+            sf_hist.append(Op(p, "ok", "read", list(present), time=t,
+                              index=t))
+            t += 1
+    return hist, test_map, sf_hist
+
+
+# closure_word buckets of a cell replayed through replay_closure (its
+# median of SPIN_REPS launches, the plain version's time, the floor); the
+# others are timed once each behind the spin (`replay_closures`)
+TIMED_WORD_BUCKETS = 4
+# the analyze cell's single register history (main_long's keys' size:
+# past wgl_vec's 1024 entries, so wgl_row)
+ANALYZE_SINGLE_INVOCATIONS = 3000
+FUZZ_CMD_ROUNDS = 2
+FUZZ_CMD_CLUSTERS = 256
+K3_NAMES = ("closure_word", "unpack", "matmul", "or_threshold_pack")
+
+
+def empty_launch_ms(reps: int = SPIN_REPS) -> float:
+    """Median ms of an empty kernel's launch on the card (the spin with 0
+    cycles, torch.cuda._sleep(0)), each timed with CUDA events behind a
+    SPIN_CYCLES spin: the launch floor of any kernel."""
+    import torch
+
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(0)
+        b.record()
+        times.append((a, b))
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in times[1:])
+    return ms[len(ms) // 2]
+
+
+def replay_closures(ck, captured) -> dict:
+    """Every bucket fixpoint of a checkers cell replayed bit for bit: the
+    first TIMED_WORD_BUCKETS one-word buckets and every wider bucket
+    through `replay_closure` (each launch's median ms behind the spin,
+    round by round, the plain versions timed, the bound), the other
+    one-word buckets through closure_word timed once behind the spin and
+    held against closure_word_plain on the same words (closed words and
+    rounds). Returns the (p, matrices) of every bucket and per kernel
+    its launches replayed, ms summed over them, and the plain ms and
+    bound of the launches replay_closure timed."""
+    cl = ck["unpack"].mod
+    word = [c for c in captured if c[1] == cl.MIN_PAD]
+    rows = replay_closure(ck, word[:TIMED_WORD_BUCKETS] + [
+        c for c in captured if c[1] != cl.MIN_PAD])
+    per: dict = {}
+    for r in rows:
+        for name in K3_NAMES:
+            if name in r:
+                f = per.setdefault(name, {"launches": 0, "ms": 0.0,
+                                          "plain_ms": 0.0, "bound_ms": 0.0,
+                                          "bound_by": r[name]["bound_by"]})
+                f["launches"] += r[name]["launches"]
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    f[key] += r[name][key] or 0.0
+    for words0, p, rounds in word[TIMED_WORD_BUCKETS:]:
+        w = words0.view(-1, 32)
+        ms, got = spin_ms(cl, lambda: cl.closure_word(w, rounds),
+                          "closure_word", reps=1)
+        held(ck["closure_word"], f"p {p}", got,
+             cl.closure_word_plain(w, rounds))
+        f = per["closure_word"]
+        f["launches"] += 1
+        f["ms"] += ms
+        f["plain_not_timed"] = f.get("plain_not_timed", 0) + 1
+    return {"buckets": [(c[1], int(c[0].shape[0])) for c in captured],
+            "per_kernel": per}
+
+
+def checkers_cell(ck, cell, seen, closures, wall) -> dict:
+    """Fold a checkers cell's closure launches into the K3 rows (its
+    launches, the replayed figures; a row no earlier phase timed takes
+    them) and return its line's figures, the device's idle share among
+    them."""
+    per = closures["per_kernel"]
+    for name, k in ck.items():
+        launched = seen[name][0]
+        if not launched:
+            continue
+        f = per[name]
+        assert f["launches"] == launched, (cell, name, f, launched)
+        k.cells[cell] = {**f, "path_kernel_ms": seen[name][1]}
+        if k.ms is None:
+            k.ms, k.bound_ms, k.bound_by = f["ms"], f["bound_ms"], \
+                f["bound_by"]
+            k.plain_ms = None if k.library else f["plain_ms"]
+            k.shape = f"{cell}: {launched} launches"
+    words = [b for p, b in closures["buckets"] if p == 32]
+    device_ms = sum(f["ms"] for f in per.values())
+    return {"launches": {k: v[0] for k, v in seen.items() if v[0]},
+            "closure_buckets": len(closures["buckets"]),
+            "closure_word_batches": {
+                "launches": len(words), "matrices": sum(words),
+                "min": min(words, default=0), "max": max(words, default=0)},
+            "wider_buckets": [(p, b) for p, b in closures["buckets"]
+                              if p != 32],
+            "k3": per, "device_ms": device_ms,
+            "device_idle": 1 - device_ms / 1000 / wall,
+            "matches_plain": True}
+
+
+def checkers_adya(args, kernels, ck) -> dict:
+    """adya_history(ADYA_KEYS) through `adya.g2_checker()` on the card:
+    invalid, one illegal key and one G2 a planted key; the whole dict
+    the same checker's on device="cpu"; the counts legacy=True's."""
+    from jepsen_tpu_torch.workloads import adya
+
+    h = adya_history(ADYA_KEYS, args.seed)
+    res, wall, seen = run_path(kernels,
+                               lambda: adya.g2_checker().check({}, h, {}))
+    planted = ADYA_KEYS // PLANT_EVERY
+    assert res["valid"] is False and res["illegal-count"] == planted, res
+    assert res["anomaly-types"] == ["G2"], res["anomaly-types"]
+    t0 = time.perf_counter()
+    cpu = adya.g2_checker(device="cpu").check({}, h, {})
+    cpu_s = time.perf_counter() - t0
+    assert normalise(res) == normalise(cpu), "card != cpu"
+    t0 = time.perf_counter()
+    legacy = adya.g2_checker(legacy=True).check({}, h, {})
+    legacy_s = time.perf_counter() - t0
+    counts = ("key-count", "legal-count", "illegal-count", "illegal")
+    assert {k: legacy[k] for k in counts} == {k: res[k] for k in counts}
+    closures = replay_closures(ck, seen["unpack"][2])
+    return {"keys": ADYA_KEYS, "ops": len(h), "wall_s": wall,
+            "cpu_s": cpu_s, "legacy_s": legacy_s,
+            "illegal-count": res["illegal-count"],
+            "anomaly-types": res["anomaly-types"],
+            **checkers_cell(ck, "checkers_adya_g2", seen, closures, wall)}
+
+
+def checkers_long_fork(args, kernels, ck) -> dict:
+    """long_fork_history(LONG_FORK_KEYS) through `long_fork.checker(2)`
+    on the card: invalid with forks; the dict the same checker's on
+    device="cpu"; its validity legacy=True's."""
+    from jepsen_tpu_torch.workloads import long_fork
+
+    h = long_fork_history(LONG_FORK_KEYS, args.seed)
+    res, wall, seen = run_path(
+        kernels, lambda: long_fork.checker(2).check({}, h, {}))
+    assert res["valid"] is False and res["forks"], res["valid"]
+    t0 = time.perf_counter()
+    cpu = long_fork.checker(2, device="cpu").check({}, h, {})
+    cpu_s = time.perf_counter() - t0
+    assert normalise(res) == normalise(cpu), "card != cpu"
+    t0 = time.perf_counter()
+    legacy = long_fork.checker(2, legacy=True).check({}, h, {})
+    legacy_s = time.perf_counter() - t0
+    assert legacy["valid"] is res["valid"], legacy["valid"]
+    closures = replay_closures(ck, seen["unpack"][2])
+    return {"keys": LONG_FORK_KEYS, "groups": LONG_FORK_KEYS // 2,
+            "ops": len(h), "wall_s": wall, "cpu_s": cpu_s,
+            "legacy_s": legacy_s, "forks": len(res["forks"]),
+            "legacy_forks": len(legacy["forks"]),
+            "anomaly-types": res["anomaly-types"],
+            **{k: res[k] for k in ("reads-count", "early-read-count",
+                                   "late-read-count")},
+            **checkers_cell(ck, "checkers_long_fork", seen, closures, wall)}
+
+
+def checkers_causal(args, kernels, ck, h) -> tuple:
+    """causal_history(CAUSAL_KEYS) through `causal.checker()` on the card
+    (a key a thread, the causal replay and the cycle checker composed
+    in two more): the planted keys fail; the dict the one on
+    device="cpu". Returns the line and the card's dict."""
+    from jepsen_tpu_torch.workloads import causal
+
+    res, wall, seen = run_path(
+        kernels, lambda: causal.checker().check({}, h, {}))
+    want = list(range(0, CAUSAL_KEYS, PLANT_EVERY))
+    assert sorted(res["failures"]) == want, res["failures"]
+    t0 = time.perf_counter()
+    cpu = causal.checker(device="cpu").check({}, h, {})
+    cpu_s = time.perf_counter() - t0
+    assert normalise(res) == normalise(cpu), "card != cpu"
+    closures = replay_closures(ck, seen["unpack"][2])
+    k3 = sum(seen[k][0] for k in ("closure_word", "unpack",
+                                  "or_threshold_pack"))
+    return {"keys": CAUSAL_KEYS, "ops": len(h), "wall_s": wall,
+            "cpu_s": cpu_s, "failures": len(res["failures"]),
+            "k3_launches_a_key": k3 / CAUSAL_KEYS,
+            **checkers_cell(ck, "checkers_causal", seen, closures, wall)}
+
+
+def checkers_causal_processes(args, kernels, ck, h) -> dict:
+    """The first CAUSAL_PROCESS_KEYS keys of the causal history under
+    independent.checker(causal's composed checker, processes=
+    CAUSAL_WORKERS): spawned workers, each opening its own CUDA context
+    (their device None resolved there), against the thread path on the
+    same keys (a main path of its own, replayed). This process launches
+    nothing on the process path; the workers' launches cannot be
+    counted from here."""
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.workloads import causal
+
+    sub = [o for o in h if not independent.is_tuple(o.value)
+           or o.value.key < CAUSAL_PROCESS_KEYS]
+    threads = causal.checker()
+    want, t_wall, t_seen = run_path(kernels,
+                                    lambda: threads.check({}, sub, {}))
+    closures = replay_closures(ck, t_seen["unpack"][2])
+    checkers_cell(ck, "checkers_causal_threads", t_seen, closures, t_wall)
+    procs = independent.checker(threads.checker, processes=CAUSAL_WORKERS)
+    got, wall, seen = run_path(kernels, lambda: procs.check({}, sub, {}))
+    assert not any(v[0] for v in seen.values()), seen
+    assert got == want, "processes != threads"
+    return {"keys": CAUSAL_PROCESS_KEYS, "workers": CAUSAL_WORKERS,
+            "wall_s": wall, "threads_wall_s": t_wall,
+            "threads_launches": {k: v[0] for k, v in t_seen.items() if v[0]},
+            "threads_closure_buckets": len(closures["buckets"]),
+            "failures": len(got["failures"]), "equal_threads": True}
+
+
+def checkers_bank_setfull(kernels) -> dict:
+    """The bank-setfull config through bank.checker() and set_full() on
+    the host: both valid, nothing launched."""
+    from jepsen_tpu_torch.checker import set_full
+    from jepsen_tpu_torch.workloads import bank
+
+    hist, test_map, sf = bank_setfull_histories()
+    (b, f), wall, seen = run_path(kernels, lambda: (
+        bank.checker().check(test_map, hist, {}),
+        set_full().check({}, sf, {})))
+    assert b["valid"] is True and f["valid"] is True, (b["valid"],
+                                                       f["valid"])
+    assert not any(v[0] for v in seen.values()), seen
+    return {"ops": len(hist) + len(sf), "wall_s": wall,
+            "ops_per_s": (len(hist) + len(sf)) / wall,
+            "bank_reads": b["read-count"], "set_stable": f["stable_count"]}
+
+
+class Rekeyed:
+    """A suite's checker for a stored keyed history: history.jsonl keeps
+    a KVTuple value as its [key, value] list, so the ops are keyed again
+    before the independent checker sees them (as the serving registry
+    rehydrates a submitted history). The store's own format is left as
+    the JAX package writes it."""
+
+    def __init__(self, checker):
+        self.checker = checker
+
+    def check(self, test, history, opts=None):
+        from jepsen_tpu_torch.independent import tuple_
+
+        return self.checker.check(test, [
+            o.with_(value=tuple_(*o.value))
+            if isinstance(o.value, list) and len(o.value) == 2 else o
+            for o in history], opts)
+
+
+def results_files(root) -> dict:
+    """Every results file under a store: relative path -> bytes."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.startswith("results."):
+                with open(os.path.join(d, f), "rb") as fh:
+                    out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def analyze_store(kernels, td, name, hist, chk, argv, test_fn) -> dict:
+    """The run that writes a store (chk.check with the store dir, then
+    the history, test and results saved as the runner saves them) and
+    `single_test_cmd(test_fn)["analyze"]` over it on the card, a main
+    path each: equal exit codes and results files (results.json and
+    every results.edn), every launch of both replayed."""
+    import datetime
+
+    from jepsen_tpu_torch import cli, store
+
+    test = {"name": name, "store_dir": td, "history": hist,
+            "start_time": store.time_str(datetime.datetime.now())}
+    res, w1, s1 = run_path(kernels, lambda: chk.check(test, hist, {}))
+    test["results"] = res
+    store.save_1(test)
+    store.save_2(test)
+    rc1 = 1 if res["valid"] is False else 0
+    before = results_files(td)
+    rc2, w2, s2 = run_path(kernels, lambda: cli.run_cli(
+        cli.single_test_cmd(test_fn),
+        ["analyze", "--store-dir", td, "--device", "cuda", *argv]))
+    assert rc2 == rc1, (rc1, rc2)
+    after = results_files(td)
+    assert after == before, sorted(
+        k for k in after if after[k] != before.get(k))
+    out = {}
+    for label, seen in (("run", s1), ("analyze", s2)):
+        passes = replay(kernels, seen, f"checkers_analyze_{name}_{label}")
+        out[label] = {"launches": {k: v[0] for k, v in seen.items()
+                                   if v[0]},
+                      "kernel_vs_plain": {k: len(v) for k, v in
+                                          passes.items() if v}}
+    return {"exit": rc1, "results_files": len(after), "run_wall_s": w1,
+            "analyze_wall_s": w2, **out}
+
+
+def checkers_analyze(args, kernels) -> dict:
+    """`analyze` on two stores on the card: the register cell (4096 keys
+    x 64 invocations, every 8th key bad) written by the port's
+    IndependentChecker with every bar at 1 (K1), analysed with the
+    suite's checker (Rekeyed: `--checker` would replace the per-key
+    checker with one linearizable over the whole keyed history, in both
+    packages); and one register history of ANALYZE_SINGLE_INVOCATIONS
+    invocations written by linearizable() (K5), analysed with
+    `--checker linearizable`."""
+    import tempfile
+
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.linearizable import linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.workloads.register import (keyed_history,
+                                                     register_history)
+
+    out = {}
+    with card_bars(1), tempfile.TemporaryDirectory(
+            prefix="chip_smoke_analyze_") as td:
+        hist = keyed_history(STORE_KEYS, STORE_INVOCATIONS, n_process=5,
+                             bad_every=8, seed=args.seed)
+        out["register"] = analyze_store(
+            kernels, os.path.join(td, "keyed"), "checkers_analyze", hist,
+            independent.checker(linearizable(CASRegister(),
+                                             algorithm="auto")), [],
+            lambda o: {"name": "checkers_analyze", "checker": Rekeyed(
+                independent.checker(linearizable(
+                    CASRegister(), algorithm="auto",
+                    device=o["device"])))})
+        hist = register_history(n_process=5, n_ops=ANALYZE_SINGLE_INVOCATIONS,
+                                seed=args.seed)
+        out["single"] = analyze_store(
+            kernels, os.path.join(td, "single"), "checkers_analyze_single",
+            hist, linearizable(CASRegister()), ["--checker", "linearizable"],
+            lambda o: {"name": "checkers_analyze_single",
+                       "model": CASRegister()})
+    assert out["register"]["exit"] == 1 and out["single"]["exit"] == 0
+    assert out["register"]["analyze"]["launches"].get("wgl_vec")
+    assert out["single"]["analyze"]["launches"].get("wgl_row")
+    return out
+
+
+def checkers_fuzz_cmd(args, kernels, ck, sim) -> dict:
+    """`python -m jepsen_tpu_torch fuzz` in a subprocess on the card, the
+    command in this process on the card (a main path: every sim launch
+    held against sim_plain behind the spin, every closure bucket
+    replayed) and with --device cpu: exit 0 each, corpus.json and
+    anomalies.jsonl byte-identical."""
+    import io
+    import tempfile
+
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.fuzz import loop
+
+    argv = ["--rounds", str(FUZZ_CMD_ROUNDS), "--clusters",
+            str(FUZZ_CMD_CLUSTERS), "--seed", str(args.seed)]
+
+    def in_process(d, *extra):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.run_cli(cli.fuzz_cmd(),
+                             ["fuzz", "--corpus-dir", d, *argv, *extra])
+        return rc, json.loads(buf.getvalue())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fuzz_") as td:
+        dirs = {k: os.path.join(td, k) for k in ("sub", "card", "cpu")}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "jepsen_tpu_torch", "fuzz",
+             "--corpus-dir", dirs["sub"], *argv], cwd=HERE,
+            env={**os.environ, "PYTHONPATH": HERE}, capture_output=True,
+            text=True, timeout=300)
+        sub_s = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        with recorded_sim_batches() as batches:
+            (rc, summary), wall, seen = run_path(
+                kernels, lambda: in_process(dirs["card"]))
+        t0 = time.perf_counter()
+        rc_cpu, _ = in_process(dirs["cpu"], "--device", "cpu")
+        cpu_s = time.perf_counter() - t0
+        assert rc == rc_cpu == 0, (rc, rc_cpu)
+        for f in (loop.STATE_FILE, loop.ANOMALIES_FILE):
+            blobs = set()
+            for d in dirs.values():
+                with open(os.path.join(d, f), "rb") as fh:
+                    blobs.add(fh.read())
+            assert len(blobs) == 1, f"{f} differs"
+    assert seen["sim"][0] == FUZZ_CMD_ROUNDS, seen["sim"][0]
+    held_rounds = hold_sim_batches(sim, batches, "checkers_fuzz_cmd", seen,
+                                   "the fuzz command's first round")
+    closures = replay_closures(ck, seen["unpack"][2])
+    return {"rounds": FUZZ_CMD_ROUNDS, "clusters": FUZZ_CMD_CLUSTERS,
+            "subprocess_s": sub_s, "wall_s": wall, "cpu_s": cpu_s,
+            "corpus_identical": True, "sim_vs_plain": held_rounds,
+            "summary": {k: summary[k] for k in (
+                "clusters-run", "coverage-buckets", "entries", "anomalies",
+                "anomaly-types")},
+            **checkers_cell(ck, "checkers_fuzz_cmd", seen, closures, wall)}
+
+
+def phase_checkers(args, kernels, ck, sim) -> None:
+    """The checkers that reach K3 through the cycle checker, the host
+    checkers, analyze and fuzz: one line a cell (module docstring), and
+    the empty kernel's launch floor beside closure_word's row."""
+    t0 = time.perf_counter()
+    floor = empty_launch_ms()
+    ck["closure_word"].extra["empty_kernel_ms"] = floor
+    emit({"phase": "checkers_launch_floor", "empty_kernel_ms": floor,
+          "nvidia_smi": args.smi})
+    emit({"phase": "checkers_adya_g2", **checkers_adya(args, kernels, ck)})
+    emit({"phase": "checkers_long_fork",
+          **checkers_long_fork(args, kernels, ck)})
+    h = causal_history(CAUSAL_KEYS, args.seed)
+    emit({"phase": "checkers_causal",
+          **checkers_causal(args, kernels, ck, h)})
+    emit({"phase": "checkers_causal_processes",
+          **checkers_causal_processes(args, kernels, ck, h)})
+    emit({"phase": "checkers_bank_setfull",
+          **checkers_bank_setfull(kernels)})
+    emit({"phase": "checkers_analyze", **checkers_analyze(args, kernels)})
+    emit({"phase": "checkers_fuzz_cmd",
+          **checkers_fuzz_cmd(args, kernels, ck, sim)})
+    emit({"phase": "checkers", "wall_s": time.perf_counter() - t0})
+
+
 def lookup_us(mod, reps: int = 20) -> dict:
     """Host µs of one lookup of kernel module `mod`'s library through
     its `build`: "cached", as every wrapper makes it at each launch, and
@@ -3727,6 +4421,12 @@ def run(args) -> int:
         emit({"kernels": [k.row() for k in (vec, search, *meshk.values())]})
         print(smi, flush=True)
         return 0
+    if args.only == "checkers":
+        phase_checkers(args, kernels, ck, sim)
+        emit({"kernels": [k.row() for k in (vec, row, *ck.values(), sim)
+                          if not k.library]})
+        print(smi, flush=True)
+        return 0
 
     phase_kernel_vs_plain(args, vec)
     phase_row_vs_plain(args, row)
@@ -3802,6 +4502,8 @@ def run(args) -> int:
 
     phase_mesh(args, kernels, meshk)
 
+    phase_checkers(args, kernels, ck, sim)
+
     mm = ck["matmul"]
     emit({"kernels": [k.row() for k in (*kernels, *meshk.values())
                       if not k.library],
@@ -3820,7 +4522,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("crossover", "closure", "fuzz",
                                        "linear", "store", "online",
-                                       "serve", "mesh"),
+                                       "serve", "mesh", "checkers"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
@@ -3831,7 +4533,9 @@ def main() -> int:
                     "the register stream and the cycle abort stream; "
                     "serve: the verdict daemon, the bundle and watch; "
                     "mesh: K2's deal, K1's block shards, K3's row blocks "
-                    "and the doctor over a repeated device list) and "
+                    "and the doctor over a repeated device list; checkers: "
+                    "adya, long_fork, causal (threads and spawned "
+                    "workers), bank-setfull, analyze and fuzz) and "
                     "print their lines and the nvidia-smi line (no smoke "
                     "result)")
     return run(ap.parse_args())

@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 from .checker import Checker, check_safe, merge_valid
 from .history import Op, op as to_op
-from .util import bounded_pmap
+from .util import bounded_pmap, bounded_pmap_processes
 
 DIR = "independent"
 
@@ -87,12 +87,21 @@ class IndependentChecker(Checker):
     checker), and a history of one key, go key by key under check_safe,
     which re-raises kernel, build and missing-CUDA faults.
 
+    processes=True checks the keys over a pool of spawned worker
+    processes instead of threads (an int: that many workers; True: the
+    cpu count), where the sub-checker has no check_batch, as in the JAX
+    package. Each worker gets the checker, its key's subhistory and the
+    picklable slice of the test map and opts, and opens its own CUDA
+    context: a checker's device=None resolves in the worker. A fault of
+    the card in a worker re-raises here, as does a worker's death.
+
     The JAX package counts journal skips in its supervisor's telemetry
     ("journal_skips"); the port has no supervisor, so the skip count is
     only logged, as the JAX package also does."""
 
-    def __init__(self, checker: Checker):
+    def __init__(self, checker: Checker, processes: bool | int = False):
         self.checker = checker
+        self.processes = processes
 
     def check(self, test, history, opts=None) -> dict:
         opts = dict(opts or {})
@@ -130,6 +139,20 @@ class IndependentChecker(Checker):
             rs = self.checker.check_batch(test, items)
             results = dict(zip(ks, rs))
             for k, (sub, o) in zip(ks, items):
+                self._write_artifacts(test, o["subdirectory"], sub,
+                                      results[k])
+        elif self.processes and len(ks) > 1:
+            # a worker needs only its own subhistory, never the test's
+            # recorded bulk
+            lite = _picklable_map({
+                k: v for k, v in (test or {}).items()
+                if k not in ("history", "active_histories")})
+            payloads = [(self.checker, lite, subs[k],
+                         _picklable_map(item_opts(k)), k) for k in ks]
+            bound = None if self.processes is True else int(self.processes)
+            results = dict(bounded_pmap_processes(_check_payload, payloads,
+                                                  bound=bound))
+            for _, _, sub, o, k in payloads:
                 self._write_artifacts(test, o["subdirectory"], sub,
                                       results[k])
         else:
@@ -231,5 +254,28 @@ def _journal_key(k, sub) -> str:
     return f"{k}#{len(sub)}#{h.hexdigest()[:16]}"
 
 
-def checker(c: Checker) -> IndependentChecker:
-    return IndependentChecker(c)
+def _picklable_map(m: dict) -> dict:
+    """The subset of a dict whose values survive pickling — what a
+    process-pool worker can receive (clients, remotes, journals and live
+    sockets don't; names, models and options do)."""
+    import pickle
+
+    out = {}
+    for k, v in m.items():
+        try:
+            pickle.dumps(v)
+        except Exception:  # noqa: BLE001 — unpicklable: drop
+            continue
+        out[k] = v
+    return out
+
+
+def _check_payload(payload):
+    """Process-pool worker: run one key's check under check_safe, which
+    re-raises a fault of the card (module-level so it pickles)."""
+    chk, test, sub, opts, k = payload
+    return k, check_safe(chk, test, sub, opts)
+
+
+def checker(c: Checker, processes: bool | int = False) -> IndependentChecker:
+    return IndependentChecker(c, processes=processes)

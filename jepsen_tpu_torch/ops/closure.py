@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 import time
 
 import numpy as np
@@ -77,8 +78,11 @@ from ..device import KernelError, resolve
 from . import MIN_PAD, pad_size
 
 #: launches on CUDA tensors so far: of each kernel, and of the product
+#: (counted under _COUNTING: checkers launch from many threads at once,
+#: e.g. one a key under independent.checker)
 LAUNCHES = {"closure_word": 0, "unpack": 0, "or_threshold_pack": 0,
             "matmul": 0}
+_COUNTING = threading.Lock()
 #: when a list, every launch on the card appends (name, start, end), its
 #: CUDA events
 TIMED: list | None = None
@@ -317,7 +321,13 @@ def _launch(name: str, dev):
     if TIMED is not None:
         ev[1].record(stream)
         TIMED.append((name, *ev))
-    LAUNCHES[name] += 1
+    _count(name)
+
+
+def _count(name: str) -> None:
+    """One more launch of `name` (a read-modify-write: under the lock)."""
+    with _COUNTING:
+        LAUNCHES[name] += 1
 
 
 def _aligned(*ts) -> None:

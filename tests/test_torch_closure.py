@@ -354,3 +354,30 @@ def test_cuda_kernels_match_plain(cuda):
     assert torch.equal(k, p) and int(flags[0]) == int(flags[1]) == 1
     assert torch.equal(ops[0], ops[1])
     assert torch.equal(ops[0], closure.unpack_plain(k, 512))
+
+
+def test_launch_count_under_threads():
+    """Checkers launch K3 from many threads at once (one a key under
+    independent.checker, each composed checker in its own): the launch
+    count is a read-modify-write under a lock, so none is lost with
+    more threads than cores and a short switch interval."""
+    import sys
+    import threading
+
+    saved, interval = dict(closure.LAUNCHES), sys.getswitchinterval()
+    n_threads, each = 16, 5000
+    sys.setswitchinterval(1e-6)
+    try:
+        closure.LAUNCHES["closure_word"] = 0
+        ts = [threading.Thread(
+            target=lambda: [closure._count("closure_word")
+                            for _ in range(each)]) for _ in range(n_threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in ts)
+        assert closure.LAUNCHES["closure_word"] == n_threads * each
+    finally:
+        sys.setswitchinterval(interval)
+        closure.LAUNCHES.update(saved)

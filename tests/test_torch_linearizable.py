@@ -332,7 +332,9 @@ def test_port_imports_no_jax():
     checkers, the fuzz loop; the online frontiers and a stream session,
     the registry, the bundle's warm pass and the verdict daemon; the
     multi-device engines dealt over CPU entries, the mesh crossover's
-    bars and the doctor; and every module of those) load neither jax
+    bars and the doctor; every registered checker, the host checkers,
+    the bank, adya, long_fork and causal checkers, core.analyze, and the
+    analyze and fuzz subcommands; and every module of those) load neither jax
     nor any module of the JAX package (jepsen_tpu_torch's own name shares
     the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -447,6 +449,53 @@ def test_port_imports_no_jax():
             {}, list_append.simulate(200, seed=1), {})
         assert r["valid"] is False
         assert doctor.diagnose(devices=["cpu"] * 2)["ok"]
+        from jepsen_tpu_torch import util
+        from jepsen_tpu_torch.checker import (REGISTRY, basic, clock,
+                                              compose, perf, resolve)
+        from jepsen_tpu_torch.history import Op
+        from jepsen_tpu_torch.workloads import adya, bank, causal, long_fork
+        importlib.import_module("jepsen_tpu_torch.checker.recovery")
+        for name in REGISTRY:
+            assert resolve(name, device="cpu").check(
+                {"model": CASRegister()}, h, {})["valid"] is not None
+        tup = independent.tuple_
+        r = adya.g2_checker(device="cpu").check({}, [
+            Op(0, "ok", "insert", tup(0, (None, 1)), index=0),
+            Op(1, "ok", "insert", tup(0, (2, None)), index=1)], {})
+        assert r["anomaly-types"] == ["G2"], r
+        r = long_fork.checker(2, device="cpu").check({}, [
+            Op(0, "ok", "write", [["w", 0, 1]], index=0),
+            Op(1, "ok", "write", [["w", 1, 1]], index=1),
+            Op(2, "ok", "read", [["r", 0, 1], ["r", 1, None]], index=2),
+            Op(3, "ok", "read", [["r", 0, None], ["r", 1, 1]], index=3)])
+        assert r["valid"] is False and r["forks"], r
+        steps = [("read-init", 0, 1, "init"), ("write", 1, 2, 1),
+                 ("read", 0, 3, 2)]
+        r = causal.checker(device="cpu").check({}, [
+            Op(0, "ok", f, tup(0, v), index=i,
+               extra={"position": p, "link": ln})
+            for i, (f, v, p, ln) in enumerate(steps)])
+        assert r["failures"] == [0], r
+        r = bank.test(device="cpu")["checker"].check(
+            {"accounts": list(range(8)), "total_amount": 100,
+             "nodes": ["n1"]},
+            [Op(0, "ok", "read", {a: 100 if a == 0 else 0
+                                  for a in range(8)}, index=0)], {})
+        assert r["SI"]["valid"] is True, r
+        assert compose({"set": basic.set_full()}).check({}, [], {})[
+            "valid"] == "unknown"
+        with tempfile.TemporaryDirectory() as td:
+            t = {"name": "nojax", "start_time": "20260101T000000.000",
+                 "store_dir": td, "history": register_history(seed=4),
+                 "checker": linearizable(CASRegister(), device="cpu")}
+            store.save_1(t)
+            assert core.analyze(t)["results"]["valid"] is True
+            assert cli.run_cli(cli.single_test_cmd(
+                lambda o: {"name": "nojax", "checker": t["checker"]}),
+                ["analyze", "--store-dir", td, "--device", "cpu"]) == 0
+            assert cli.run_cli(cli.fuzz_cmd(), [
+                "fuzz", "--corpus-dir", td + "/fz2", "--rounds", "1",
+                "--clusters", "4", "--device", "cpu"]) == 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
