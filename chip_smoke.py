@@ -2,7 +2,8 @@
 """Chip smoke test of jepsen_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
-        [--only crossover|closure|fuzz|linear|store|online|serve|mesh|checkers]
+        [--only crossover|closure|fuzz|linear|store|online|serve|mesh|checkers
+                |runner]
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -120,7 +121,19 @@ runs that wrote them; and `python -m jepsen_tpu_torch fuzz` in a
 subprocess, the command in process and with --device cpu, corpus files
 byte-identical; every K3 and K4 launch held against its plain version,
 and an empty kernel's launch timed as the launch floor (`--only
-checkers`). Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
+checkers`). Then the `runner` phase, the test runner end to end: the
+etcd suite's `test` subcommand (`cli.single_test_cmd`) on five
+simulated members, one process a node over LocalRemote, 20 workers,
+etcd's r/w/cas workload for 30 s, its checker a key at a time on K1 or
+K5 with every bar at 1: exit 0 and valid, the wall split into
+provision, workers, save, analyze and teardown; `analyze` over its
+store under every bar at 1 and under the committed bars, the same
+per-key verdicts; a 5-s run whose client plants one stale read on
+each of two keys: exit 1, exactly those keys refuted; and, under
+`--only runner` only (the whole script would pass its 1200-s
+limit), the same test in a subprocess SIGTERMed 5 s into its ops (exit
+143), then `resume` here (exit 0, valid, the first session's ops then
+the second's); every K1 and K5 launch held against its plain version. Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
 wgl_search also the tables in shared memory, scratch bytes and the share
@@ -4094,25 +4107,6 @@ def checkers_bank_setfull(kernels) -> dict:
             "bank_reads": b["read-count"], "set_stable": f["stable_count"]}
 
 
-class Rekeyed:
-    """A suite's checker for a stored keyed history: history.jsonl keeps
-    a KVTuple value as its [key, value] list, so the ops are keyed again
-    before the independent checker sees them (as the serving registry
-    rehydrates a submitted history). The store's own format is left as
-    the JAX package writes it."""
-
-    def __init__(self, checker):
-        self.checker = checker
-
-    def check(self, test, history, opts=None):
-        from jepsen_tpu_torch.independent import tuple_
-
-        return self.checker.check(test, [
-            o.with_(value=tuple_(*o.value))
-            if isinstance(o.value, list) and len(o.value) == 2 else o
-            for o in history], opts)
-
-
 def results_files(root) -> dict:
     """Every results file under a store: relative path -> bytes."""
     out = {}
@@ -4164,9 +4158,9 @@ def checkers_analyze(args, kernels) -> dict:
     """`analyze` on two stores on the card: the register cell (4096 keys
     x 64 invocations, every 8th key bad) written by the port's
     IndependentChecker with every bar at 1 (K1), analysed with the
-    suite's checker (Rekeyed: `--checker` would replace the per-key
-    checker with one linearizable over the whole keyed history, in both
-    packages); and one register history of ANALYZE_SINGLE_INVOCATIONS
+    suite's checker (`--checker` would replace the per-key checker with
+    one linearizable over the whole keyed history, in both packages);
+    and one register history of ANALYZE_SINGLE_INVOCATIONS
     invocations written by linearizable() (K5), analysed with
     `--checker linearizable`."""
     import tempfile
@@ -4186,10 +4180,10 @@ def checkers_analyze(args, kernels) -> dict:
             kernels, os.path.join(td, "keyed"), "checkers_analyze", hist,
             independent.checker(linearizable(CASRegister(),
                                              algorithm="auto")), [],
-            lambda o: {"name": "checkers_analyze", "checker": Rekeyed(
-                independent.checker(linearizable(
-                    CASRegister(), algorithm="auto",
-                    device=o["device"])))})
+            lambda o: {"name": "checkers_analyze", "checker":
+                       independent.checker(linearizable(
+                           CASRegister(), algorithm="auto",
+                           device=o["device"]))})
         hist = register_history(n_process=5, n_ops=ANALYZE_SINGLE_INVOCATIONS,
                                 seed=args.seed)
         out["single"] = analyze_store(
@@ -4286,6 +4280,462 @@ def phase_checkers(args, kernels, ck, sim) -> None:
     emit({"phase": "checkers", "wall_s": time.perf_counter() - t0})
 
 
+# The runner phase: the etcd suite end to end on simulated members (one
+# process a node, over LocalRemote), the README's 5 nodes, and etcd's
+# own workload unchanged (etcd.py:340-353: 10 threads a key, 300 ops a
+# key). The README's 15 workers (--concurrency 3n) cannot run it: 10
+# threads a key must divide the workers (ConcurrentGenerator asserts a
+# multiple, in both packages). So 20 workers (4n): 2 keys in flight.
+RUNNER_NODES = [f"n{i}" for i in range(1, 6)]
+RUNNER_CONCURRENCY = "4n"
+RUNNER_TIME_LIMIT = 30
+PLANTED_TIME_LIMIT = 5
+# keys of the planted run whose reads go stale once (both among the first
+# three keys the workers take, 2 at a time, so reached within the limit)
+PLANTED_KEYS = (1, 2)
+RESUME_TIME_LIMIT = 20
+# seconds after the first op of the resumed cell's first session that it
+# gets its SIGTERM; the drain ends when the nemesis's current 5-s sleep of
+# etcd's schedule does (at 10 s), so the resumed session runs the
+# remaining ~10 s
+RESUME_SIGTERM_S = 5.0
+
+RESUME_SCRIPT = """
+import json, sys
+from jepsen_tpu_torch import cli
+from jepsen_tpu_torch.dbs import etcd, etcd_sim
+cfg = json.load(open(sys.argv[1]))
+c = etcd_sim.local_cluster(cfg["root"], cfg["nodes"], ports=cfg["ports"])
+fn = etcd_sim.local_test_fn(c)
+sys.exit(cli.run_cli(cli.single_test_cmd(fn, opt_spec=etcd._opt_spec),
+                     sys.argv[2:]))
+"""
+
+
+def runner_argv(command: str, store_dir: str, time_limit: int,
+                device: str, *extra) -> list:
+    return [command, *extra,
+            *[a for n in RUNNER_NODES for a in ("--node", n)],
+            "--concurrency", RUNNER_CONCURRENCY,
+            "--time-limit", str(time_limit),
+            "--store-dir", store_dir, "--device", device]
+
+
+def runner_cmd(cluster, client=None) -> dict:
+    """single_test_cmd over the etcd suite on `cluster` (as the suite's
+    `test` subcommand builds it), `client` in place of the suite's."""
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.dbs import etcd, etcd_sim
+
+    return cli.single_test_cmd(etcd_sim.local_test_fn(cluster, client=client),
+                               opt_spec=etcd._opt_spec)
+
+
+def stop_members(root: str) -> None:
+    """SIGKILL every simulated member whose pidfile is under root (a run
+    tears its members down itself; this is the backstop)."""
+    import glob
+    import signal
+
+    for pidfile in glob.glob(os.path.join(root, "nodes", "*", "opt", "etcd",
+                                          "etcd.pid")):
+        with contextlib.suppress(OSError, ValueError):
+            with open(pidfile) as f:
+                os.kill(int(f.read().strip()), signal.SIGKILL)
+
+
+class RunnerWall:
+    """The wall of one `test` run split into its steps: provision
+    (`db.cycle`), `run_case` (the workers), `save_1`, analyze (the check
+    and `save_2`) and teardown (after the analysis: the logs, the
+    members' teardown), by wrapping the functions `core.run` calls."""
+
+    def __init__(self):
+        self.s: dict = {}
+        self._saved = []
+
+    def _wrap(self, obj, attr, key):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.s[key] = self.s.get(key, 0.0) + time.perf_counter() - t0
+                self.s[key + "_end"] = time.perf_counter()
+
+        self._saved.append((obj, attr, fn))
+        setattr(obj, attr, timed)
+
+    def __enter__(self):
+        from jepsen_tpu_torch import core, db, store
+
+        self._wrap(db, "cycle", "provision_s")
+        self._wrap(core, "run_case", "run_case_s")
+        self._wrap(store, "save_1", "save_1_s")
+        self._wrap(core, "analyze", "analyze_s")
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter()
+        for obj, attr, fn in reversed(self._saved):
+            setattr(obj, attr, fn)
+        last = max((v for k, v in self.s.items() if k.endswith("_end")),
+                   default=self.t0)
+        self.split = {k: v for k, v in self.s.items()
+                      if not k.endswith("_end")}
+        self.split["teardown_s"] = end - last
+        self.split["wall_s"] = end - self.t0
+        return False
+
+
+class StaleReads:
+    """A client wrapper that plants stale reads: on each key of `keys`,
+    one read answers, without asking the cluster, a value `a` the key
+    held before a later acknowledged write Y of another value, where
+    every op that could have written `a` was acknowledged before Y was
+    invoked (none failed indeterminately, none is in flight) — so the
+    register cannot hold `a` at that read, and the checker must refute
+    exactly those keys. Every write and cas on those keys goes through
+    the wrapper (its clones share the record); `margin_s` keeps the
+    order of the record's clock times that of the history. Once a read
+    finds such an `a` whose Y may not have been acknowledged `margin_s`
+    ago yet, `a` is reserved: until the stale read is planted, a write
+    or cas of `a` on that key fails without being sent (a failed op
+    took no effect), so 10 threads a key writing 5 values cannot keep
+    every `a` in play."""
+
+    def __init__(self, inner, keys, margin_s: float = 0.1, shared=None):
+        import threading
+
+        self.inner, self.keys, self.margin_s = inner, set(keys), margin_s
+        self.shared = shared or {"lock": threading.Lock(), "writes": {},
+                                 "planted": {}, "reserved": {}}
+
+    def open(self, test, node):
+        return StaleReads(self.inner.open(test, node), self.keys,
+                          self.margin_s, self.shared)
+
+    def setup(self, test):
+        self.inner.setup(test)
+
+    def teardown(self, test):
+        self.inner.teardown(test)
+
+    def close(self, test):
+        self.inner.close(test)
+
+    def _stale_value(self, writes, now):
+        """A value no op can have left in the register by `now`, or
+        None."""
+        m = self.margin_s
+        acked = [w for w in writes if w["type"] == "ok"
+                 and w["done"] + m < now]
+        for y in sorted(acked, key=lambda w: -w["done"]):
+            for a in {w["value"] for w in acked} - {y["value"]}:
+                could = [w for w in writes if w["value"] == a
+                         and w["type"] != "fail"]
+                if all(w["type"] == "ok" and w["done"] + m < y["inv"]
+                       for w in could):
+                    return a
+        return None
+
+    def invoke(self, test, op):
+        from jepsen_tpu_torch.independent import tuple_
+
+        k, v = op.value
+        sh = self.shared
+        if k not in self.keys:
+            return self.inner.invoke(test, op)
+        if op.f == "read":
+            with sh["lock"]:
+                a = None
+                if k not in sh["planted"]:
+                    writes = sh["writes"].get(k, [])
+                    a = self._stale_value(writes, time.monotonic())
+                    if a is not None:
+                        sh["planted"][k] = a
+                        sh["reserved"].pop(k, None)
+                    elif k not in sh["reserved"]:
+                        r = self._stale_value(writes, float("inf"))
+                        if r is not None:
+                            sh["reserved"][k] = r
+            if a is not None:
+                return op.with_(type="ok", value=tuple_(k, a))
+            return self.inner.invoke(test, op)
+        w = {"value": v if op.f == "write" else v[1], "inv": time.monotonic(),
+             "done": None, "type": None}
+        with sh["lock"]:
+            if sh["reserved"].get(k, object()) == w["value"]:
+                return op.with_(type="fail", error="reserved")
+            sh["writes"].setdefault(k, []).append(w)
+        out = self.inner.invoke(test, op)
+        with sh["lock"]:
+            w["done"], w["type"] = time.monotonic(), out.type
+        return out
+
+
+def runner_history(run_dir: str) -> dict:
+    """Counts of a stored run's history: client ops invoked and
+    completed (by type), nemesis ops, and the WAL's session epochs."""
+    from jepsen_tpu_torch import store
+
+    hist = store.load_history({
+        "name": os.path.basename(os.path.dirname(run_dir)),
+        "start_time": os.path.basename(run_dir),
+        "store_dir": os.path.dirname(os.path.dirname(run_dir))})
+    client = [o for o in hist if isinstance(o.process, int)]
+    by_type: dict = {}
+    for o in client:
+        by_type[o.type] = by_type.get(o.type, 0) + 1
+    epochs = set()
+    with open(os.path.join(run_dir, store.WAL_FILE)) as f:
+        for line in f:
+            with contextlib.suppress(ValueError):
+                epochs.add(json.loads(line).get("_epoch", 0))
+    return {"ops": len(hist), "invoked": by_type.get("invoke", 0),
+            "completed": len(client) - by_type.get("invoke", 0),
+            "by_type": by_type,
+            "nemesis_ops": len(hist) - len(client),
+            "wal_epochs": sorted(epochs)}
+
+
+def runner_results(run_dir: str) -> tuple:
+    """The stored results: the verdict, the per-key verdicts of the
+    linearizability check, and the number of results files."""
+    with open(os.path.join(run_dir, "results.json")) as f:
+        results = json.load(f)
+    keys = {k: r["linear"]["valid"]
+            for k, r in results["indep"]["results"].items()}
+    files = sum(1 for d, _, fs in os.walk(run_dir) for f in fs
+                if f.startswith("results."))
+    return results, keys, files
+
+
+def runner_verdict(results: dict, indep) -> dict:
+    """Hold a stored run's verdict: the per-key linearizability check
+    (`indep`) is `indep`, and the composed verdict is the merge of it and
+    the perf checker's, which is "unknown" exactly when matplotlib (its
+    graphs) is not installed, as on a host with no plotting library.
+    The fields a runner line records."""
+    import importlib.util
+
+    from jepsen_tpu_torch.checker import merge_valid
+
+    perf = results["perf"]
+    plots = importlib.util.find_spec("matplotlib") is not None
+    assert results["indep"]["valid"] is indep, (
+        results["indep"]["valid"], results["indep"].get("failures"))
+    if plots:
+        assert perf["valid"] is True, perf
+    else:
+        assert perf["valid"] == "unknown" and (
+            "No module named 'matplotlib'" in json.dumps(perf)), perf
+    assert results["valid"] == merge_valid([perf["valid"], indep]), results[
+        "valid"]
+    return {"valid": results["valid"], "indep_valid": indep,
+            "perf_valid": perf["valid"], "matplotlib": plots}
+
+
+def runner_line(kernels, cell, rc, wall, seen, **fields) -> dict:
+    """A runner cell's line: exit code, wall, launches per kernel, each
+    launch replayed against its plain version, kernel ms, idle share."""
+    passes = replay(kernels, seen, cell)
+    kernel_ms = sum(v[1] for v in seen.values())
+    # the run's events also span other threads' launches queued between
+    # a launch's two events (a key a thread); the replay times each alone
+    replayed_ms = sum(p["kernel_ms"] for v in passes.values() for p in v)
+    return {"phase": cell, "exit": rc, "wall_s": wall,
+            "launches": {k: v[0] for k, v in seen.items() if v[0]},
+            "kernel_vs_plain": {k: len(v) for k, v in passes.items() if v},
+            "kernel_ms": kernel_ms, "replayed_kernel_ms": replayed_ms,
+            "device_idle": 1 - kernel_ms / 1000 / wall if wall > 0 else None,
+            "device_idle_replayed": 1 - replayed_ms / 1000 / wall
+            if wall > 0 else None,
+            **fields}
+
+
+def runner_etcd_sim(args, kernels, td: str) -> str:
+    """`test` on the README's cluster, every bar at 1: exit 0, valid,
+    at least one K1 or K5 launch; then `analyze` over its store under
+    bars 1 and the committed bars, each giving the run's per-key
+    verdicts. Returns the store dir."""
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.dbs import etcd_sim
+
+    root = os.path.join(td, "etcd_sim")
+    sd = os.path.join(root, "store")
+    cluster = etcd_sim.local_cluster(root, RUNNER_NODES)
+    argv = runner_argv("test", sd, RUNNER_TIME_LIMIT, args.runner_device)
+    try:
+        with card_bars(1), RunnerWall() as rw:
+            rc, wall, seen = run_path(kernels, lambda: cli.run_cli(
+                runner_cmd(cluster), argv))
+    finally:
+        stop_members(root)
+    run_dir = os.path.realpath(os.path.join(sd, "etcd", "latest"))
+    results, keys, files = runner_results(run_dir)
+    counts = runner_history(run_dir)
+    verdict = runner_verdict(results, True)
+    assert rc == 0, rc
+    assert seen["wgl_vec"][0] + seen["wgl_row"][0] > 0, "no K1/K5 launch"
+    emit(runner_line(
+        kernels, "runner_etcd_sim", rc, wall, seen,
+        nodes=len(RUNNER_NODES), concurrency=4 * len(RUNNER_NODES),
+        time_limit_s=RUNNER_TIME_LIMIT, bars=1, split=rw.split,
+        **counts, ops_per_s=counts["completed"] / rw.split["run_case_s"],
+        keys=len(keys), verdicts=verdict_counts(keys.values()),
+        **verdict, results_files=files))
+    for label, bars in (("bars_1", 1), ("committed", None)):
+        with card_bars(bars) if bars else contextlib.nullcontext():
+            rc2, wall2, seen2 = run_path(kernels, lambda: cli.run_cli(
+                runner_cmd(cluster),
+                runner_argv("analyze", sd, RUNNER_TIME_LIMIT,
+                            args.runner_device)))
+        again, keys2, _ = runner_results(run_dir)
+        assert rc2 == rc and keys2 == keys, (label, rc2)
+        emit(runner_line(kernels, f"runner_etcd_sim_analyze_{label}", rc2,
+                         wall2, seen2, bars=bars or "committed",
+                         keys=len(keys2), same_verdicts=True))
+    return sd
+
+
+def runner_etcd_planted(args, kernels, td: str) -> None:
+    """A short run whose client plants one stale read on each of
+    PLANTED_KEYS: `test` exits 1, valid False, failing keys exactly
+    those, each with its counterexample op."""
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.dbs import etcd, etcd_sim
+
+    root = os.path.join(td, "planted")
+    sd = os.path.join(root, "store")
+    cluster = etcd_sim.local_cluster(root, RUNNER_NODES)
+    client = StaleReads(etcd.EtcdClient(), PLANTED_KEYS)
+    argv = runner_argv("test", sd, PLANTED_TIME_LIMIT, args.runner_device)
+    try:
+        with card_bars(1), RunnerWall() as rw:
+            rc, wall, seen = run_path(kernels, lambda: cli.run_cli(
+                runner_cmd(cluster, client=client), argv))
+    finally:
+        stop_members(root)
+    run_dir = os.path.realpath(os.path.join(sd, "etcd", "latest"))
+    results, keys, files = runner_results(run_dir)
+    failing = sorted(int(k) for k, v in keys.items() if v is False)
+    verdict = runner_verdict(results, False)
+    assert rc == 1 and results["valid"] is False, (rc, results["valid"])
+    assert failing == sorted(PLANTED_KEYS), failing
+    for k in PLANTED_KEYS:
+        assert results["indep"]["results"][str(k)]["linear"].get("op"), k
+    emit(runner_line(
+        kernels, "runner_etcd_planted", rc, wall, seen,
+        time_limit_s=PLANTED_TIME_LIMIT, split=rw.split,
+        **runner_history(run_dir), keys=len(keys),
+        verdicts=verdict_counts(keys.values()), failing_keys=failing,
+        planted_keys=list(PLANTED_KEYS), **verdict, results_files=files))
+
+
+def runner_etcd_resume(args, kernels, td: str) -> None:
+    """The same test in a subprocess (RESUME_SCRIPT), SIGTERMed
+    RESUME_SIGTERM_S after its first op: exit 143, WAL and checkpoint
+    saved, members left running; then `resume` here on the card: exit
+    0, valid, the history the first session's ops then the second's."""
+    import glob
+    import signal
+
+    from jepsen_tpu_torch import cli, store
+    from jepsen_tpu_torch.dbs import etcd_sim
+
+    root = os.path.join(td, "resume")
+    sd = os.path.join(root, "store")
+    cluster = etcd_sim.local_cluster(root, RUNNER_NODES)
+    script = os.path.join(root, "session.py")
+    cfg = os.path.join(root, "cfg.json")
+    with open(script, "w") as f:
+        f.write(RESUME_SCRIPT)
+    with open(cfg, "w") as f:
+        json.dump({"root": root, "nodes": RUNNER_NODES,
+                   "ports": cluster["ports"]}, f)
+    argv = runner_argv("test", sd, RESUME_TIME_LIMIT, args.runner_device)
+    wal_glob = os.path.join(sd, "etcd", "*", store.WAL_FILE)
+    try:
+        t0 = time.perf_counter()
+        with open(os.path.join(root, "session1.log"), "w") as log:
+            p = subprocess.Popen([sys.executable, script, cfg, *argv],
+                                 cwd=HERE, stdout=log, stderr=log,
+                                 env={**os.environ, "PYTHONPATH": HERE})
+            try:
+                deadline = time.monotonic() + 180
+                while not (glob.glob(wal_glob)
+                           and os.path.getsize(glob.glob(wal_glob)[0])):
+                    assert p.poll() is None, "session 1 ended early"
+                    assert time.monotonic() < deadline, "no op in 180 s"
+                    time.sleep(0.05)
+                first_op_s = time.perf_counter() - t0
+                time.sleep(RESUME_SIGTERM_S)
+                p.send_signal(signal.SIGTERM)
+                rc1 = p.wait(timeout=120)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        session1_s = time.perf_counter() - t0
+        wal = os.path.realpath(glob.glob(wal_glob)[0])
+        run_dir = os.path.dirname(wal)
+        with open(wal) as f:
+            first = [json.loads(ln) for ln in f if ln.strip()]
+        assert rc1 == 143, rc1
+        assert os.path.exists(os.path.join(run_dir, store.CKPT_FILE))
+        with card_bars(1), RunnerWall() as rw:
+            rc2, wall, seen = run_path(kernels, lambda: cli.run_cli(
+                runner_cmd(cluster),
+                runner_argv("resume", sd, RESUME_TIME_LIMIT,
+                            args.runner_device, run_dir)))
+    finally:
+        stop_members(root)
+    results, keys, files = runner_results(run_dir)
+    verdict = runner_verdict(results, True)
+    assert rc2 == 0, rc2
+    hist = store.load_history({"name": "etcd",
+                               "start_time": os.path.basename(run_dir),
+                               "store_dir": sd})
+    drop = ("index", "_epoch", "_kv")
+    assert [{k: v for k, v in json.loads(json.dumps(o.to_dict())).items()
+             if k not in drop} for o in hist[:len(first)]] == [
+        {k: v for k, v in d.items() if k not in drop} for d in first]
+    counts = runner_history(run_dir)
+    assert counts["wal_epochs"] == [0, 1], counts["wal_epochs"]
+    emit(runner_line(
+        kernels, "runner_etcd_resume", rc2, wall, seen,
+        session1={"exit": rc1, "wall_s": session1_s,
+                  "first_op_s": first_op_s, "sigterm_after_s":
+                  RESUME_SIGTERM_S, "ops": len(first)},
+        time_limit_s=RESUME_TIME_LIMIT, split=rw.split, **counts,
+        session2_ops=counts["ops"] - len(first), keys=len(keys),
+        verdicts=verdict_counts(keys.values()), **verdict,
+        results_files=files))
+
+
+def phase_runner(args, kernels, resume: bool = True) -> None:
+    """The test runner end to end on the etcd suite's simulated cluster:
+    runner_etcd_sim (and analyze over its store), runner_etcd_planted,
+    and with `resume` runner_etcd_resume (~30 s: the whole script runs it
+    only under `--only runner`, to stay inside its 1200-s limit);
+    one line a cell."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    ks = wgl(kernels)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as td:
+        runner_etcd_sim(args, ks, td)
+        runner_etcd_planted(args, ks, td)
+        if resume:
+            runner_etcd_resume(args, ks, td)
+    emit({"phase": "runner", "wall_s": time.perf_counter() - t0,
+          "nvidia_smi": args.smi})
+
+
 def lookup_us(mod, reps: int = 20) -> dict:
     """Host µs of one lookup of kernel module `mod`'s library through
     its `build`: "cached", as every wrapper makes it at each launch, and
@@ -4354,6 +4804,7 @@ def run(args) -> int:
 
     smi = nvidia_smi()
     args.smi = smi
+    args.runner_device = "cuda"
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "torch_device": kind,
           "capability": describe("cuda")["capability"],
@@ -4425,6 +4876,11 @@ def run(args) -> int:
         phase_checkers(args, kernels, ck, sim)
         emit({"kernels": [k.row() for k in (vec, row, *ck.values(), sim)
                           if not k.library]})
+        print(smi, flush=True)
+        return 0
+    if args.only == "runner":
+        phase_runner(args, kernels)
+        emit({"kernels": [k.row() for k in (vec, row, search)]})
         print(smi, flush=True)
         return 0
 
@@ -4504,6 +4960,8 @@ def run(args) -> int:
 
     phase_checkers(args, kernels, ck, sim)
 
+    phase_runner(args, kernels, resume=False)
+
     mm = ck["matmul"]
     emit({"kernels": [k.row() for k in (*kernels, *meshk.values())
                       if not k.library],
@@ -4522,7 +4980,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("crossover", "closure", "fuzz",
                                        "linear", "store", "online",
-                                       "serve", "mesh", "checkers"),
+                                       "serve", "mesh", "checkers",
+                                       "runner"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
@@ -4535,9 +4994,10 @@ def main() -> int:
                     "mesh: K2's deal, K1's block shards, K3's row blocks "
                     "and the doctor over a repeated device list; checkers: "
                     "adya, long_fork, causal (threads and spawned "
-                    "workers), bank-setfull, analyze and fuzz) and "
-                    "print their lines and the nvidia-smi line (no smoke "
-                    "result)")
+                    "workers), bank-setfull, analyze and fuzz; runner: the "
+                    "etcd suite's test, analyze and resume on simulated "
+                    "members) and print their lines and the nvidia-smi "
+                    "line (no smoke result)")
     return run(ap.parse_args())
 
 

@@ -29,7 +29,10 @@ ops/csrc/closure.cu); the fuzz loop (`fuzz.loop.FuzzLoop`: one launch of
 ops/csrc/sim.cu a round, then the scoring closures); and the store
 (`store`: the JAX package's on-disk layout, the analysis journal that
 lets a killed analysis resume, and each check's artifacts — per-key
-results.edn and history.txt, linear.svg, timeline-cycle.html).
+results.edn and history.txt, linear.svg, timeline-cycle.html); and the
+test runner that produces the histories (`core.run`/`core.resume` over
+`generator`, `nemesis`, `control`, `db`; the etcd suite in `dbs/` with
+its simulated members), whose suite checkers end on the card.
 
 The package imports torch and numpy only — never jax and nothing of
 `jepsen_tpu`; what it needs from there it keeps as its own copy.
@@ -38,6 +41,15 @@ when CUDA is absent; pass `device="cpu"` to run the plain PyTorch
 versions of the kernels (the tests do).
 """
 
-from .device import describe, resolve
-
 __all__ = ["describe", "resolve"]
+
+
+def __getattr__(name):
+    # torch loads on first use, not with the package: a simulated
+    # database node (`python -m jepsen_tpu_torch.dbs.etcd_sim`) imports
+    # the package and needs none of it
+    if name in __all__:
+        from . import device
+
+        return getattr(device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

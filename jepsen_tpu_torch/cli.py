@@ -1,7 +1,7 @@
 """Command-line runner of the port: `python -m jepsen_tpu_torch watch`,
-`serve --daemon`, `doctor` and `fuzz`, and `single_test_cmd`'s `analyze`
-for a suite's own main (the port's copy of the parts of `jepsen_tpu.cli`
-these subcommands use):
+`serve --daemon`, `doctor` and `fuzz`, and `single_test_cmd`'s `test`,
+`analyze` and `resume` for a suite's own main (the port's copy of the
+parts of `jepsen_tpu.cli` these subcommands use):
 
     from jepsen_tpu_torch import cli
 
@@ -12,15 +12,15 @@ these subcommands use):
 
 Exit codes, as the JAX package's: 0 success, 1 a definite falsification,
 254 bad arguments or an unknown command, 255 an internal error (a fault
-of the card included), and 143 when a SIGTERM drained the daemon.
+of the card included), and 143 when a SIGTERM drained a run (saved for
+`resume`) or the daemon.
 
-`watch`, `serve`, `analyze` and `fuzz` take `--device`: the default is
-the card (raising when CUDA is absent); `--device cpu` runs the kernels'
-plain versions. `doctor` examines a device list (every card by default,
-`--devices`, or `--mesh N` CPU entries) and exits 0 when it is healthy,
-1 otherwise. `single_test_cmd` gives `analyze` only: `test` and `resume`
-need the test runner (`core.run`, `core.resume`), which is not ported.
-There is no web UI.
+`test`, `analyze`, `resume`, `watch`, `serve` and `fuzz` take
+`--device`: the default is the card (raising when CUDA is absent, before
+any node is provisioned or any store read); `--device cpu` runs the
+kernels' plain versions. `doctor` examines a device list (every card by
+default, `--devices`, or `--mesh N` CPU entries) and exits 0 when it is
+healthy, 1 otherwise. There is no web UI.
 """
 
 from __future__ import annotations
@@ -259,6 +259,31 @@ def _apply_checker(test_map: dict, opts: dict) -> dict:
     return test_map
 
 
+def _verdict_code(test) -> int:
+    """A definite False or a missing verdict fails (1); "unknown" passes
+    (cli.clj:362: keywords are truthy)."""
+    valid = (test.get("results") or {}).get("valid")
+    return 1 if valid is False or valid is None else 0
+
+
+def _run_test(test_fn, opts) -> int:
+    """The `test` subcommand body (cli.clj:355-364): run --test-count
+    times; exit 1 if any run's results are invalid. The device is
+    resolved first, so without CUDA and without `--device cpu` this
+    raises before the test map is built or a node touched."""
+    from . import core
+    from .device import resolve
+
+    resolve(opts.get("device"))
+    for _ in range(int(opts.get("test_count", 1))):
+        test_map = _apply_checker(test_fn(dict(opts)), opts)
+        if opts.get("store_dir"):
+            test_map.setdefault("store_dir", opts["store_dir"])
+        if _verdict_code(core.run(test_map)):
+            return 1
+    return 0
+
+
 def _run_analyze(test_fn, opts) -> int:
     """The `analyze` subcommand (cli.clj:366-397): rebuild the test from
     the options (fresh checkers), attach the latest stored history,
@@ -286,9 +311,52 @@ def _run_analyze(test_fn, opts) -> int:
         test["store_dir"] = opts["store_dir"]
     test = core.analyze(test)
     core.log_results(test)
-    valid = (test.get("results") or {}).get("valid")
-    # a definite False or a missing verdict fails; "unknown" passes
-    return 1 if valid is False or valid is None else 0
+    return _verdict_code(test)
+
+
+def _resume_opt_spec(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "run_dir", nargs="?", default=None, metavar="RUN_DIR",
+        help="A store/<name>/<time> run directory to resume "
+        "(default: the latest run in the store).",
+    )
+
+
+def _run_resume(test_fn, opts) -> int:
+    """The `resume` subcommand: reload a preempted run's checkpoint and
+    torn-tail-tolerant WAL, heal every fault left in the active-fault
+    ledger, and continue to the original time budget (core.resume).
+    Exit codes match `test`; a second preemption exits 143 with the
+    state saved for another resume. The device is resolved first."""
+    import os
+
+    from . import core, store
+    from .device import resolve
+
+    resolve(opts.get("device"))
+    run_dir = opts.pop("run_dir", None)
+    store_dir = opts.get("store_dir")
+    if run_dir:
+        d = os.path.abspath(run_dir)
+        if not os.path.isdir(d):
+            raise CliError(f"no such run directory: {run_dir}")
+        time_s = os.path.basename(d)
+        name = os.path.basename(os.path.dirname(d))
+        store_dir = store_dir or os.path.dirname(os.path.dirname(d))
+    else:
+        found = store._resolve_latest(store_dir)
+        if found is None:
+            raise RuntimeError("Not sure what the last test was")
+        name, time_s = found
+    test_map = _apply_checker(test_fn(dict(opts)), opts)
+    if test_map.get("name") != name:
+        raise RuntimeError(
+            f"Stored run ({name}) and CLI test ({test_map.get('name')}) "
+            "have different names; aborting")
+    test_map["start_time"] = time_s
+    if store_dir:
+        test_map["store_dir"] = store_dir
+    return _verdict_code(core.resume(test_map))
 
 
 def single_test_cmd(
@@ -297,22 +365,35 @@ def single_test_cmd(
     opt_fn: Callable[[dict], dict] | None = None,
     usage: str | None = None,
 ) -> dict:
-    """The `analyze` subcommand for a test-map constructor
-    (cli.clj:323-397), with the standard options and `--device`.
-    opt_spec adds suite-specific options; opt_fn composes after
-    test_opt_fn. The JAX package's `test` and `resume` are not here:
-    they need the test runner (`core.run`, `core.resume`), which is not
-    ported."""
+    """`test` + `analyze` + `resume` subcommands for a test-map
+    constructor (cli.clj:323-397), with the standard options and
+    `--device`. opt_spec adds suite-specific options; opt_fn composes
+    after test_opt_fn."""
     fn = (lambda o: opt_fn(test_opt_fn(o))) if opt_fn else test_opt_fn
     extra = [_device_opt] + ([opt_spec] if opt_spec else [])
     return {
+        "test": Subcommand(
+            run=lambda opts: _run_test(test_fn, opts),
+            opt_spec=test_opt_spec,
+            extra_opts=extra,
+            opt_fn=fn,
+            usage=usage or "Run a test with standard options.",
+        ),
         "analyze": Subcommand(
             run=lambda opts: _run_analyze(test_fn, opts),
             opt_spec=test_opt_spec,
             extra_opts=extra,
             opt_fn=fn,
-            usage=usage
-            or "Re-analyze the latest stored history with fresh checkers.",
+            usage="Re-analyze the latest stored history with fresh checkers.",
+        ),
+        "resume": Subcommand(
+            run=lambda opts: _run_resume(test_fn, opts),
+            opt_spec=test_opt_spec,
+            extra_opts=extra + [_resume_opt_spec],
+            opt_fn=fn,
+            usage="Resume a preempted run from its checkpoint: heal "
+            "leftover faults, reload the WAL, continue to the original "
+            "time budget.",
         ),
     }
 

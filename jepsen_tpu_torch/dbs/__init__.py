@@ -1,0 +1,18 @@
+"""Per-database test suites (reference: the per-DB projects, SURVEY.md
+§1 L9 / §2.1; the port's copy of `jepsen_tpu/dbs/`, one suite so far).
+
+Each suite module supplies, like its reference counterpart:
+  - a DB implementation (install/start/teardown through the control plane)
+  - a Client with the suite's exception-determinacy taxonomy
+  - op generators and a `*_test(opts)` test-map constructor
+  - a `main()` built from cli.single_test_cmd
+
+A suite runs against a real cluster over SSH, or on one machine against
+its in-repo protocol simulator through the same code paths (install
+archive → daemon → wire protocol), one process a node.
+"""
+
+#: suite-module registry: the suites the port has, and their modules
+SUITES = {
+    "etcd": "jepsen_tpu_torch.dbs.etcd",
+}

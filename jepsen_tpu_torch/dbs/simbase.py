@@ -1,0 +1,158 @@
+"""Shared machinery for the hermetic protocol simulators (etcd_sim,
+zk_sim): the flock-guarded JSON state store that makes a multi-process
+simulated cluster linearizable by construction, and the tarball builder
+that packages a simulator as an installable "database binary" for the
+suites' normal install_archive path.
+
+The port's copy of `jepsen_tpu/dbs/simbase.py`: it imports nothing of
+`jepsen_tpu`.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import json
+import os
+import shlex
+import sys
+import tempfile
+
+
+class Store:
+    """Shared, flock-serialized JSON state."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.lock_path = path + ".lock"
+        # Touch the lock file so flock always has a target.
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        open(self.lock_path, "a").close()
+
+    def _load(self) -> dict:
+        try:
+            with open(self.path) as f:
+                return json.load(f)
+        except (FileNotFoundError, json.JSONDecodeError):
+            return {}
+
+    def _save(self, data: dict) -> None:
+        fd, tmp = tempfile.mkstemp(
+            dir=os.path.dirname(os.path.abspath(self.path)) or "."
+        )
+        with os.fdopen(fd, "w") as f:
+            json.dump(data, f)
+        os.replace(tmp, self.path)
+
+    def transact(self, fn):
+        """Run fn(state-dict) -> (result, new-state|None) under the
+        exclusive lock; None keeps the state unchanged."""
+        with open(self.lock_path, "a") as lockf:
+            fcntl.flock(lockf, fcntl.LOCK_EX)
+            try:
+                data = self._load()
+                result, new = fn(data)
+                if new is not None:
+                    self._save(new)
+                return result
+            finally:
+                fcntl.flock(lockf, fcntl.LOCK_UN)
+
+
+class StoreTxn:
+    """An explicit multi-round-trip transaction on a Store: holds the
+    flock from begin() to commit()/rollback(), with a bounded
+    acquisition wait so contending transactions fail fast instead of
+    queueing forever (crdb_sim surfaces that as SQLSTATE 40001, the
+    shape of CockroachDB's 'restart transaction' errors)."""
+
+    def __init__(self, store: Store):
+        self.store = store
+        self._lockf = None
+        self.data: dict | None = None
+
+    @property
+    def active(self) -> bool:
+        return self._lockf is not None
+
+    def begin(self, timeout: float = 2.0) -> bool:
+        """True if the lock was acquired and a working snapshot loaded;
+        False on acquisition timeout."""
+        import time as _time
+
+        assert not self.active, "transaction already open"
+        lockf = open(self.store.lock_path, "a")
+        deadline = _time.monotonic() + timeout
+        while True:
+            try:
+                fcntl.flock(lockf, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except OSError:
+                if _time.monotonic() >= deadline:
+                    lockf.close()
+                    return False
+                _time.sleep(0.005)
+        self._lockf = lockf
+        self.data = self.store._load()
+        return True
+
+    def commit(self) -> None:
+        assert self.active, "no transaction open"
+        try:
+            self.store._save(self.data)
+        finally:
+            self._release()
+
+    def rollback(self) -> None:
+        if self.active:
+            self._release()
+
+    def _release(self) -> None:
+        fcntl.flock(self._lockf, fcntl.LOCK_UN)
+        self._lockf.close()
+        self._lockf = None
+        self.data = None
+
+
+def build_sim_archive(dest: str, module: str, binary: str, arcname: str,
+                      data_path: str, mean_latency: float = 0.0,
+                      python: str | None = None) -> str:
+    """Build a tar.gz whose `binary` is a script launching `module`
+    (a jepsen_tpu_torch.dbs simulator) with a shared state file."""
+    return build_multi_sim_archive(
+        dest, arcname, {binary: module}, data_path,
+        mean_latency=mean_latency, python=python)
+
+
+def build_multi_sim_archive(dest: str, arcname: str, binaries: dict,
+                            data_path: str, mean_latency: float = 0.0,
+                            python: str | None = None) -> str:
+    """Build a tar.gz containing SEVERAL launcher scripts — the shape
+    of multi-daemon systems (tidb's pd/tikv/tidb triple, mysql
+    cluster's mgmd/ndbd/mysqld roles). `binaries` maps binary name ->
+    jepsen_tpu_torch.dbs module; every script shares the same state file so
+    the role daemons and the SQL daemon see one cluster."""
+    import tarfile
+
+    python = python or sys.executable
+    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    os.makedirs(os.path.dirname(os.path.abspath(dest)) or ".", exist_ok=True)
+    with tempfile.TemporaryDirectory() as td:
+        top = os.path.join(td, arcname)
+        os.makedirs(top)
+        for binary, module in binaries.items():
+            script = (
+                "#!/bin/bash\n"
+                f"export PYTHONPATH={shlex.quote(repo_root)}:$PYTHONPATH\n"
+                f"exec {shlex.quote(python)} -m {module} "
+                f"--data {shlex.quote(data_path)} "
+                f"--mean-latency {mean_latency} "
+                "\"$@\"\n"
+            )
+            bin_path = os.path.join(top, binary)
+            with open(bin_path, "w") as f:
+                f.write(script)
+            os.chmod(bin_path, 0o755)
+        with tarfile.open(dest, "w:gz") as tar:
+            tar.add(top, arcname=arcname)
+    return dest

@@ -1,6 +1,6 @@
-"""Key-space sharding: lift single-key checkers to many independent keys
-(reference: jepsen.independent; the port's copy of the checking half of
-`jepsen_tpu.independent`).
+"""Key-space sharding: lift single-key workloads and checkers to many
+independent keys (reference: jepsen.independent; the port's copy of
+`jepsen_tpu.independent`: the keyed generators and the checker).
 
 Values are wrapped in KVTuple(key, v); a key's subhistory keeps every
 op whose value is NOT a tuple for a different key (so nemesis/info ops
@@ -18,8 +18,10 @@ from __future__ import annotations
 
 import hashlib
 import logging
-from typing import NamedTuple
+import threading
+from typing import Callable, Iterable, NamedTuple
 
+from . import generator as gen
 from .checker import Checker, check_safe, merge_valid
 from .history import Op, op as to_op
 from .util import bounded_pmap, bounded_pmap_processes
@@ -40,6 +42,129 @@ def tuple_(k, v) -> KVTuple:
 
 def is_tuple(v) -> bool:
     return isinstance(v, KVTuple)
+
+
+def _wrap(o: dict, k) -> dict:
+    o = dict(o)
+    o["value"] = KVTuple(k, o.get("value"))
+    return o
+
+
+class SequentialGenerator(gen.Generator):
+    """One key at a time: serve ops from fgen(k1) until exhausted, then
+    move to k2 ... (independent.clj:31-64)."""
+
+    def __init__(self, keys: Iterable, fgen: Callable):
+        self._keys = iter(keys)
+        self._fgen = fgen
+        self._lock = threading.Lock()
+        self._current = None  # (k, gen)
+        self._done = False
+        self._advance()
+
+    def _advance(self):
+        try:
+            k = next(self._keys)
+            self._current = (k, gen.to_gen(self._fgen(k)))
+        except StopIteration:
+            self._current = None
+            self._done = True
+
+    def op(self, test, process):
+        while True:
+            with self._lock:
+                if self._done:
+                    return None
+                k, g = self._current
+            o = g.op(test, process)
+            if o is not None:
+                return _wrap(o, k)
+            with self._lock:
+                if not self._done and self._current[0] == k:
+                    self._advance()
+
+
+def sequential_generator(keys, fgen) -> SequentialGenerator:
+    return SequentialGenerator(keys, fgen)
+
+
+class ConcurrentGenerator(gen.Generator):
+    """n threads per key, thread-count/n keys in flight at once; each
+    group of n contiguous threads works through keys, rebinding *threads*
+    so barriers inside per-key generators span exactly that group
+    (independent.clj:66-220). Requires concurrency to be a multiple of n;
+    the nemesis never enters sub-generators."""
+
+    def __init__(self, n: int, keys: Iterable, fgen: Callable):
+        assert n > 0 and isinstance(n, int)
+        self.n = n
+        self._keys = iter(keys)
+        self._fgen = fgen
+        self._lock = threading.Lock()
+        self._state = None  # {"active": [...], "group_threads": [...]}
+
+    def _next_key(self):
+        try:
+            k = next(self._keys)
+            return (k, gen.to_gen(self._fgen(k)))
+        except StopIteration:
+            return None
+
+    def _init(self, test):
+        threads = gen.current_threads()
+        if threads is None:
+            threads = list(range(test["concurrency"]))
+        threads = [t for t in threads if isinstance(t, int)]
+        thread_count = len(threads)
+        assert sorted(threads) == list(range(thread_count)), (
+            "concurrent_generator expects integer threads 0..n"
+        )
+        group_size = self.n
+        group_count = thread_count // group_size
+        assert group_size <= thread_count, (
+            f"with {thread_count} worker threads, cannot run a key with "
+            f"{group_size} threads concurrently; raise concurrency"
+        )
+        assert thread_count == group_size * group_count, (
+            f"{thread_count} threads cannot be split into groups of "
+            f"{group_size}; make concurrency a multiple of {group_size}"
+        )
+        self._state = {
+            "active": [self._next_key() for _ in range(group_count)],
+            "group_threads": [
+                threads[g * group_size : (g + 1) * group_size]
+                for g in range(group_count)
+            ],
+        }
+
+    def op(self, test, process):
+        with self._lock:
+            if self._state is None:
+                self._init(test)
+            s = self._state
+        thread = gen.process_to_thread(test, process)
+        assert isinstance(thread, int), (
+            f"only integer worker threads may draw from "
+            f"concurrent_generator, got {thread!r}"
+        )
+        group = thread // self.n
+        while True:
+            with self._lock:
+                pair = s["active"][group]
+            if pair is None:
+                return None
+            k, g = pair
+            with gen.with_threads(s["group_threads"][group]):
+                o = g.op(test, process)
+            if o is not None:
+                return _wrap(o, k)
+            with self._lock:
+                if s["active"][group] is pair:
+                    s["active"][group] = self._next_key()
+
+
+def concurrent_generator(n, keys, fgen) -> ConcurrentGenerator:
+    return ConcurrentGenerator(n, keys, fgen)
 
 
 def history_keys(history) -> set:

@@ -40,6 +40,7 @@ package's scalar K2 search (`jepsen_tpu/ops/wgl_tpu.py`).
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -63,7 +64,10 @@ MAX_LANES_PER_BLOCK = 8      # warps a block holds (as wgl_row.cu)
 MODEL_IDS = {"cas-register": 0, "register": 1, "mutex": 2}
 
 #: kernel launches so far (one per `search` call on a CUDA tensor)
+#: (counted under _COUNTING: checkers launch from many threads at
+#: once, e.g. one a key under independent.checker)
 LAUNCHES = 0
+_COUNTING = threading.Lock()
 #: when a list, every launch appends its (start, end) CUDA events
 TIMED: list | None = None
 #: when a list, every `search` call appends its arguments (packed,
@@ -184,6 +188,13 @@ def build(device=None):
                        _SIG)
 
 
+def _count() -> None:
+    """One more launch (a read-modify-write: under the lock)."""
+    global LAUNCHES
+    with _COUNTING:
+        LAUNCHES += 1
+
+
 def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
            cache_bits: int = CACHE_BITS) -> torch.Tensor:
     """One WGL search launch over the lanes of `packed` ((lanes, rows)
@@ -196,10 +207,10 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
     them out and its memo key rows in device memory; this raises if the
     plan does not fit a block or the build or the launch fails. CPU
     tensors run `search_plain`."""
-    global LAUNCHES
     _check_inputs(packed, msteps, jm, n_pad, cache_bits)
     if CAPTURE is not None:
-        CAPTURE.append((packed, msteps, jm, n_pad, cache_bits))
+        with _COUNTING:
+            CAPTURE.append((packed, msteps, jm, n_pad, cache_bits))
     if packed.device.type == "cpu":
         return search_plain(packed, msteps, jm, n_pad, cache_bits)
     if packed.device.type != "cuda":
@@ -232,7 +243,7 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
         if TIMED is not None:
             ev[1].record(stream)
             TIMED.append(ev)
-    LAUNCHES += 1
+    _count()
     return small
 
 

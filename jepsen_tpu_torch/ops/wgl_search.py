@@ -72,6 +72,7 @@ results equal one device's.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -99,7 +100,10 @@ MODEL_IDS = {"cas-register": 0, "register": 1, "mutex": 2,
              "unordered-queue": 3, "fifo-queue": 4}
 
 #: kernel launches so far (one per `search` call on a CUDA tensor)
+#: (counted under _COUNTING: checkers launch from many threads at
+#: once, e.g. one a key under independent.checker)
 LAUNCHES = 0
+_COUNTING = threading.Lock()
 #: when a list, every launch appends its (start, end) CUDA events
 TIMED: list | None = None
 #: when a list, every `search` call appends its arguments (packed,
@@ -473,6 +477,13 @@ def _launch(lib, packed, msteps, small, scratch, jm, n_pad: int,
         _init_state(jm), _plan_words(n_pad, plan, lay), stream)
 
 
+def _count() -> None:
+    """One more launch (a read-modify-write: under the lock)."""
+    global LAUNCHES
+    with _COUNTING:
+        LAUNCHES += 1
+
+
 def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
            n_state: int, cache_bits: int = DEFAULT_CACHE_BITS
            ) -> torch.Tensor:
@@ -489,10 +500,10 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
     `lanes_per_launch`), and KernelError when the launch fails (a plan
     over the device's shared memory included). CPU tensors run
     `search_plain`."""
-    global LAUNCHES
     _check_inputs(packed, msteps, jm, n_pad, n_state, cache_bits)
     if CAPTURE is not None:
-        CAPTURE.append((packed, msteps, jm, n_pad, n_state, cache_bits))
+        with _COUNTING:
+            CAPTURE.append((packed, msteps, jm, n_pad, n_state, cache_bits))
     if packed.device.type == "cpu":
         return search_plain(packed, msteps, jm, n_pad, n_state, cache_bits)
     if packed.device.type != "cuda":
@@ -528,7 +539,7 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
         if TIMED is not None:
             ev[1].record(stream)
             TIMED.append(ev)
-    LAUNCHES += 1
+    _count()
     return small
 
 

@@ -55,6 +55,7 @@ laid out and dealt again for pass 2. A device may repeat in the list.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -89,7 +90,10 @@ MODEL_IDS = {"cas-register": 0, "register": 1, "mutex": 2,
              "unordered-queue": 3, "fifo-queue": 4}
 
 #: kernel launches so far (one per `search` call on a CUDA tensor)
+#: (counted under _COUNTING: checkers launch from many threads at
+#: once, e.g. one a key under independent.checker)
 LAUNCHES = 0
+_COUNTING = threading.Lock()
 #: when a list, every launch appends its (start, end) CUDA events, so a
 #: caller can read the kernel's own time on the card
 TIMED: list | None = None
@@ -406,6 +410,13 @@ def build(device=None):
                        _SIG)
 
 
+def _count() -> None:
+    """One more launch (a read-modify-write: under the lock)."""
+    global LAUNCHES
+    with _COUNTING:
+        LAUNCHES += 1
+
+
 def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
            n_state: int = 1, cache_slots: int = CACHE_SLOTS,
            lanes: int | None = None):
@@ -422,10 +433,10 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
     `launch_plan` lays them out (at most `lanes` lanes a block when
     given); this raises if the plan does not fit a block or the build or
     the launch fails. CPU tensors run `search_plain`."""
-    global LAUNCHES
     _check_inputs(packed, msteps, jm, n_pad, n_state, cache_slots)
     if CAPTURE is not None:
-        CAPTURE.append((packed, msteps, jm, n_pad, n_state, cache_slots))
+        with _COUNTING:
+            CAPTURE.append((packed, msteps, jm, n_pad, n_state, cache_slots))
     if packed.device.type == "cpu":
         return search_plain(packed, msteps, jm, n_pad, n_state, cache_slots)
     if packed.device.type != "cuda":
@@ -454,7 +465,7 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
         if TIMED is not None:
             ev[1].record(stream)
             TIMED.append(ev)
-    LAUNCHES += 1
+    _count()
     return small, best
 
 

@@ -8,7 +8,8 @@ analysis journal written by one package reads in the other
     store/<test-name>/<start-time>/
         jepsen.log       engine log for the run          (store.clj:398-418)
         history.txt      human-readable op log           (store.clj:340-357)
-        history.jsonl    one JSON op per line (the EDN history analog)
+        history.jsonl    one JSON op per line (the EDN history analog;
+                         a keyed op is stamped ``_kv``, see op_record)
         history.npz      TensorHistory, the flat int64 encoding
         test.json        serializable test-map snapshot  (store.clj:167-175)
         results.json     analysis results                (store.clj:336-339)
@@ -237,7 +238,9 @@ class HistoryWAL:
     resumed run reopens the same file in append mode under epoch
     last+1, so ``load_history`` can reindex deterministically across
     sessions instead of colliding op indices. The stamp is an engine
-    key, stripped before ops are rebuilt.
+    key, stripped before ops are rebuilt; a keyed op also carries
+    ``_kv`` (see ``op_record``), so a resumed keyed run gets its prior
+    ops back keyed, as its new ops are.
 
     The fsync policy is configurable (``test["wal_fsync"]`` or the
     ``fsync`` argument): ``"op"`` fsyncs every line (maximum
@@ -304,7 +307,7 @@ class HistoryWAL:
             if self._f is None:
                 return
             try:
-                rec = op.to_dict()
+                rec = op_record(op)
                 rec["_epoch"] = self.epoch
                 self._f.write(json.dumps(rec, default=_json_default))
                 self._f.write("\n")
@@ -493,7 +496,7 @@ def write_history(test) -> None:
     p = path_(test, "history.jsonl")
     with open(p, "w") as f:
         for o in hist:
-            f.write(json.dumps(o.to_dict(), default=_json_default))
+            f.write(json.dumps(op_record(o), default=_json_default))
             f.write("\n")
     schema = test.get("schema")
     if schema is not None:
@@ -605,7 +608,8 @@ def load_history(test) -> list[Op]:
     p = path(test, "history.jsonl")
     if os.path.exists(p):
         with open(p) as f:
-            return [Op.from_dict(json.loads(line)) for line in f if line.strip()]
+            return [record_op(json.loads(line)) for line in f
+                    if line.strip()]
     p = path(test, "history.npz")
     if os.path.exists(p):
         return TensorHistory.load(p).decode()
@@ -615,19 +619,47 @@ def load_history(test) -> list[Op]:
     raise FileNotFoundError(f"no stored history under {path(test)}")
 
 
+def _kvtuple():
+    """independent.KVTuple (imported on first use: independent imports
+    the checkers, which import torch)."""
+    from .independent import KVTuple
+
+    return KVTuple
+
+
+def op_record(op: Op) -> dict:
+    """An op as the JSON record that history.jsonl and the WAL hold. A
+    value that is an independent key's tuple is stamped ``_kv``: JSON
+    keeps the tuple as a [key, value] list, and the stamp is how a
+    reader keys it again. An unkeyed op's record is the JAX package's
+    byte for byte (that package writes no ``_kv``)."""
+    rec = op.to_dict()
+    if isinstance(op.value, _kvtuple()):
+        rec["_kv"] = True
+    return rec
+
+
+def record_op(rec: dict) -> Op:
+    """The op of a history.jsonl or WAL record: the "_"-prefixed engine
+    stamps are stripped before the op is rebuilt (Op.from_dict would
+    otherwise shelve them under .extra), and a value stamped ``_kv`` is
+    keyed again, so both files give a keyed run's ops back keyed."""
+    kv = rec.pop("_kv", False)
+    for k in [k for k in rec if isinstance(k, str) and k.startswith("_")]:
+        del rec[k]
+    op = Op.from_dict(rec)
+    return op.with_(value=_kvtuple()(*op.value)) if kv else op
+
+
 def _parse_wal_line(line: str) -> tuple[int, Op] | None:
     """One WAL line as an (epoch, op) pair, or None for a torn/blank
-    line. Strips the "_"-prefixed engine stamps before the op is
-    rebuilt (Op.from_dict would otherwise shelve them under .extra)."""
+    line."""
     if not line.strip():
         return None
     try:
         rec = json.loads(line)
         epoch = int(rec.pop("_epoch", 0))
-        for k in [k for k in rec
-                  if isinstance(k, str) and k.startswith("_")]:
-            del rec[k]
-        return (epoch, Op.from_dict(rec))
+        return (epoch, record_op(rec))
     except (ValueError, KeyError, TypeError, AttributeError):
         # torn tail from a mid-write kill: salvage the prefix
         log.warning("WAL: dropping unparseable line %r", line[:80])

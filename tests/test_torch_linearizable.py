@@ -334,7 +334,10 @@ def test_port_imports_no_jax():
     multi-device engines dealt over CPU entries, the mesh crossover's
     bars and the doctor; every registered checker, the host checkers,
     the bank, adya, long_fork and causal checkers, core.analyze, and the
-    analyze and fuzz subcommands; and every module of those) load neither jax
+    analyze and fuzz subcommands; the test runner's modules (generator,
+    client, db, osenv, net, osdist, control, nemesis, testlib, the etcd
+    suite and its simulator) and a core.run of testlib's cas test; and
+    every module of those) load neither jax
     nor any module of the JAX package (jepsen_tpu_torch's own name shares
     the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -496,6 +499,18 @@ def test_port_imports_no_jax():
             assert cli.run_cli(cli.fuzz_cmd(), [
                 "fuzz", "--corpus-dir", td + "/fz2", "--rounds", "1",
                 "--clusters", "4", "--device", "cpu"]) == 0
+        from jepsen_tpu_torch import (client, db, generator, net, osdist,
+                                      osenv, testlib)
+        from jepsen_tpu_torch import nemesis as nem
+        from jepsen_tpu_torch.control import net as cnet, util as cutil
+        from jepsen_tpu_torch.dbs import common, etcd, etcd_sim, simbase
+        importlib.import_module("jepsen_tpu_torch.dbs.__main__")
+        t = testlib.cas_test(name=None, device="cpu",
+                             checker=linearizable(algorithm="host",
+                                                  device="cpu"))
+        assert core.run(t)["results"]["valid"] is True
+        assert etcd.etcd_test({"nodes": ["n1"], "device": "cpu"})[
+            "name"] == "etcd"
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
