@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--only crossover|closure|fuzz|linear|store|online|serve|mesh|checkers
-                |runner]
+                |runner|faults]
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -95,10 +95,11 @@ the sacrificial child's `run_one` on the same blamed job, and the warm
 pass (the same fixed inputs as `ensure()`'s). Then the `mesh` phase,
 the multi-device engines over the device list ["cuda:0"] * 2 and * 3
 (one card dealt as several; the routes opened by `device.devices()`
-answering that list): K2's deal of main_register_search's 4096 lanes
-and of main_fifo_long's 16 fifo lanes through the `wgl_mesh` route of
+answering that list): K2's deal of 2,048 register lanes (64
+invocations, every 8th key bad) and of main_fifo_long's 16 fifo lanes
+through the `wgl_mesh` route of
 `linearizable(..., algorithm="gpu_search")`, K1's block shards of the
-register cell's 4096 lanes, the cycle checker's `closure_mesh` route on
+same 2,048 lanes, the cycle checker's `closure_mesh` route on
 cycle_append and cycle_append_20k's bucket fixpoints dealt over K3's
 row blocks, and `doctor.diagnose(devices=["cuda:0"] * 2)`: every dealt
 result equal to one device's, every shard launch held bit for bit
@@ -108,7 +109,7 @@ each on a history from a seeded maker here (5 clients, 8 % of
 completions :info): adya's G2 checker on 8,192 keys of insert pairs
 (128 planted double inserts), long_fork's on 4,096 keys (a fork planted
 in every 64th group), causal's (the causal replay and the value-order
-cycle checker composed, a key a thread) on 1,024 keys (16 stale reads),
+cycle checker composed, a key a thread) on 512 keys (8 stale reads),
 each dict equal to the one on device="cpu" (and adya's counts and
 long_fork's validity to the legacy paths'), causal's first 64 keys
 again under independent.checker(processes=2) in spawned workers (equal
@@ -124,7 +125,7 @@ and an empty kernel's launch timed as the launch floor (`--only
 checkers`). Then the `runner` phase, the test runner end to end: the
 etcd suite's `test` subcommand (`cli.single_test_cmd`) on five
 simulated members, one process a node over LocalRemote, 20 workers,
-etcd's r/w/cas workload for 30 s, its checker a key at a time on K1 or
+etcd's r/w/cas workload for 15 s, its checker a key at a time on K1 or
 K5 with every bar at 1: exit 0 and valid, the wall split into
 provision, workers, save, analyze and teardown; `analyze` over its
 store under every bar at 1 and under the committed bars, the same
@@ -133,7 +134,20 @@ each of two keys: exit 1, exactly those keys refuted; and, under
 `--only runner` only (the whole script would pass its 1200-s
 limit), the same test in a subprocess SIGTERMed 5 s into its ops (exit
 143), then `resume` here (exit 0, valid, the first session's ops then
-the second's); every K1 and K5 launch held against its plain version. Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
+the second's); every K1 and K5 launch held against its plain version.
+Then the `faults` phase, the fault layer under the same suite, cluster
+and workload: `test --nemesis kill,pause,partition,clock,corruption
+--seed 0` (8 fault ops 1.5 s apart, a 15-s limit, a 3-s stability
+window): exit 0, every key True, the recovery checker valid with kill,
+pause, partition and corruption seen, a member's pid changed by a kill,
+the nemesis ops a prefix of `combined.materialize_schedule`'s document
+then its heal ops; then one fuzz-loop round of 256 clusters on the card,
+its entry with the most fault families rendered by
+`fuzz.schedule.to_nemesis_doc` and replayed by `test
+--nemesis-schedule`: the nemesis ops exactly the document's; clock
+faults go to a recording setter, never to this machine's clock; every
+K4, K3 and K1 launch held against its plain version (`--only faults`).
+Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
 wgl_search also the tables in shared memory, scratch bytes and the share
@@ -173,7 +187,14 @@ STEP_OPS = 64
 BF16_FLOPS_PER_S = 989e12
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries `at_s`, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1860,7 +1881,7 @@ CROSSOVER_K2_LANES = 16
 CROSSOVER_QUEUE_SEEDS = 64
 CROSSOVER_REPS = 7
 SMOKE_CROSSOVER_QUEUE_SEEDS = 16
-SMOKE_CROSSOVER_REPS = 3
+SMOKE_CROSSOVER_REPS = 2
 
 
 def timed(fn, reps: int):
@@ -2609,9 +2630,10 @@ def phase_linear(args, kernels, search) -> None:
                   "cap": COMPETITION_CAP, "matches_plain": True}}})
 
 
-# the store phase's sizes: the register cell (BASELINE.md:18), the
-# cycle_append history, the fuzz loop's round (FuzzLoop's default)
-STORE_KEYS = 4096
+# the store phase's sizes: the register cell's shape at half its keys
+# (BASELINE.md:18 has 4096), the cycle_append history, the fuzz loop's
+# round (FuzzLoop's default)
+STORE_KEYS = 2048
 STORE_INVOCATIONS = 64
 STORE_CYCLE_OPS = 5000
 STORE_FUZZ_CLUSTERS = 256
@@ -2647,7 +2669,7 @@ def store_test(td: str, name: str) -> dict:
 
 
 def store_register(args, kernels, td: str) -> dict:
-    """The register cell (4096 keys x 64 invocations, every 8th key with
+    """STORE_KEYS register keys x 64 invocations (every 8th key with
     an impossible read) through independent.checker(linearizable(
     CASRegister(), "auto")) with every bar at 1 and a store dir and
     journal: run 1 writes results.edn and history.txt for every key and
@@ -3317,10 +3339,10 @@ def phase_online(args, kernels, ck) -> None:
 # -- the multi-device engines over a repeated device list ---------------
 
 # how many ways each engine is dealt: ["cuda:0"] * n (3 leaves empty
-# lanes in K2's chunks and pads K1's 32 blocks to 33)
+# lanes in K2's chunks and pads K1's 16 blocks to 18)
 MESH_WAYS = (2, 3)
-# the register cell's keys and invocations a key (main_register's)
-MESH_KEYS = 4096
+# register keys and invocations a key (half of main_register's keys)
+MESH_KEYS = 2048
 MESH_INVOCATIONS = 64
 
 
@@ -3381,7 +3403,7 @@ def mesh_line(mk, cell, wall, one_wall, seen, **fields) -> dict:
 def phase_mesh_k2(args, kernels, mk) -> None:
     """K2's deal through the `wgl_mesh` route of
     `independent.checker(linearizable(..., algorithm="gpu_search"))`:
-    main_register_search's 4096 register lanes over ["cuda:0"] * 2 and
+    MESH_KEYS register lanes over ["cuda:0"] * 2 and
     * 3, and main_fifo_long's 16 invalid fifo lanes over * 3 (the route's
     bar pinned to 1 for them); each dealt run a main path whose launches
     (one a chunk) are replayed through the kernel and the plain version
@@ -3423,10 +3445,10 @@ def phase_mesh_k2(args, kernels, mk) -> None:
 
 
 def phase_mesh_k1(args, kernels, mk) -> None:
-    """K1's block shards: the register cell's 4096 lanes (64
-    invocations, every 8th with an impossible first read; 32 blocks)
-    through `wgl_vec.analysis_batch(..., devices=["cuda:0"] * n)`, n 2
-    and 3 (3 pads the blocks to 33), each a main path whose shard
+    """K1's block shards: MESH_KEYS register lanes (64 invocations,
+    every 8th with an impossible first read; 16 blocks) through
+    `wgl_vec.analysis_batch(..., devices=["cuda:0"] * n)`, n 2 and 3 (3
+    pads the blocks to 18), each a main path whose shard
     launches are replayed through the kernel and the plain version, its
     results (verdict, steps, op, best linearization) the one-device
     run's."""
@@ -3657,7 +3679,7 @@ CHECKER_INFO = 0.08
 PLANT_EVERY = 64
 ADYA_KEYS = 8192
 LONG_FORK_KEYS = 4096
-CAUSAL_KEYS = 1024
+CAUSAL_KEYS = 512
 # keys of causal's history checked by spawned workers, and the workers
 CAUSAL_PROCESS_KEYS = 64
 CAUSAL_WORKERS = 2
@@ -4155,8 +4177,8 @@ def analyze_store(kernels, td, name, hist, chk, argv, test_fn) -> dict:
 
 
 def checkers_analyze(args, kernels) -> dict:
-    """`analyze` on two stores on the card: the register cell (4096 keys
-    x 64 invocations, every 8th key bad) written by the port's
+    """`analyze` on two stores on the card: STORE_KEYS register keys
+    x 64 invocations (every 8th key bad) written by the port's
     IndependentChecker with every bar at 1 (K1), analysed with the
     suite's checker (`--checker` would replace the per-key checker with
     one linearizable over the whole keyed history, in both packages);
@@ -4288,7 +4310,7 @@ def phase_checkers(args, kernels, ck, sim) -> None:
 # multiple, in both packages). So 20 workers (4n): 2 keys in flight.
 RUNNER_NODES = [f"n{i}" for i in range(1, 6)]
 RUNNER_CONCURRENCY = "4n"
-RUNNER_TIME_LIMIT = 30
+RUNNER_TIME_LIMIT = 15
 PLANTED_TIME_LIMIT = 5
 # keys of the planted run whose reads go stale once (both among the first
 # three keys the workers take, 2 at a time, so reached within the limit)
@@ -4736,6 +4758,241 @@ def phase_runner(args, kernels, resume: bool = True) -> None:
           "nvidia_smi": args.smi})
 
 
+# The faults phase: the fault layer (nemesis/combined.py) under the etcd
+# suite on the runner phase's cluster and workload (5 members, 20
+# workers, 10 threads and 300 ops a key, every bar at 1). Partition and
+# packet faults are recorded and healed on the no-op network (members
+# of the simulator share one state file and no links); kill, pause and
+# corruption act on the member processes and their logs; clock faults go
+# to the recipe's recording setter (etcd_sim.recording_clock), never to
+# this machine's clock.
+FAULTS_TIME_LIMIT = 15
+FAULTS_STABILITY_S = 3.0
+FAULTS_FAMILIES = ("kill", "pause", "partition", "clock", "corruption")
+FAULTS_INTERVAL = 1.5
+FAULTS_OPS = 8
+# the composed cell's fault families that must have fired
+FAULTS_SEEN = {"kill", "pause", "partition", "corruption"}
+# the fuzz-to-replay cell: one fuzz-loop round of FuzzLoop's default 256
+# clusters, its entry with the most fault families rendered with a
+# txn-slot of 0.5 s (DEFAULT_SPEC's 24 slots: ~12 s of faults)
+REPLAY_CLUSTERS = 256
+REPLAY_INTERVAL = 0.5
+
+
+def faults_cmd(cluster, pids: dict) -> dict:
+    """single_test_cmd over the etcd suite on `cluster` with the faults'
+    suite options (fault_ops, the stability window), each member's pid
+    appended to pids[node] after every start of it (setup and each
+    restart)."""
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.dbs import etcd, etcd_sim
+
+    base = etcd_sim.local_test_fn(cluster, suite_opts={
+        "fault_ops": FAULTS_OPS, "stability_period": FAULTS_STABILITY_S})
+
+    def test_fn(opts):
+        t = base(opts)
+        db, start = t["db"], t["db"].start
+
+        def recorded(test, node):
+            start(test, node)
+            with open(db._pidfile(test, node)) as f:
+                pids.setdefault(node, []).append(int(f.read().strip()))
+
+        db.start = recorded
+        return t
+
+    return cli.single_test_cmd(test_fn, opt_spec=etcd._opt_spec)
+
+
+def nemesis_events(run_dir: str) -> list:
+    """The (f, value) of each nemesis op the stored run invoked, in order
+    (one nemesis worker: each invocation is followed by its completion),
+    a corruption spec's path left out (the document's is a placeholder
+    the run fills from its corrupt_paths)."""
+    from jepsen_tpu_torch import store
+
+    hist = store.load_history({
+        "name": os.path.basename(os.path.dirname(run_dir)),
+        "start_time": os.path.basename(run_dir),
+        "store_dir": os.path.dirname(os.path.dirname(run_dir))})
+    ops = [o for o in hist if o.process == "nemesis"]
+    assert len(ops) % 2 == 0, len(ops)
+    return [event(o.f, json.loads(json.dumps(o.value))) for o in ops[0::2]]
+
+
+def event(f, value) -> tuple:
+    if f == "corrupt-file":
+        value = [{k: v for k, v in s.items() if k != "path"}
+                 for s in value or []]
+    return f, value
+
+
+def faults_run(args, kernels, td: str, name: str, *extra) -> dict:
+    """One `test` on a fresh cluster of RUNNER_NODES with every bar at 1
+    and `extra` arguments: its exit code, wall, launches (`seen`), wall
+    split, run dir, results, per-key verdicts, member pids, clock setter
+    calls and native finishes."""
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.dbs import etcd_sim
+
+    lin = lin_module()
+    root = os.path.join(td, name)
+    sd = os.path.join(root, "store")
+    cluster = etcd_sim.local_cluster(root, RUNNER_NODES)
+    pids: dict = {}
+    argv = runner_argv("test", sd, FAULTS_TIME_LIMIT, args.runner_device,
+                       *extra)
+    f0 = lin.NATIVE_FINISH
+    try:
+        with card_bars(1), RunnerWall() as rw:
+            rc, wall, seen = run_path(kernels, lambda: cli.run_cli(
+                faults_cmd(cluster, pids), argv))
+    finally:
+        stop_members(root)
+    run_dir = os.path.realpath(os.path.join(sd, "etcd", "latest"))
+    with open(os.path.join(run_dir, "results.json")) as f:
+        results = json.load(f)
+    return {"rc": rc, "wall": wall, "seen": seen, "split": rw.split,
+            "run_dir": run_dir, "results": results,
+            "keys": {k: r["linear"]["valid"] for k, r in
+                     results["workload"]["indep"]["results"].items()},
+            "pids": pids, "clock_sets": cluster.get("clock_sets", []),
+            "native": lin.NATIVE_FINISH - f0}
+
+
+def faults_line(kernels, cell, run: dict, **fields) -> dict:
+    """Hold a fault cell's run (exit 0, every key True on the card, no
+    unknown, the recovery checker valid with its figures apart from the
+    per-key and perf verdicts) and return its line: runner_line's
+    figures, the ops, the faults that fired, K1's lanes at the cap and
+    native finishes."""
+    keys, split, results = run["keys"], run["split"], run["results"]
+    counts = runner_history(run["run_dir"])
+    verdicts = verdict_counts(keys.values())
+    rec = results["recovery"]
+    assert run["rc"] == 0, run["rc"]
+    assert keys and all(v is True for v in keys.values()), verdicts
+    assert rec["valid"] is True, rec
+    seen = run["seen"]
+    assert seen["wgl_vec"][0] + seen["wgl_row"][0] > 0, "no K1/K5 launch"
+    wl = results["workload"]
+    verdict = runner_verdict(wl, True)
+    fired: dict = {}
+    for f, _ in nemesis_events(run["run_dir"]):
+        fired[f] = fired.get(f, 0) + 1
+    line = runner_line(
+        kernels, cell, run["rc"], run["wall"], seen, nodes=len(RUNNER_NODES),
+        concurrency=4 * len(RUNNER_NODES), time_limit_s=FAULTS_TIME_LIMIT,
+        stability_s=FAULTS_STABILITY_S, bars=1, split=split, **counts,
+        ops_per_s=counts["completed"] / split["run_case_s"],
+        keys=len(keys), verdicts=verdicts, **verdict,
+        workload_valid=wl["valid"], composed_valid=results["valid"],
+        recovery={k: rec[k] for k in ("valid", "faults_seen",
+                                      "post_heal_ok_count", "unhealed")},
+        nemesis_fired=fired,
+        kill_pause_corrupt={f: fired.get(f, 0)
+                            for f in ("kill", "pause", "corrupt-file")},
+        member_pids=run["pids"], clock_sets=len(run["clock_sets"]),
+        native_finish=run["native"], **fields)
+    line["capped_lanes"] = {k.name: k.cells[cell]["capped_lanes"]
+                            for k in wgl(kernels) if cell in k.cells}
+    return line
+
+
+def faults_etcd_composed(args, kernels, td: str) -> None:
+    """`test --nemesis kill,pause,partition,clock,corruption --seed 0`:
+    held by faults_line, the families of FAULTS_SEEN seen by the
+    recovery checker, a member's pid changed by a kill and restart, and
+    the run's nemesis ops a prefix of materialize_schedule's events for
+    the same options, then its final ops."""
+    from jepsen_tpu_torch.nemesis import combined
+
+    run = faults_run(
+        args, kernels, td, "composed", "--nemesis", ",".join(FAULTS_FAMILIES),
+        "--seed", str(args.seed), "--nemesis-interval", str(FAULTS_INTERVAL))
+    doc = combined.materialize_schedule(
+        faults=list(FAULTS_FAMILIES), seed=args.seed,
+        interval=FAULTS_INTERVAL, fault_ops=FAULTS_OPS, nodes=RUNNER_NODES)
+    events = [event(e["f"], e["value"]) for e in doc["events"]]
+    final = [event(e["f"], e["value"]) for e in doc["final"]]
+    got = nemesis_events(run["run_dir"])
+    main = len(got) - len(final)
+    assert 0 < main <= len(events), (len(got), len(events))
+    assert got[:main] == events[:main], (got, events)
+    assert got[main:] == final, (got[main:], final)
+    seen_fams = run["results"]["recovery"]["faults_seen"]
+    assert FAULTS_SEEN <= {f for f, n in seen_fams.items() if n}, seen_fams
+    restarted = sorted(n for n, ps in run["pids"].items()
+                       if len(set(ps)) > 1)
+    assert restarted, run["pids"]
+    emit(faults_line(
+        kernels, "faults_etcd_composed", run,
+        nemesis=",".join(FAULTS_FAMILIES), seed=args.seed,
+        interval_s=FAULTS_INTERVAL, fault_ops=FAULTS_OPS,
+        schedule_events_run=main, schedule_events=len(events),
+        schedule_prefix=True, final_ops=[f for f, _ in final],
+        restarted_members=restarted))
+
+
+def faults_fuzz_replay(args, kernels, ck, sim, td: str) -> None:
+    """One fuzz-loop round on the card (K4, then K3 in the score batch:
+    every launch held against its plain version), its corpus entry with
+    the most fault families (the lowest id on ties) rendered by
+    to_nemesis_doc onto RUNNER_NODES, then `test --nemesis-schedule` of
+    that document: held by faults_line, the run's nemesis ops the
+    document's events then its final ops."""
+    from jepsen_tpu_torch.fuzz import loop
+    from jepsen_tpu_torch.fuzz.schedule import (dump_schedule_file,
+                                                families_of,
+                                                schedule_from_lists)
+
+    lp = loop.FuzzLoop(os.path.join(td, "corpus"), clusters=REPLAY_CLUSTERS,
+                       seed=args.seed)
+    with recorded_sim_batches() as batches:
+        stats, round_s, fseen = run_path(kernels, lp.run_round)
+    assert fseen["sim"][0] == 1, fseen["sim"][0]
+    held_rounds = hold_sim_batches(sim, batches, "faults_fuzz_replay", fseen,
+                                   "the faults phase's fuzz round")
+    buckets = replay_closure(ck, fseen["unpack"][2])
+    closure_cell(ck, "faults_fuzz_replay", fseen, buckets)
+    best = min(lp.corpus.entries(), key=lambda e: (-len(families_of(
+        schedule_from_lists(e["schedule"], lp.spec))), e["id"]))
+    path = os.path.join(td, "schedule.json")
+    doc = dump_schedule_file(
+        path, schedule_from_lists(best["schedule"], lp.spec), lp.spec,
+        nodes=RUNNER_NODES, interval=REPLAY_INTERVAL, seed=args.seed)
+    run = faults_run(args, wgl(kernels), td, "replay",
+                     "--nemesis-schedule", path)
+    want = [event(e["f"], e["value"]) for e in doc["events"] + doc["final"]]
+    got = nemesis_events(run["run_dir"])
+    assert got == want, (got, want)
+    emit(faults_line(
+        kernels, "faults_fuzz_replay", run,
+        fuzz_round={**stats, "wall_s": round_s,
+                    "launches": {k: v[0] for k, v in fseen.items() if v[0]},
+                    "sim_vs_plain": held_rounds,
+                    "closure_buckets_replayed": len(buckets)},
+        entry=best["id"], entry_families=doc["faults"],
+        schedule_span_s=sum(e["dt"] for e in doc["events"]),
+        schedule_events=len(doc["events"]), final_ops=len(doc["final"]),
+        replayed_exactly=True))
+
+
+def phase_faults(args, kernels, ck, sim) -> None:
+    """The fault layer end to end: faults_etcd_composed, then
+    faults_fuzz_replay; one line a cell."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as td:
+        faults_etcd_composed(args, wgl(kernels), td)
+        faults_fuzz_replay(args, kernels, ck, sim, td)
+    emit({"phase": "faults", "wall_s": time.perf_counter() - t0,
+          "nvidia_smi": args.smi})
+
+
 def lookup_us(mod, reps: int = 20) -> dict:
     """Host µs of one lookup of kernel module `mod`'s library through
     its `build`: "cached", as every wrapper makes it at each launch, and
@@ -4883,6 +5140,12 @@ def run(args) -> int:
         emit({"kernels": [k.row() for k in (vec, row, search)]})
         print(smi, flush=True)
         return 0
+    if args.only == "faults":
+        phase_faults(args, kernels, ck, sim)
+        emit({"kernels": [k.row() for k in (vec, row, *ck.values(), sim)
+                          if not k.library]})
+        print(smi, flush=True)
+        return 0
 
     phase_kernel_vs_plain(args, vec)
     phase_row_vs_plain(args, row)
@@ -4962,6 +5225,8 @@ def run(args) -> int:
 
     phase_runner(args, kernels, resume=False)
 
+    phase_faults(args, kernels, ck, sim)
+
     mm = ck["matmul"]
     emit({"kernels": [k.row() for k in (*kernels, *meshk.values())
                       if not k.library],
@@ -4981,7 +5246,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("crossover", "closure", "fuzz",
                                        "linear", "store", "online",
                                        "serve", "mesh", "checkers",
-                                       "runner"),
+                                       "runner", "faults"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
@@ -4996,7 +5261,9 @@ def main() -> int:
                     "adya, long_fork, causal (threads and spawned "
                     "workers), bank-setfull, analyze and fuzz; runner: the "
                     "etcd suite's test, analyze and resume on simulated "
-                    "members) and print their lines and the nvidia-smi "
+                    "members; faults: the etcd suite under a composed "
+                    "fault package and under a fuzz-found schedule) and "
+                    "print their lines and the nvidia-smi "
                     "line (no smoke result)")
     return run(ap.parse_args())
 

@@ -1,12 +1,10 @@
 """Shared plumbing for per-DB suites (the port's copy of what the etcd
 suite reaches in `jepsen_tpu/dbs/common.py`): the --nemesis option and
-its registry, the readiness poll and its generator gate.
-
-Two --nemesis forms of the JAX package need modules the port does not
-have yet, and raise `NotPorted` (exit 255 from the CLI) instead of being
-ignored: the fs-break modes (`nemesis/fsfault.py`) and fault families or
-a schedule file (`nemesis/combined.py`). The archive-DB suite shape
-(`ArchiveDB`, its kill nemeses) waits for the suites that use it."""
+its registry, the fs-break wiring (`nemesis/fsfault.py`), the
+fault-package wiring (`nemesis/combined.py`: fault families and
+--nemesis-schedule), the readiness poll and its generator gate. The
+archive-DB suite shape (`ArchiveDB`, its kill nemeses) waits for the
+suites that use it."""
 
 from __future__ import annotations
 
@@ -15,17 +13,10 @@ import threading
 import time
 
 from .. import generator as gen
+from ..nemesis.combined import FAULT_FAMILIES, parse_fault_spec  # noqa: F401
 from ..util import real_pmap
 
 log = logging.getLogger("jepsen_tpu_torch.dbs.common")
-
-#: the fault families of `jepsen_tpu/nemesis/combined.py` (FAULT_FAMILIES)
-FAULT_FAMILIES = ("partition", "clock", "kill", "pause", "corruption",
-                  "packet")
-
-
-class NotPorted(RuntimeError):
-    """An option that needs a module the port does not have yet."""
 
 
 def poll_until_ready(db, test, nodes, timeout: float) -> list:
@@ -129,21 +120,34 @@ FSFAULT_NEMESIS_NAMES = ("fs-break", "fs-break-1pct")
 
 
 def fsfault_wiring(db_, opts: dict, data_dir_fn):
-    """(db, None) unless --nemesis names an fs-break mode, which needs
-    the FUSE fault layer of `nemesis/fsfault.py`: not ported yet, so it
-    raises NotPorted."""
+    """(db, nemesis) for the --nemesis fs-break modes, else
+    (db, None). The DB wraps in FaultFsDB — the mount must happen
+    between install and daemon start — and the nemesis only flips the
+    shared fault switch; ONE opt_dir (opts['fsfault_opt_dir']) feeds
+    both, since diverging control-file paths would make every
+    break/clear a silent no-op. Suites add FSFAULT_NEMESIS_NAMES to
+    their nemesis_opt choices and consume 'fsfault_opt_dir' in their
+    merge-opts-last step."""
     name = opts.get("nemesis") or ""
     if not name.startswith("fs-break"):
         return db_, None
-    raise NotPorted(
-        f"--nemesis {name} needs nemesis/fsfault.py, which the port "
-        "does not have yet")
+    from ..nemesis import fsfault
+
+    fs_opt = opts.get("fsfault_opt_dir", fsfault.OPT_DIR)
+    wrapped = fsfault.FaultFsDB(db_, data_dir_fn, opt_dir=fs_opt)
+    nem = fsfault.fs_fault_nemesis(
+        backend="fuse", manage_mounts=False, opt_dir=fs_opt,
+        default_mode=("break-one-percent" if name == "fs-break-1pct"
+                      else "break-all"))
+    return wrapped, nem
 
 
 def nemesis_opt(p, names=NEMESIS_NAMES, default: str = "parts") -> None:
-    """argparse surface for --nemesis: a registry name from `names`
-    (validated by pick_nemesis) or a comma list of fault families (which
-    needs `nemesis/combined.py`)."""
+    """argparse surface for --nemesis. The value is either a registry
+    name from `names` (validated at test-build time by pick_nemesis) or
+    a comma list of fault families ("kill,partition") resolved into a
+    composed nemesis package by fault_package_wiring — open-ended, so
+    no argparse `choices` gate."""
     p.add_argument(
         "--nemesis", default=default, metavar="SPEC",
         help=f"named fault mode (one of: {', '.join(names)}), or a "
@@ -151,40 +155,50 @@ def nemesis_opt(p, names=NEMESIS_NAMES, default: str = "parts") -> None:
         f"for a composed package (default: {default})")
 
 
-def parse_fault_spec(spec) -> tuple | None:
-    """A --nemesis value as a fault-family spec (the port's copy of
-    `jepsen_tpu.nemesis.combined.parse_fault_spec`): the family tuple,
-    or None for a suite registry name."""
-    if not spec or not isinstance(spec, str):
-        return None
-    parts = [s.strip() for s in spec.split(",") if s.strip()]
-    if not parts:
-        return None
-    if all(p in FAULT_FAMILIES for p in parts):
-        return tuple(parts)
-    if len(parts) > 1:
-        bad = sorted(set(parts) - set(FAULT_FAMILIES))
-        raise ValueError(
-            f"comma-separated --nemesis must name fault families; "
-            f"{bad} aren't (have: {list(FAULT_FAMILIES)})")
-    return None
-
-
 def fault_package_wiring(test: dict, db_, opts: dict,
                          stability_generator=None,
                          corrupt_paths=None,
                          set_time_fn=None) -> bool:
-    """False when --nemesis is a plain registry name for pick_nemesis.
-    Fault families and --nemesis-schedule build a composed package in
-    the JAX package (`nemesis/combined.py`), not ported yet: they raise
-    NotPorted."""
-    if opts.get("nemesis_schedule"):
-        raise NotPorted(
-            "--nemesis-schedule needs nemesis/combined.py, which the port "
-            "does not have yet")
-    fams = parse_fault_spec(opts.get("nemesis"))
+    """When --nemesis names fault families ("kill,partition"), build
+    the composed NemesisPackage and install it into the test map —
+    nemesis, schedules, heal phase, stability window, recovery checker
+    (nemesis.combined.wire_package). The test map's CURRENT generator
+    must be the client-side generator; wiring wraps it. Returns True
+    when wired, False when --nemesis is a plain registry name for
+    pick_nemesis.
+
+    --nemesis-schedule FILE takes precedence over --nemesis: the file's
+    schedule document (combined.schedule_to_json / a fuzz-discovered
+    schedule) is replayed VERBATIM through the real nemeses — same
+    wiring, no rng. `set_time_fn` replaces the clock family's setter
+    (`nemesis.set_time`, which runs `date -s` on the node)."""
+    from ..nemesis import combined
+
+    wiring = {
+        "time_limit": opts.get("time_limit", 60),
+        "stability_period": opts.get("stability_period", 10.0),
+        "stability_generator": stability_generator,
+        "recovery_min_ok": opts.get("recovery_min_ok", 1),
+    }
+    sched_file = opts.get("nemesis_schedule")
+    if sched_file:
+        pkg = combined.load_schedule_file(
+            sched_file, db=db_, corrupt_paths=corrupt_paths,
+            set_time_fn=set_time_fn)
+        combined.wire_package(test, pkg, wiring)
+        return True
+    fams = combined.parse_fault_spec(opts.get("nemesis"))
     if fams is None:
         return False
-    raise NotPorted(
-        f"--nemesis {','.join(fams)} (fault families) needs "
-        "nemesis/combined.py, which the port does not have yet")
+    pkg = combined.nemesis_package(
+        faults=fams,
+        db=db_,
+        seed=opts.get("seed"),
+        interval=opts.get("nemesis_interval", 10.0),
+        fault_ops=opts.get("fault_ops"),
+        corrupt_paths=corrupt_paths,
+        set_time_fn=set_time_fn,
+        targets=opts.get("targets"),
+    )
+    combined.wire_package(test, pkg, wiring)
+    return True

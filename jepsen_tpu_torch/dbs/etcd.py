@@ -22,8 +22,11 @@ to the native search below the committed bars (`GPU_BATCH_MIN`). The
 test map's `device` (the CLI's `--device`; None = the card) goes to
 that checker, and core.run resolves it before the cluster is
 provisioned. The fault packages (`--nemesis` fault families,
-`--nemesis-schedule`) and the fs-break modes raise
-`common.NotPorted`.
+`--nemesis-schedule`) come from `nemesis/combined.py` and the fs-break
+modes from `nemesis/fsfault.py`. `opts["set_time_fn"]` replaces the
+clock family's setter (`nemesis.set_time`, which sets the node's real
+clock), as the simulated cluster's recipe (`etcd_sim.local_test_fn`)
+does.
 """
 
 from __future__ import annotations
@@ -396,7 +399,8 @@ def etcd_test(opts: dict) -> dict:
             test, db_, opts,
             stability_generator=client_generator(opts, start_key=1_000_000),
             corrupt_paths=opts.get("corrupt_paths")
-            or [lambda t, n: f"{node_dir(t, n)}/etcd.log"]):
+            or [lambda t, n: f"{node_dir(t, n)}/etcd.log"],
+            set_time_fn=opts.get("set_time_fn")):
         # composed package: generator/nemesis/checker installed in place
         pass
     else:
@@ -424,7 +428,8 @@ def etcd_test(opts: dict) -> dict:
     consumed = {"version", "archive_url", "ops_per_key", "threads_per_key",
                 "time_limit", "nemesis", "fsfault_opt_dir",
                 "nemesis_interval", "seed", "stability_period",
-                "fault_ops", "corrupt_paths", "recovery_min_ok", "targets"}
+                "fault_ops", "corrupt_paths", "recovery_min_ok", "targets",
+                "set_time_fn"}
     test.update({k: v for k, v in opts.items() if k not in consumed})
     return test
 

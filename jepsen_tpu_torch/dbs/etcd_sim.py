@@ -228,25 +228,55 @@ def local_cluster(root: str, nodes, ports: dict | None = None) -> dict:
     }
 
 
+def recording_clock(record: list):
+    """A clock setter for the clock fault family (`set_time_fn(test,
+    node, t)`) that appends (node, t) to `record` and sets no clock:
+    the simulated members share this machine's clock, and
+    `nemesis.set_time` would set it (`LocalRemote` runs `sudo` commands
+    as the caller)."""
+    def set_time(test, node, t) -> None:
+        record.append((node, t))
+
+    return set_time
+
+
 def local_test_fn(cluster: dict, suite_opts: dict | None = None,
                   client=None):
     """A test-map constructor for `cli.single_test_cmd` that runs the
     etcd suite (`etcd.etcd_test`) on a `local_cluster`: the command's
     options, with `suite_opts` (options the CLI has no flag for, such as
-    "threads_per_key" or "ops_per_key") and the cluster's entries over
-    them, go to the constructor; then the OS and network are none (there
-    is no real node to provision or partition) and the nemesis does
-    nothing. `client` replaces the suite's client (a wrapper around
-    `etcd.EtcdClient`, say)."""
+    "threads_per_key", "ops_per_key", "fault_ops" or
+    "stability_period") and the cluster's entries over them, go to the
+    constructor; then the OS is none (there is no real node to
+    provision). A named --nemesis does nothing and the network is none.
+    A composed fault package (--nemesis fault families or
+    --nemesis-schedule) keeps its nemesis on the no-op network: kill,
+    pause and corruption act on the member processes and their files,
+    partition and packet faults are recorded and healed but change no
+    traffic, and clock faults always go to `recording_clock`
+    (cluster["clock_sets"]). The fs-break modes raise `cli.CliError`
+    before anything runs on a node: their FUSE layer would mount over
+    the members' data as the caller, and the recipe's nemesis could not
+    inject through it. `client` replaces the suite's client (a wrapper
+    around `etcd.EtcdClient`, say)."""
     def test_fn(opts: dict) -> dict:
-        from .. import nemesis
-        from . import etcd
+        from .. import nemesis, net
+        from ..cli import CliError
+        from . import common, etcd
 
         opts = {**opts, **(suite_opts or {}),
                 "remote": cluster["remote"], "etcd": cluster["etcd"],
-                "archive_url": cluster["archive_url"]}
+                "archive_url": cluster["archive_url"],
+                "set_time_fn": recording_clock(
+                    cluster.setdefault("clock_sets", []))}
+        if opts.get("nemesis") in common.FSFAULT_NEMESIS_NAMES:
+            raise CliError(f"--nemesis {opts['nemesis']}: the simulated "
+                           "cluster cannot mount the FUSE fault layer")
         t = etcd.etcd_test(opts)
-        t.update({"os": None, "net": None, "nemesis": nemesis.noop})
+        if "fault_families" in t:
+            t.update({"os": None, "net": net.noop})
+        else:
+            t.update({"os": None, "net": None, "nemesis": nemesis.noop})
         if client is not None:
             t["client"] = client
         return t

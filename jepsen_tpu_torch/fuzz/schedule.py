@@ -34,16 +34,20 @@ Family parameters:
   masked nodes are retransmitted with a seeded delay.
 
 Everything here is host-side numpy + ``random.Random`` (both
-platform-stable); the arrays feed ``fuzz.sim`` verbatim. This is the
-port's copy of ``jepsen_tpu/fuzz/schedule.py`` (the same schedules from
-the same seeds); the rendering of a schedule as a nemesis schedule
-document (``to_nemesis_doc``) is not ported.
+platform-stable); the arrays feed ``fuzz.sim`` verbatim. The
+``to_nemesis_doc`` bridge renders an array schedule as a
+``nemesis/combined.py`` schedule document so fuzz-discovered
+schedules replay through the real nemesis path via
+``python -m jepsen_tpu_torch.dbs.etcd test --nemesis-schedule <file>``.
+This is the port's copy of ``jepsen_tpu/fuzz/schedule.py``: the same
+schedules and the same documents, byte for byte, from the same seeds.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import random
 
 import numpy as np
@@ -300,3 +304,94 @@ def overlap_signature(sched: np.ndarray) -> str:
                 fa, fb = sorted((int(s[a, 0]), int(s[b, 0])))
                 pairs.add((fa, fb))
     return ",".join(f"{a}+{b}" for a, b in sorted(pairs)) or "-"
+
+
+def _node_names(spec: SimSpec, nodes=None) -> list:
+    return list(nodes) if nodes else [f"n{i + 1}" for i in range(spec.nodes)]
+
+
+def to_nemesis_doc(sched: np.ndarray, spec: SimSpec = DEFAULT_SPEC,
+                   nodes=None, interval: float = 5.0, seed: int = 0) -> dict:
+    """Render an array schedule as a nemesis/combined.py schedule doc.
+
+    The doc is the same shape ``combined.materialize_schedule``
+    produces, so ``combined.schedule_from_json`` (and therefore
+    ``jepsen-tpu test --nemesis-schedule``) replays a fuzz-discovered
+    schedule through the real nemesis + generator path. One txn-slot
+    maps to ``interval`` seconds; each event carries ``dt``, the delay
+    before it fires, so relative fault timing survives the transport.
+    """
+    names = _node_names(spec, nodes)
+    rng = random.Random(derive_seed(seed, 0xD0C))
+    s = canonicalize(sched, spec)
+    timeline = []  # (time_slots, order, event-dict)
+    for i in range(spec.faults):
+        fam, mask, t0, t1, p0, p1 = (int(v) for v in s[i])
+        if fam == NONE:
+            continue
+        members = [names[n] for n in range(spec.nodes) if mask >> n & 1]
+        others = [nm for nm in names if nm not in members]
+        if fam == PARTITION:
+            grudge = {nm: sorted(others) for nm in members}
+            grudge.update({nm: sorted(members) for nm in others})
+            timeline.append((t0, i, {"f": "start-partition", "value": grudge}))
+            timeline.append((t1, i, {"f": "stop-partition", "value": None}))
+        elif fam == CLOCK:
+            secs = p0 * interval / spec.mops
+            offsets = {nm: round(secs, 6) for nm in members}
+            timeline.append((t0, i, {"f": "scramble-clock", "value": offsets}))
+            timeline.append((t1, i, {"f": "reset-clock", "value": None}))
+        elif fam == KILL:
+            timeline.append((t0, i, {"f": "kill", "value": sorted(members)}))
+            timeline.append((t1, i, {"f": "restart",
+                                     "value": sorted(members)}))
+        elif fam == PAUSE:
+            timeline.append((t0, i, {"f": "pause", "value": sorted(members)}))
+            timeline.append((t1, i, {"f": "resume",
+                                     "value": sorted(members)}))
+        elif fam == CORRUPT:
+            # "path": None is a placeholder — schedule_from_json fills
+            # it from opts["corrupt_paths"] at replay time
+            specs = [{"node": nm, "path": None, "kind": "bitflip",
+                      "offset": p1 * 512 + i,
+                      "byte": rng.randrange(256)} for nm in sorted(members)]
+            timeline.append((t0, i, {"f": "corrupt-file", "value": specs}))
+        elif fam == PACKET:
+            # drop rate >= half maps to the lossy behavior, else slow
+            behavior = "flaky" if p0 >= 8 else "slow"
+            timeline.append((t0, i, {"f": "packet-start",
+                                     "value": behavior}))
+            timeline.append((t1, i, {"f": "packet-stop", "value": None}))
+    timeline.sort(key=lambda e: (e[0], e[1], e[2]["f"]))
+    events, prev = [], 0
+    for t, _i, evt in timeline:
+        events.append({"dt": round((t - prev) * interval, 6), **evt})
+        prev = t
+    fams = families_of(s)
+    final = []
+    if "partition" in fams:
+        final.append({"dt": 0, "f": "stop-partition", "value": None})
+    if "clock" in fams:
+        final.append({"dt": 0, "f": "reset-clock", "value": None})
+    if "kill" in fams:
+        final.append({"dt": 0, "f": "restart", "value": None})
+    if "pause" in fams:
+        final.append({"dt": 0, "f": "resume", "value": None})
+    if "packet" in fams:
+        final.append({"dt": 0, "f": "packet-stop", "value": None})
+    return {"version": 1,
+            "faults": fams,
+            "nodes": names,
+            "interval": interval,
+            "seed": seed,
+            "events": events,
+            "final": final}
+
+
+def dump_schedule_file(path, sched: np.ndarray,
+                       spec: SimSpec = DEFAULT_SPEC, **kw):
+    doc = to_nemesis_doc(sched, spec, **kw)
+    with open(path, "w") as fh:
+        json.dump(doc, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    return doc

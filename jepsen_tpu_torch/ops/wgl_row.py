@@ -68,6 +68,11 @@ MODEL_IDS = {"cas-register": 0, "register": 1, "mutex": 2}
 #: once, e.g. one a key under independent.checker)
 LAUNCHES = 0
 _COUNTING = threading.Lock()
+#: held around each launch: the library sets the kernel's shared-memory
+#: limit (cudaFuncSetAttribute, one value for every thread) and then
+#: launches, so a launch from another thread in between could lower the
+#: limit under this launch's plan (cudaErrorInvalidValue)
+_LAUNCHING = threading.Lock()
 #: when a list, every launch appends its (start, end) CUDA events
 TIMED: list | None = None
 #: when a list, every `search` call appends its arguments (packed,
@@ -232,12 +237,14 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record(stream)
-        rc = lib.wgl_row_launch(
-            packed.data_ptr(), ztab.data_ptr(), msteps.data_ptr(),
-            small.data_ptr(), keys.data_ptr(),
-            lanes, n_pad, _m_pad(n_pad), packed.shape[1],
-            MODEL_IDS[jm.name], cache_bits, _nw(n_pad), int(jm.init_state),
-            plan.lanes, plan.bytes, stream.cuda_stream)
+        with _LAUNCHING:
+            rc = lib.wgl_row_launch(
+                packed.data_ptr(), ztab.data_ptr(), msteps.data_ptr(),
+                small.data_ptr(), keys.data_ptr(),
+                lanes, n_pad, _m_pad(n_pad), packed.shape[1],
+                MODEL_IDS[jm.name], cache_bits, _nw(n_pad),
+                int(jm.init_state), plan.lanes, plan.bytes,
+                stream.cuda_stream)
         if rc != 0:
             raise KernelError(f"wgl_row kernel launch failed: cudaError {rc}")
         if TIMED is not None:

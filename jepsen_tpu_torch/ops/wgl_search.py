@@ -104,6 +104,11 @@ MODEL_IDS = {"cas-register": 0, "register": 1, "mutex": 2,
 #: once, e.g. one a key under independent.checker)
 LAUNCHES = 0
 _COUNTING = threading.Lock()
+#: held around each launch: the library sets the kernel's shared-memory
+#: limit (cudaFuncSetAttribute, one value for every thread) and then
+#: launches, so a launch from another thread in between could lower the
+#: limit under this launch's plan (cudaErrorInvalidValue)
+_LAUNCHING = threading.Lock()
 #: when a list, every launch appends its (start, end) CUDA events
 TIMED: list | None = None
 #: when a list, every `search` call appends its arguments (packed,
@@ -470,11 +475,13 @@ def _launch(lib, packed, msteps, small, scratch, jm, n_pad: int,
     """`lib.wgl_search_launch` over the lanes of `packed` into `small`,
     with `scratch` of `lay.words` int32 a lane and `plan`; its return
     code (0, or the CUDA error)."""
-    return lib.wgl_search_launch(
-        packed.data_ptr(), msteps.data_ptr(), small.data_ptr(),
-        scratch.data_ptr(), packed.shape[0], n_pad, _m_pad(n_pad),
-        packed.shape[1], MODEL_IDS[jm.name], n_state, cache_bits, _nw(n_pad),
-        _init_state(jm), _plan_words(n_pad, plan, lay), stream)
+    with _LAUNCHING:
+        return lib.wgl_search_launch(
+            packed.data_ptr(), msteps.data_ptr(), small.data_ptr(),
+            scratch.data_ptr(), packed.shape[0], n_pad, _m_pad(n_pad),
+            packed.shape[1], MODEL_IDS[jm.name], n_state, cache_bits,
+            _nw(n_pad), _init_state(jm), _plan_words(n_pad, plan, lay),
+            stream)
 
 
 def _count() -> None:

@@ -94,6 +94,11 @@ MODEL_IDS = {"cas-register": 0, "register": 1, "mutex": 2,
 #: once, e.g. one a key under independent.checker)
 LAUNCHES = 0
 _COUNTING = threading.Lock()
+#: held around each launch: the library sets the kernel's shared-memory
+#: limit (cudaFuncSetAttribute, one value for every thread) and then
+#: launches, so a launch from another thread in between could lower the
+#: limit under this launch's plan (cudaErrorInvalidValue)
+_LAUNCHING = threading.Lock()
 #: when a list, every launch appends its (start, end) CUDA events, so a
 #: caller can read the kernel's own time on the card
 TIMED: list | None = None
@@ -453,13 +458,15 @@ def search(packed: torch.Tensor, msteps: torch.Tensor, jm, n_pad: int,
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record(stream)
-        rc = lib.wgl_vec_launch(
-            packed.data_ptr(), msteps.data_ptr(), small.data_ptr(),
-            best.data_ptr(), width, n_pad, _m_pad(n_pad),
-            int(packed.shape[0] == 2 * n_pad + 1), MODEL_IDS[jm.name],
-            n_state, cache_slots, _nw(n_pad), _key_words(jm, n_pad, n_state),
-            int(jm.init_state) if _is_scalar(jm) else 0,
-            plan.lanes, plan.bytes, stream.cuda_stream)
+        with _LAUNCHING:
+            rc = lib.wgl_vec_launch(
+                packed.data_ptr(), msteps.data_ptr(), small.data_ptr(),
+                best.data_ptr(), width, n_pad, _m_pad(n_pad),
+                int(packed.shape[0] == 2 * n_pad + 1), MODEL_IDS[jm.name],
+                n_state, cache_slots, _nw(n_pad),
+                _key_words(jm, n_pad, n_state),
+                int(jm.init_state) if _is_scalar(jm) else 0,
+                plan.lanes, plan.bytes, stream.cuda_stream)
         if rc != 0:
             raise KernelError(f"wgl_vec kernel launch failed: cudaError {rc}")
         if TIMED is not None:

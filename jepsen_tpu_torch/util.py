@@ -1,7 +1,7 @@
 """General-purpose helpers (the port's copy of what it needs from
 `jepsen_tpu.util`): parallel maps over threads and processes, retries,
 latches, relative time, time units, interval-set strings and latency
-extraction over histories."""
+extraction over histories, random subsets."""
 
 from __future__ import annotations
 
@@ -240,3 +240,14 @@ def nemesis_intervals(history, start_fs=("start",), stop_fs=("stop",)) -> list:
             pairs.append((starts.popleft(), o))
     pairs.extend((s, None) for s in starts)
     return pairs
+
+
+def random_nonempty_subset(coll, rng=None):
+    """A random non-empty subset of coll (util.clj parity; used by the
+    clock nemesis generators, nemesis/time.clj:137-165)."""
+    import random as _r
+
+    rng = rng or _r
+    items = list(coll)
+    k = rng.randrange(1, len(items) + 1)
+    return rng.sample(items, k)

@@ -336,8 +336,11 @@ def test_port_imports_no_jax():
     the bank, adya, long_fork and causal checkers, core.analyze, and the
     analyze and fuzz subcommands; the test runner's modules (generator,
     client, db, osenv, net, osdist, control, nemesis, testlib, the etcd
-    suite and its simulator) and a core.run of testlib's cas test; and
-    every module of those) load neither jax
+    suite and its simulator) and a core.run of testlib's cas test; the
+    fault layer (combined's schedule documents, fsfault, the clock
+    nemesis, faketime, the fuzz documents, the etcd suite's fault
+    packages and fs-break wiring), reconnect and the register workload;
+    and every module of those) load neither jax
     nor any module of the JAX package (jepsen_tpu_torch's own name shares
     the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -511,6 +514,28 @@ def test_port_imports_no_jax():
         assert core.run(t)["results"]["valid"] is True
         assert etcd.etcd_test({"nodes": ["n1"], "device": "cpu"})[
             "name"] == "etcd"
+        from jepsen_tpu_torch import faketime, reconnect
+        from jepsen_tpu_torch.fuzz.schedule import to_nemesis_doc
+        from jepsen_tpu_torch.nemesis import combined, fsfault
+        from jepsen_tpu_torch.nemesis import time as ntime
+        from jepsen_tpu_torch.workloads import linearizable_register
+        doc = combined.materialize_schedule(
+            faults=list(combined.FAULT_FAMILIES), seed=0, fault_ops=8)
+        assert combined.schedule_to_json(combined.schedule_from_json(
+            doc, db=combined._ScheduleDB(), pace=False)) == \\
+            combined.schedule_to_json(doc)
+        assert to_nemesis_doc(random_schedule(3))["version"] == 1
+        t = etcd.etcd_test({"nodes": ["n1"], "nemesis": "kill,clock",
+                            "set_time_fn": lambda t, n, at: None})
+        assert set(t["fault_families"]) == {"kill", "clock"}
+        t = etcd.etcd_test({"nodes": ["n1"], "nemesis": "fs-break"})
+        assert isinstance(t["db"], fsfault.FaultFsDB)
+        assert faketime.script("/x", 1, 2.0).startswith("#!")
+        assert ntime.clock_gen() is not None
+        w = reconnect.wrapper(lambda: object(), lambda c: None).open()
+        assert w.conn() is not None
+        assert linearizable_register.test({"nodes": ["n1"], "device": "cpu"})[
+            "model"] is not None
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))

@@ -2,8 +2,9 @@
 `dbs.common`'s registry) against the JAX package's: the grudges for the
 same seeded rng, the partitioner's and the process nemeses' command
 streams over DummyRemote, compose routing, the active-fault ledgers, the
-DB cycle, and the --nemesis forms whose modules the port does not have
-yet (they raise, never ignored). The cases of tests/test_nemesis.py."""
+DB cycle, and the --nemesis forms (named modes, fault families, a
+schedule file and fs-break wired as the JAX package's). The cases of
+tests/test_nemesis.py."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from jepsen_tpu.control import net as jcnet
 from jepsen_tpu.history import Op as JOp
 from jepsen_tpu_torch import db as tdb
 from jepsen_tpu_torch import nemesis as tnem
+from jepsen_tpu_torch.nemesis import combined as tcomb
 from jepsen_tpu_torch import net as tnet
 from jepsen_tpu_torch.control import DummyRemote as TDummy
 from jepsen_tpu_torch.control import net as tcnet
@@ -207,7 +209,7 @@ def test_db_cycle_equal():
     assert out["port"] == out["jax"]
 
 
-def test_nemesis_registry_and_unported_forms():
+def test_nemesis_registry_and_unported_forms(tmp_path):
     from jepsen_tpu.dbs import common as jcmn
     from jepsen_tpu.dbs.etcd import EtcdDB as JEtcdDB
     from jepsen_tpu_torch.dbs import common as cmn
@@ -229,12 +231,33 @@ def test_nemesis_registry_and_unported_forms():
         assert cmn.parse_fault_spec(spec) == jcomb.parse_fault_spec(spec)
     with pytest.raises(ValueError):
         cmn.parse_fault_spec("kill,bogus")
-    for opts, module in (({"nemesis": "kill,partition"}, "combined"),
-                         ({"nemesis": "parts", "nemesis_schedule": "f.json"},
-                          "combined"),
-                         ({"nemesis": "fs-break"}, "fsfault")):
-        with pytest.raises(cmn.NotPorted, match=f"nemesis/{module}.py"):
-            etcd.etcd_test(dict(opts, nodes=["n1"]))
+    assert cmn.FAULT_FAMILIES is tcomb.FAULT_FAMILIES
+    assert cmn.parse_fault_spec is tcomb.parse_fault_spec
+    # the fault-package and fs-break forms wire as the JAX package's
+    from jepsen_tpu.dbs import etcd as jetcd
+    from jepsen_tpu.nemesis import fsfault as jfs
+    from jepsen_tpu_torch.nemesis import fsfault as tfs
+
+    sched = tmp_path / "sched.json"
+    sched.write_text(tcomb.schedule_to_json(
+        {"faults": ["kill", "pause"], "seed": 2, "fault_ops": 4}))
+    for opts in ({"nemesis": "kill,partition"}, {"nemesis": "kill,pause"},
+                 {"nemesis": "parts", "nemesis_schedule": str(sched)}):
+        t = etcd.etcd_test(dict(opts, nodes=["n1"], seed=1))
+        j = jetcd.etcd_test(dict(opts, nodes=["n1"], seed=1))
+        assert type(t["nemesis"]).__name__ == type(j["nemesis"]).__name__
+        assert t["fault_families"] == j["fault_families"]
+        assert sorted(t["checker"].checker_map) == ["recovery", "workload"]
+    for name, mode in (("fs-break", "break-all"),
+                       ("fs-break-1pct", "break-one-percent")):
+        t = etcd.etcd_test({"nemesis": name, "nodes": ["n1"]})
+        j = jetcd.etcd_test({"nemesis": name, "nodes": ["n1"]})
+        assert isinstance(t["db"], tfs.FaultFsDB)
+        assert isinstance(j["db"], jfs.FaultFsDB)
+        assert isinstance(t["db"].inner, etcd.EtcdDB)
+        assert (t["nemesis"].backend, t["nemesis"].manage_mounts,
+                t["nemesis"].default_mode) == (
+            j["nemesis"].backend, j["nemesis"].manage_mounts, mode)
 
 
 def test_net_noop_and_iptables_commands_equal(monkeypatch):

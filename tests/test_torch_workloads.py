@@ -377,3 +377,95 @@ def test_card_checkers_raise_without_cuda(monkeypatch, make, history):
     test = {"accounts": ["x"], "total_amount": 1}
     with pytest.raises(CudaUnavailable):
         make().check(test, history, {})
+
+
+# ---------------------------------------------------------------------------
+# linearizable_register
+
+def register_run(lr_mod, gen_mod, ind_mod, hist_mod, seed, n_ops=300,
+                 bad_keys=()):
+    """Package `lr_mod`'s register test map after random.seed(seed): its
+    generator's first n_ops ops drawn by 2n worker threads in turn, each
+    applied at once to a per-key register (so the history is
+    linearizable), one read on each key of `bad_keys` answering a value
+    the register never held. Returns (test map, drawn op dicts,
+    history)."""
+    random.seed(seed)
+    opts = {"nodes": ["n1", "n2", "n3"], "per_key_limit": 12,
+            "device": "cpu"}
+    t = lr_mod.test(opts)
+    g = t["generator"]
+    procs = list(range(2 * len(opts["nodes"])))
+    drawn, hist, regs, planted = [], [], {}, set()
+    with gen_mod.with_threads(procs):
+        for i in range(n_ops):
+            p = procs[i % len(procs)]
+            o = gen_mod.op(g, {"nodes": opts["nodes"],
+                               "concurrency": len(procs)}, p)
+            if o is None:
+                break
+            k, v = o["value"]
+            drawn.append((p, o["f"], k, v))
+            cur = regs.get(k)
+            typ, out = "ok", v
+            if o["f"] == "read":
+                out = cur
+                if k in bad_keys and k not in planted and cur is not None:
+                    out, _ = 99, planted.add(k)
+            elif o["f"] == "write":
+                regs[k] = v
+            elif cur == v[0]:
+                regs[k] = v[1]
+            else:
+                typ = "fail"
+            n = len(hist)
+            hist.append(hist_mod.Op(p, "invoke", o["f"],
+                                    ind_mod.tuple_(k, v), index=n))
+            hist.append(hist_mod.Op(p, typ, o["f"],
+                                    ind_mod.tuple_(k, out), index=n + 1))
+    return t, drawn, hist
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_register_generator_equal(seed):
+    from jepsen_tpu import generator as jgen
+    from jepsen_tpu.workloads import linearizable_register as jlr
+    from jepsen_tpu_torch import generator as tgen
+    from jepsen_tpu_torch.workloads import linearizable_register as tlr
+
+    _, tdrawn, _ = register_run(tlr, tgen, tind, thist, seed)
+    _, jdrawn, _ = register_run(jlr, jgen, jind, jhist, seed)
+    assert tdrawn == jdrawn
+    assert {f for _, f, _, _ in tdrawn} == {"read", "write", "cas"}
+
+
+@pytest.mark.parametrize("bad_keys", [(), (1, 3)])
+def test_register_checker_equal(bad_keys):
+    from jepsen_tpu import generator as jgen
+    from jepsen_tpu.workloads import linearizable_register as jlr
+    from jepsen_tpu_torch import generator as tgen
+    from jepsen_tpu_torch.workloads import linearizable_register as tlr
+
+    tt, _, hist = register_run(tlr, tgen, tind, thist, 4, bad_keys=bad_keys)
+    jt, _, _ = register_run(jlr, jgen, jind, jhist, 4)
+    tr = tt["checker"].check({"model": tt["model"]}, hist, {})
+    jr = jt["checker"].check({"model": jt["model"]}, to_jax(hist), {})
+    keys = lambda r: {str(k): (v["valid"], v["linearizable"]["valid"])
+                      for k, v in r["results"].items()}
+    assert keys(tr) == keys(jr)
+    assert tr["valid"] == jr["valid"] == (not bad_keys)
+    assert sorted(map(str, tr.get("failures", []))) == sorted(
+        map(str, jr.get("failures", [])))
+    assert normalise(tr["results"]) == normalise(jr["results"])
+
+
+def test_register_checker_takes_the_device():
+    """`opts["device"]` reaches the linearizability checker (None, the
+    card, by default), as the port's other workload checkers take it."""
+    from jepsen_tpu_torch.workloads import linearizable_register as tlr
+
+    for opts, want in (({}, None), ({"device": "cpu"}, "cpu"),
+                       ({"device": "cuda:1"}, "cuda:1")):
+        t = tlr.test({"nodes": ["n1"], **opts})
+        lin = t["checker"].checker.checker_map["linearizable"]
+        assert (lin.device, lin.algorithm) == (want, "auto")
