@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--only crossover|closure|fuzz|linear|store|online|serve|mesh|checkers
-                |runner|faults]
+                |runner|faults|suites]
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -125,7 +125,7 @@ and an empty kernel's launch timed as the launch floor (`--only
 checkers`). Then the `runner` phase, the test runner end to end: the
 etcd suite's `test` subcommand (`cli.single_test_cmd`) on five
 simulated members, one process a node over LocalRemote, 20 workers,
-etcd's r/w/cas workload for 15 s, its checker a key at a time on K1 or
+etcd's r/w/cas workload for 10 s, its checker a key at a time on K1 or
 K5 with every bar at 1: exit 0 and valid, the wall split into
 provision, workers, save, analyze and teardown; `analyze` over its
 store under every bar at 1 and under the committed bars, the same
@@ -137,7 +137,7 @@ limit), the same test in a subprocess SIGTERMed 5 s into its ops (exit
 the second's); every K1 and K5 launch held against its plain version.
 Then the `faults` phase, the fault layer under the same suite, cluster
 and workload: `test --nemesis kill,pause,partition,clock,corruption
---seed 0` (8 fault ops 1.5 s apart, a 15-s limit, a 3-s stability
+--seed 0` (8 fault ops 1 s apart, a 10-s limit, a 3-s stability
 window): exit 0, every key True, the recovery checker valid with kill,
 pause, partition and corruption seen, a member's pid changed by a kill,
 the nemesis ops a prefix of `combined.materialize_schedule`'s document
@@ -147,6 +147,19 @@ its entry with the most fault families rendered by
 --nemesis-schedule`: the nemesis ops exactly the document's; clock
 faults go to a recording setter, never to this machine's clock; every
 K4, K3 and K1 launch held against its plain version (`--only faults`).
+Then the `suites` phase, the suites on the archive-DB layer and the
+pgwire simulator, each on five simulated nodes over LocalRemote through
+its `test` subcommand with every bar at 1: cockroachdb's register
+workload at its own per-key shape (10 threads and 100 ops a key, 20
+workers, --nemesis none, a 10-s limit): exit 0, every key True, one K1
+(or K5) launch a key; its g2 workload on the same shape: exit 0, valid,
+the g2 dict equal to the stored history's under device="cpu" (a valid
+run closes no component: no launch); a 5-s g2 run whose client skips
+the predicate read on two keys' inserts: exit 1, exactly those keys
+illegal, the anomaly G2, its closure_word launches; and consul at its
+defaults (5 workers, stagger 0.1 s, a 10-s limit): exit 0, valid, one
+K1 (or K5) launch; every K1, K5 and K3 launch held against its plain
+version (`--only suites`).
 Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
@@ -1881,7 +1894,7 @@ CROSSOVER_K2_LANES = 16
 CROSSOVER_QUEUE_SEEDS = 64
 CROSSOVER_REPS = 7
 SMOKE_CROSSOVER_QUEUE_SEEDS = 16
-SMOKE_CROSSOVER_REPS = 2
+SMOKE_CROSSOVER_REPS = 1
 
 
 def timed(fn, reps: int):
@@ -4310,7 +4323,7 @@ def phase_checkers(args, kernels, ck, sim) -> None:
 # multiple, in both packages). So 20 workers (4n): 2 keys in flight.
 RUNNER_NODES = [f"n{i}" for i in range(1, 6)]
 RUNNER_CONCURRENCY = "4n"
-RUNNER_TIME_LIMIT = 15
+RUNNER_TIME_LIMIT = 10
 PLANTED_TIME_LIMIT = 5
 # keys of the planted run whose reads go stale once (both among the first
 # three keys the workers take, 2 at a time, so reached within the limit)
@@ -4335,10 +4348,10 @@ sys.exit(cli.run_cli(cli.single_test_cmd(fn, opt_spec=etcd._opt_spec),
 
 
 def runner_argv(command: str, store_dir: str, time_limit: int,
-                device: str, *extra) -> list:
+                device: str, *extra, concurrency=RUNNER_CONCURRENCY) -> list:
     return [command, *extra,
             *[a for n in RUNNER_NODES for a in ("--node", n)],
-            "--concurrency", RUNNER_CONCURRENCY,
+            "--concurrency", concurrency,
             "--time-limit", str(time_limit),
             "--store-dir", store_dir, "--device", device]
 
@@ -4354,13 +4367,14 @@ def runner_cmd(cluster, client=None) -> dict:
 
 
 def stop_members(root: str) -> None:
-    """SIGKILL every simulated member whose pidfile is under root (a run
-    tears its members down itself; this is the backstop)."""
+    """SIGKILL every simulated member whose pidfile is under root
+    (`<root>/nodes/<node>/opt/<suite>/<daemon>.pid`; a run tears its
+    members down itself; this is the backstop)."""
     import glob
     import signal
 
-    for pidfile in glob.glob(os.path.join(root, "nodes", "*", "opt", "etcd",
-                                          "etcd.pid")):
+    for pidfile in glob.glob(os.path.join(root, "nodes", "*", "opt", "*",
+                                          "*.pid")):
         with contextlib.suppress(OSError, ValueError):
             with open(pidfile) as f:
                 os.kill(int(f.read().strip()), signal.SIGKILL)
@@ -4417,28 +4431,29 @@ class StaleReads:
     """A client wrapper that plants stale reads: on each key of `keys`,
     one read answers, without asking the cluster, a value `a` the key
     held before a later acknowledged write Y of another value, where
-    every op that could have written `a` was acknowledged before Y was
-    invoked (none failed indeterminately, none is in flight) — so the
-    register cannot hold `a` at that read, and the checker must refute
-    exactly those keys. Every write and cas on those keys goes through
-    the wrapper (its clones share the record); `margin_s` keeps the
-    order of the record's clock times that of the history. Once a read
-    finds such an `a` whose Y may not have been acknowledged `margin_s`
-    ago yet, `a` is reserved: until the stale read is planted, a write
-    or cas of `a` on that key fails without being sent (a failed op
-    took no effect), so 10 threads a key writing 5 values cannot keep
-    every `a` in play."""
+    every op that could have written `a` completed before Y was invoked
+    and Y completed before the read was invoked, in the test's own
+    history (`test["_history"]`, the order the checker reads) and not on
+    a clock of this wrapper's, so the register cannot hold `a` at that
+    read however the threads were scheduled, and the checker must refute
+    exactly those keys. From the first read on such a key that finds an
+    acknowledged write, that write's value `a` is reserved (another
+    value, should a write of `a` end indeterminate): a write or
+    cas of `a` on the key fails without being sent (a failed op took no
+    effect) for the rest of the run, so 10 threads a key writing 5
+    values cannot keep `a` in play, and no write of `a` can be invoked
+    while the planted read is in flight. Its clones share the record."""
 
-    def __init__(self, inner, keys, margin_s: float = 0.1, shared=None):
+    def __init__(self, inner, keys, shared=None):
         import threading
 
-        self.inner, self.keys, self.margin_s = inner, set(keys), margin_s
-        self.shared = shared or {"lock": threading.Lock(), "writes": {},
-                                 "planted": {}, "reserved": {}}
+        self.inner, self.keys = inner, set(keys)
+        self.shared = shared or {"lock": threading.Lock(), "planted": {},
+                                 "reserved": {}}
 
     def open(self, test, node):
         return StaleReads(self.inner.open(test, node), self.keys,
-                          self.margin_s, self.shared)
+                          self.shared)
 
     def setup(self, test):
         self.inner.setup(test)
@@ -4449,20 +4464,40 @@ class StaleReads:
     def close(self, test):
         self.inner.close(test)
 
-    def _stale_value(self, writes, now):
-        """A value no op can have left in the register by `now`, or
-        None."""
-        m = self.margin_s
-        acked = [w for w in writes if w["type"] == "ok"
-                 and w["done"] + m < now]
-        for y in sorted(acked, key=lambda w: -w["done"]):
-            for a in {w["value"] for w in acked} - {y["value"]}:
-                could = [w for w in writes if w["value"] == a
-                         and w["type"] != "fail"]
-                if all(w["type"] == "ok" and w["done"] + m < y["inv"]
-                       for w in could):
-                    return a
-        return None
+    @staticmethod
+    def _writes(hist, k):
+        """Key k's writes and cas ops in `hist`, in invocation order: the
+        value each writes, the history index of its invocation and of
+        its completion (None while in flight) and its completion type."""
+        from jepsen_tpu_torch.independent import is_tuple
+
+        out, open_ = [], {}
+        for i, o in enumerate(hist):
+            if o.type != "invoke":
+                w = open_.pop(o.process, None)
+                if w is not None:
+                    w["done"], w["type"] = i, o.type
+            elif (o.f in ("write", "cas") and is_tuple(o.value)
+                  and o.value.key == k):
+                v = o.value.value
+                w = {"value": v if o.f == "write" else v[1], "inv": i,
+                     "done": None, "type": None}
+                open_[o.process] = w
+                out.append(w)
+        return out
+
+    @staticmethod
+    def _stale(writes, a, read_inv) -> bool:
+        """Whether a read invoked at history index `read_inv` cannot see
+        `a`: every write that could have left `a` (none failed) completed
+        ok before some ok write Y of another value was invoked, and Y
+        completed before the read was invoked."""
+        could = [w for w in writes if w["value"] == a and w["type"] != "fail"]
+        if not could or any(w["type"] != "ok" for w in could):
+            return False
+        last = max(w["done"] for w in could)
+        return any(w["type"] == "ok" and w["value"] != a and w["inv"] > last
+                   and w["done"] < read_inv for w in writes)
 
     def invoke(self, test, op):
         from jepsen_tpu_torch.independent import tuple_
@@ -4475,28 +4510,30 @@ class StaleReads:
             with sh["lock"]:
                 a = None
                 if k not in sh["planted"]:
-                    writes = sh["writes"].get(k, [])
-                    a = self._stale_value(writes, time.monotonic())
-                    if a is not None:
-                        sh["planted"][k] = a
-                        sh["reserved"].pop(k, None)
-                    elif k not in sh["reserved"]:
-                        r = self._stale_value(writes, float("inf"))
-                        if r is not None:
-                            sh["reserved"][k] = r
+                    # the read's invocation is already in the history
+                    with test["_history_lock"]:
+                        hist = list(test["_history"])
+                    read_inv = max(i for i, o in enumerate(hist)
+                                   if o.process == op.process)
+                    writes = self._writes(hist, k)
+                    # a value an indeterminate write may still leave
+                    # can never be shown stale: reserve another
+                    bad = {w["value"] for w in writes if w["type"] == "info"}
+                    r = sh["reserved"].get(k)
+                    if r is None or r in bad:
+                        r = sh["reserved"][k] = next(
+                            (w["value"] for w in writes if w["type"] == "ok"
+                             and w["value"] not in bad), None)
+                    if r is not None and self._stale(writes, r, read_inv):
+                        a = sh["planted"][k] = r
             if a is not None:
                 return op.with_(type="ok", value=tuple_(k, a))
             return self.inner.invoke(test, op)
-        w = {"value": v if op.f == "write" else v[1], "inv": time.monotonic(),
-             "done": None, "type": None}
+        value = v if op.f == "write" else v[1]
         with sh["lock"]:
-            if sh["reserved"].get(k, object()) == w["value"]:
+            if sh["reserved"].get(k, object()) == value:
                 return op.with_(type="fail", error="reserved")
-            sh["writes"].setdefault(k, []).append(w)
-        out = self.inner.invoke(test, op)
-        with sh["lock"]:
-            w["done"], w["type"] = time.monotonic(), out.type
-        return out
+        return self.inner.invoke(test, op)
 
 
 def runner_history(run_dir: str) -> dict:
@@ -4646,6 +4683,8 @@ def runner_etcd_planted(args, kernels, td: str) -> None:
     results, keys, files = runner_results(run_dir)
     failing = sorted(int(k) for k, v in keys.items() if v is False)
     verdict = runner_verdict(results, False)
+    assert sorted(client.shared["planted"]) == sorted(PLANTED_KEYS), (
+        client.shared["planted"], client.shared["reserved"])
     assert rc == 1 and results["valid"] is False, (rc, results["valid"])
     assert failing == sorted(PLANTED_KEYS), failing
     for k in PLANTED_KEYS:
@@ -4766,18 +4805,20 @@ def phase_runner(args, kernels, resume: bool = True) -> None:
 # corruption act on the member processes and their logs; clock faults go
 # to the recipe's recording setter (etcd_sim.recording_clock), never to
 # this machine's clock.
-FAULTS_TIME_LIMIT = 15
+FAULTS_TIME_LIMIT = 10
 FAULTS_STABILITY_S = 3.0
 FAULTS_FAMILIES = ("kill", "pause", "partition", "clock", "corruption")
-FAULTS_INTERVAL = 1.5
+FAULTS_INTERVAL = 1.0
 FAULTS_OPS = 8
 # the composed cell's fault families that must have fired
 FAULTS_SEEN = {"kill", "pause", "partition", "corruption"}
 # the fuzz-to-replay cell: one fuzz-loop round of FuzzLoop's default 256
 # clusters, its entry with the most fault families rendered with a
-# txn-slot of 0.5 s (DEFAULT_SPEC's 24 slots: ~12 s of faults)
+# txn-slot of 0.25 s (DEFAULT_SPEC's 24 slots: ~6 s of faults; with the
+# time the ops themselves take, a kill's restart waiting for its member,
+# inside the 10-s limit)
 REPLAY_CLUSTERS = 256
-REPLAY_INTERVAL = 0.5
+REPLAY_INTERVAL = 0.25
 
 
 def faults_cmd(cluster, pids: dict) -> dict:
@@ -4993,6 +5034,253 @@ def phase_faults(args, kernels, ck, sim) -> None:
           "nvidia_smi": args.smi})
 
 
+# The suites phase: the suites that build on the archive-DB layer and the
+# pgwire simulator, each on 5 simulated nodes over LocalRemote (one
+# process a node) through its `test` subcommand, every bar at 1, every
+# K1, K5 and K3 launch held against its plain version. cockroachdb's
+# register workload at its own per-key shape (cockroach_workloads.py:
+# 125-156, register.clj:83-104: 10 threads a key, 5 on w/cas and 5
+# reading, 100 ops a key, stagger 0.1 s, delay-til 0.5 s) on 20 workers
+# (4n, as the runner phase) and --nemesis none; its g2 workload
+# (adya.g2_gen, the g2 checker over the cycle checker) on the same
+# cluster shape, and a short g2 run whose client skips the predicate
+# read on the inserts of SUITES_G2_PLANTED (both commit: Adya's G2, so
+# the cycle checker closes those keys' components on K3); and consul at
+# its defaults (concurrency = nodes, stagger 0.1 s over r/w/cas, its
+# nemesis a no-op as the recipe runs it), one unkeyed history through
+# linearizable (K1 up to 1,024 entries, else K5). Time limits are cut
+# from the suites' 60 s; both g2 runs take 5 s, which holds their gates
+# (the valid run reaches no kernel).
+SUITES_TIME_LIMIT = 10
+SUITES_G2_TIME_LIMIT = 5
+SUITES_G2_PLANTED = (1, 2)
+
+
+class G2Planted:
+    """A G2 client whose inserts on `keys` skip the predicate read: both
+    of a planted key's inserts commit, Adya's G2."""
+
+    def __init__(self, inner=None, keys=()):
+        from jepsen_tpu_torch.dbs import cockroach_workloads as crw
+
+        self.inner, self.keys = inner or crw.G2Client(), set(keys)
+
+    def open(self, test, node):
+        return G2Planted(self.inner.open(test, node), self.keys)
+
+    def setup(self, test):
+        self.inner.setup(test)
+
+    def teardown(self, test):
+        self.inner.teardown(test)
+
+    def close(self, test):
+        self.inner.close(test)
+
+    def invoke(self, test, op):
+        from jepsen_tpu_torch.dbs import cockroach as cr
+
+        k, (a_id, b_id) = op.value
+        if op.f != "insert" or k not in self.keys:
+            return self.inner.invoke(test, op)
+        table, row = ("a", a_id) if a_id is not None else ("b", b_id)
+
+        def body(c):
+            cr.txn_retry(lambda: c.query(
+                f"insert into {table} (id, key, value) "
+                f"values ({row}, {k}, 30)"))
+            return op.with_(type="ok")
+
+        return cr.invoke_with_taxonomy(self.inner.conn, op, body)
+
+
+def suites_run(args, kernels, td: str, name: str, suite: str, time_limit,
+               *extra, client=None, concurrency=RUNNER_CONCURRENCY) -> dict:
+    """One `test` of `suite` ("cockroachdb" or "consul") on a fresh
+    cluster of RUNNER_NODES with every bar at 1 (`client` replaces
+    cockroachdb's client; consul runs its own): exit code, wall,
+    launches (`seen`), wall split, run dir, results and the history's
+    counts."""
+    import glob
+
+    from jepsen_tpu_torch import cli
+    from jepsen_tpu_torch.dbs import consul, consul_sim, crdb_sim
+    from jepsen_tpu_torch.dbs import cockroach_workloads as crw
+
+    root = os.path.join(td, name)
+    sd = os.path.join(root, "store")
+    if suite == "consul":
+        cluster = consul_sim.local_cluster(root, RUNNER_NODES)
+        cmd = cli.single_test_cmd(consul_sim.local_test_fn(cluster),
+                                  opt_spec=consul._opt_spec)
+    else:
+        cluster = crdb_sim.local_cluster(root, RUNNER_NODES)
+        cmd = cli.single_test_cmd(crdb_sim.local_test_fn(cluster,
+                                                         client=client),
+                                  opt_spec=crw._opt_spec)
+    argv = runner_argv("test", sd, time_limit, args.runner_device, *extra,
+                       concurrency=concurrency)
+    try:
+        with card_bars(1), RunnerWall() as rw:
+            rc, wall, seen = run_path(kernels, lambda: cli.run_cli(cmd,
+                                                                   argv))
+    finally:
+        stop_members(root)
+    (run_dir,) = [os.path.realpath(d)
+                  for d in glob.glob(os.path.join(sd, "*", "latest"))]
+    with open(os.path.join(run_dir, "results.json")) as f:
+        results = json.load(f)
+    return {"rc": rc, "wall": wall, "seen": seen, "split": rw.split,
+            "run_dir": run_dir, "results": results,
+            "counts": runner_history(run_dir)}
+
+
+def suite_verdict(results: dict, part: str, expect) -> dict:
+    """Hold a stored suite run's verdict: its checker `part` is
+    `expect`, and the composed verdict is the merge of every part's,
+    perf's "unknown" exactly when matplotlib (its graphs) is not
+    installed."""
+    import importlib.util
+
+    from jepsen_tpu_torch.checker import merge_valid
+
+    perf = results["perf"]["valid"]
+    plots = importlib.util.find_spec("matplotlib") is not None
+    assert results[part]["valid"] is expect, results[part]
+    assert perf is True if plots else perf == "unknown", results["perf"]
+    parts = [v["valid"] for k, v in results.items()
+             if isinstance(v, dict) and "valid" in v]
+    assert results["valid"] == merge_valid(parts), results["valid"]
+    return {"valid": results["valid"], f"{part}_valid": expect,
+            "perf_valid": perf, "matplotlib": plots}
+
+
+def suites_line(kernels, ck, cell, run, **fields) -> dict:
+    """A suites cell's line: runner_line's figures (every WGL launch
+    replayed bit for bit), every K3 bucket fixpoint replayed bit for bit
+    (`replay_closures`, folded into the K3 rows by `checkers_cell`), the
+    history's counts and ops/s, the wall split."""
+    seen, split, counts = run["seen"], run["split"], run["counts"]
+    line = runner_line(kernels, cell, run["rc"], run["wall"], seen,
+                       nodes=len(RUNNER_NODES), bars=1, split=split,
+                       **counts,
+                       ops_per_s=counts["completed"] / split["run_case_s"],
+                       **fields)
+    if seen["unpack"][2]:
+        k3 = checkers_cell(ck, cell, seen, replay_closures(
+            ck, seen["unpack"][2]), run["wall"])
+        line["k3"] = {k: k3[k] for k in ("k3", "closure_buckets",
+                                         "closure_word_batches",
+                                         "wider_buckets", "device_ms")}
+        line["launches"] = k3["launches"]
+        line["replayed_kernel_ms"] += k3["device_ms"]
+        line["device_idle_replayed"] = (
+            1 - line["replayed_kernel_ms"] / 1000 / run["wall"])
+    return line
+
+
+def suites_cockroach_register(args, kernels, ck, td: str) -> None:
+    """cockroachdb's register workload: exit 0, every key True, one K1
+    (or K5) launch a key, each equal to its plain version."""
+    run = suites_run(args, kernels, td, "register", "cockroachdb",
+                     SUITES_TIME_LIMIT, "--workload", "register",
+                     "--nemesis", "none")
+    res = run["results"]
+    keys = {k: r["linearizable"]["valid"]
+            for k, r in res["details"]["results"].items()}
+    verdict = suite_verdict(res, "details", True)
+    seen = run["seen"]
+    assert run["rc"] == 0, run["rc"]
+    assert keys and all(v is True for v in keys.values()), keys
+    assert seen["wgl_vec"][0] + seen["wgl_row"][0] == len(keys), (
+        len(keys), seen["wgl_vec"][0], seen["wgl_row"][0])
+    emit(suites_line(kernels, ck, "suites_cockroach_register", run,
+                     workload="register", concurrency=4 * len(RUNNER_NODES),
+                     threads_per_key=10, ops_per_key=100,
+                     time_limit_s=SUITES_TIME_LIMIT, keys=len(keys),
+                     verdicts=verdict_counts(keys.values()), **verdict))
+
+
+def suites_g2(args, kernels, ck, td: str, planted: bool) -> None:
+    """cockroachdb's g2 workload: exit 0 and valid (or, with `planted`,
+    exit 1, exactly the planted keys illegal and the anomaly G2); the g2
+    dict on the card equal to the stored history's under device="cpu";
+    every K3 launch equal to its plain version."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.workloads import adya
+
+    name = "g2_planted" if planted else "g2"
+    run = suites_run(args, kernels, td, name, "cockroachdb",
+                     SUITES_G2_TIME_LIMIT, "--workload", "g2",
+                     "--nemesis", "none",
+                     client=G2Planted(keys=SUITES_G2_PLANTED)
+                     if planted else None)
+    res = run["results"]
+    g2 = res["g2"]
+    verdict = suite_verdict(res, "g2", not planted)
+    run_dir = run["run_dir"]
+    hist = store.load_history({
+        "name": os.path.basename(os.path.dirname(run_dir)),
+        "start_time": os.path.basename(run_dir),
+        "store_dir": os.path.dirname(os.path.dirname(run_dir))})
+    t0 = time.perf_counter()
+    cpu = adya.g2_checker(device="cpu").check({}, hist, {})
+    cpu_s = time.perf_counter() - t0
+    assert normalise(cpu) == normalise(g2), (g2, normalise(cpu))
+    if planted:
+        assert run["rc"] == 1, run["rc"]
+        assert sorted(int(k) for k in g2["illegal"]) == sorted(
+            SUITES_G2_PLANTED), g2["illegal"]
+        assert g2["anomaly-types"] == ["G2"], g2.get("anomaly-types")
+        assert run["seen"]["closure_word"][0] > 0, "no closure_word launch"
+    else:
+        assert run["rc"] == 0, run["rc"]
+        assert g2["illegal-count"] == 0, g2
+    emit(suites_line(
+        kernels, ck, f"suites_cockroach_{name}", run, workload="g2",
+        concurrency=4 * len(RUNNER_NODES),
+        time_limit_s=SUITES_G2_TIME_LIMIT, keys=g2["key-count"],
+        legal=g2["legal-count"],
+        illegal=g2["illegal"], anomaly_types=g2.get("anomaly-types", []),
+        planted_keys=list(SUITES_G2_PLANTED) if planted else [],
+        cpu_dict_equal=True, cpu_check_s=cpu_s, **verdict))
+
+
+def suites_consul(args, kernels, ck, td: str) -> None:
+    """consul at its defaults: exit 0, valid, its one history's
+    linearizable launch (K1 or K5) equal to its plain version."""
+    run = suites_run(args, kernels, td, "consul", "consul",
+                     SUITES_TIME_LIMIT,
+                     concurrency=str(len(RUNNER_NODES)))
+    res = run["results"]
+    verdict = suite_verdict(res, "linear", True)
+    seen = run["seen"]
+    assert run["rc"] == 0, run["rc"]
+    assert seen["wgl_vec"][0] + seen["wgl_row"][0] == 1, (
+        seen["wgl_vec"][0], seen["wgl_row"][0])
+    emit(suites_line(kernels, ck, "suites_consul", run,
+                     concurrency=len(RUNNER_NODES),
+                     time_limit_s=SUITES_TIME_LIMIT, keys=1,
+                     verdicts=verdict_counts([res["linear"]["valid"]]),
+                     **verdict))
+
+
+def phase_suites(args, kernels, ck) -> None:
+    """The cockroachdb and consul suites end to end on simulated nodes:
+    suites_cockroach_register, suites_cockroach_g2 (and its planted
+    run), suites_consul; one line a cell."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_suites_") as td:
+        suites_cockroach_register(args, kernels, ck, td)
+        suites_g2(args, kernels, ck, td, planted=False)
+        suites_g2(args, kernels, ck, td, planted=True)
+        suites_consul(args, kernels, ck, td)
+    emit({"phase": "suites", "wall_s": time.perf_counter() - t0,
+          "nvidia_smi": args.smi})
+
+
 def lookup_us(mod, reps: int = 20) -> dict:
     """Host µs of one lookup of kernel module `mod`'s library through
     its `build`: "cached", as every wrapper makes it at each launch, and
@@ -5146,6 +5434,12 @@ def run(args) -> int:
                           if not k.library]})
         print(smi, flush=True)
         return 0
+    if args.only == "suites":
+        phase_suites(args, kernels, ck)
+        emit({"kernels": [k.row() for k in (vec, row, *ck.values())
+                          if not k.library]})
+        print(smi, flush=True)
+        return 0
 
     phase_kernel_vs_plain(args, vec)
     phase_row_vs_plain(args, row)
@@ -5227,6 +5521,8 @@ def run(args) -> int:
 
     phase_faults(args, kernels, ck, sim)
 
+    phase_suites(args, kernels, ck)
+
     mm = ck["matmul"]
     emit({"kernels": [k.row() for k in (*kernels, *meshk.values())
                       if not k.library],
@@ -5246,7 +5542,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("crossover", "closure", "fuzz",
                                        "linear", "store", "online",
                                        "serve", "mesh", "checkers",
-                                       "runner", "faults"),
+                                       "runner", "faults", "suites"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
@@ -5262,7 +5558,9 @@ def main() -> int:
                     "workers), bank-setfull, analyze and fuzz; runner: the "
                     "etcd suite's test, analyze and resume on simulated "
                     "members; faults: the etcd suite under a composed "
-                    "fault package and under a fuzz-found schedule) and "
+                    "fault package and under a fuzz-found schedule; "
+                    "suites: cockroachdb's register and g2 workloads and "
+                    "consul on simulated nodes) and "
                     "print their lines and the nvidia-smi "
                     "line (no smoke result)")
     return run(ap.parse_args())

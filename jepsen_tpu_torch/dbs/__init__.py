@@ -1,5 +1,5 @@
 """Per-database test suites (reference: the per-DB projects, SURVEY.md
-§1 L9 / §2.1; the port's copy of `jepsen_tpu/dbs/`, one suite so far).
+§1 L9 / §2.1; the port's copy of `jepsen_tpu/dbs/`, four suites so far).
 
 Each suite module supplies, like its reference counterpart:
   - a DB implementation (install/start/teardown through the control plane)
@@ -14,5 +14,8 @@ archive → daemon → wire protocol), one process a node.
 
 #: suite-module registry: the suites the port has, and their modules
 SUITES = {
+    "cockroachdb": "jepsen_tpu_torch.dbs.cockroach_workloads",
+    "consul": "jepsen_tpu_torch.dbs.consul",
     "etcd": "jepsen_tpu_torch.dbs.etcd",
+    "postgres-rds": "jepsen_tpu_torch.dbs.postgres_rds",
 }

@@ -32,7 +32,7 @@ import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from .simbase import Store, build_sim_archive
+from .simbase import Store, build_sim_archive, free_port
 
 KEYS_PREFIX = "/v2/keys/"
 
@@ -187,15 +187,6 @@ def build_archive(dest: str, data_path: str, mean_latency: float = 0.0,
         dest, "jepsen_tpu_torch.dbs.etcd_sim", "etcd", "etcd-sim-linux-amd64",
         data_path, mean_latency=mean_latency, python=python,
     )
-
-
-def free_port() -> int:
-    """An ephemeral localhost TCP port."""
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def local_cluster(root: str, nodes, ports: dict | None = None) -> dict:

@@ -115,22 +115,48 @@ class StoreTxn:
 
 def build_sim_archive(dest: str, module: str, binary: str, arcname: str,
                       data_path: str, mean_latency: float = 0.0,
-                      python: str | None = None) -> str:
+                      python: str | None = None,
+                      pidfile: str | None = None) -> str:
     """Build a tar.gz whose `binary` is a script launching `module`
     (a jepsen_tpu_torch.dbs simulator) with a shared state file."""
     return build_multi_sim_archive(
         dest, arcname, {binary: module}, data_path,
-        mean_latency=mean_latency, python=python)
+        mean_latency=mean_latency, python=python, pidfile=pidfile)
+
+
+def _already_running(module: str, pidfile: str) -> str:
+    """Launcher lines that do what start-stop-daemon's --exec match does
+    for a real binary, which it cannot do for a script that execs
+    Python: if this node's simulator already runs (the pid the launcher
+    last recorded in the working directory, alive there and running
+    `module`), put that pid back into `pidfile` (relative to the
+    working directory), which start-stop-daemon has just overwritten,
+    and start nothing."""
+    return (
+        "old=$(cat .sim.pid 2>/dev/null)\n"
+        "if [ -n \"$old\" ] && "
+        "[ \"$(readlink /proc/$old/cwd 2>/dev/null)\" = \"$(pwd -P)\" ] && "
+        f"grep -qaF {shlex.quote(module)} /proc/$old/cmdline 2>/dev/null; "
+        "then\n"
+        f"  echo \"$old\" > {shlex.quote(pidfile)}\n"
+        "  exit 0\n"
+        "fi\n"
+        "echo $$ > .sim.pid\n"
+    )
 
 
 def build_multi_sim_archive(dest: str, arcname: str, binaries: dict,
                             data_path: str, mean_latency: float = 0.0,
-                            python: str | None = None) -> str:
+                            python: str | None = None,
+                            pidfile: str | None = None) -> str:
     """Build a tar.gz containing SEVERAL launcher scripts — the shape
     of multi-daemon systems (tidb's pd/tikv/tidb triple, mysql
     cluster's mgmd/ndbd/mysqld roles). `binaries` maps binary name ->
     jepsen_tpu_torch.dbs module; every script shares the same state file so
-    the role daemons and the SQL daemon see one cluster."""
+    the role daemons and the SQL daemon see one cluster. With `pidfile`
+    (the suite's pidfile, relative to the directory the daemon starts
+    in), starting a node whose simulator already runs there does
+    nothing, as start-stop-daemon does for a live real binary."""
     import tarfile
 
     python = python or sys.executable
@@ -144,7 +170,8 @@ def build_multi_sim_archive(dest: str, arcname: str, binaries: dict,
             script = (
                 "#!/bin/bash\n"
                 f"export PYTHONPATH={shlex.quote(repo_root)}:$PYTHONPATH\n"
-                f"exec {shlex.quote(python)} -m {module} "
+                + (_already_running(module, pidfile) if pidfile else "")
+                + f"exec {shlex.quote(python)} -m {module} "
                 f"--data {shlex.quote(data_path)} "
                 f"--mean-latency {mean_latency} "
                 "\"$@\"\n"
@@ -156,3 +183,12 @@ def build_multi_sim_archive(dest: str, arcname: str, binaries: dict,
         with tarfile.open(dest, "w:gz") as tar:
             tar.add(top, arcname=arcname)
     return dest
+
+
+def free_port() -> int:
+    """An ephemeral localhost TCP port."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]

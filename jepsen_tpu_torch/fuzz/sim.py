@@ -38,6 +38,7 @@ kernel that fails to build or launch raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -60,6 +61,11 @@ OUTPUTS = ("coord", "failed", "kind", "key", "eff", "pos", "rlen")
 
 #: launches of the kernel on CUDA tensors so far
 LAUNCHES = 0
+#: held around each launch: the library raises the kernel's shared-memory
+#: limit (cudaFuncSetAttribute, one value for every thread) and then
+#: launches, so a launch from another thread in between could lower the
+#: limit under this launch's (cudaErrorInvalidValue)
+_LAUNCHING = threading.Lock()
 #: when a list, every launch on the card appends its (start, end) CUDA
 #: events
 TIMED: list | None = None
@@ -344,17 +350,19 @@ def sim(scheds: torch.Tensor, wseeds: torch.Tensor,
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record(stream)
-        rc = lib.sim_launch(
-            scheds.data_ptr(), wseeds.data_ptr(), S, spec.nodes, spec.keys,
-            spec.txns, spec.mops, spec.faults, St, spec.audit_t0,
-            *(out[name].data_ptr() for name in OUTPUTS), smem, threads,
-            stream.cuda_stream)
+        with _LAUNCHING:
+            rc = lib.sim_launch(
+                scheds.data_ptr(), wseeds.data_ptr(), S, spec.nodes,
+                spec.keys, spec.txns, spec.mops, spec.faults, St,
+                spec.audit_t0, *(out[name].data_ptr() for name in OUTPUTS),
+                smem, threads, stream.cuda_stream)
+            if rc == 0:
+                LAUNCHES += 1
         if rc != 0:
             raise KernelError(f"sim kernel launch failed: cudaError {rc}")
         if ev is not None:
             ev[1].record(stream)
             TIMED.append(ev)
-        LAUNCHES += 1
     return out
 
 

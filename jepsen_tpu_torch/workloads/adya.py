@@ -1,19 +1,59 @@
-"""Adya G2 anti-dependency-cycle workload checker (the port's copy of the
-checking half of `jepsen_tpu/workloads/adya.py`; reference:
-jepsen/src/jepsen/tests/adya.clj:63-89; see Adya's thesis for G2).
+"""Adya G2 anti-dependency-cycle workload (the port's copy of
+`jepsen_tpu/workloads/adya.py`; reference: jepsen/src/jepsen/tests/
+adya.clj:1-89; see Adya's thesis for G2).
 
 For each key, two concurrent transactions each predicate-read both
 tables and insert one row; under serializability at most one insert
 per key may commit. Ops are {"f": "insert", "value": (key, (a_id,
-b_id))} with exactly one of a_id/b_id set. The generator (`g2_gen`) is
-not ported (the port has no `generator.py`).
+b_id))} with exactly one of a_id/b_id set; clients predicate-read both
+tables for the key, and insert into table a or b iff both reads came
+back empty.
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
+
+from .. import generator as gen
 from .. import independent
 from ..checker import Checker
 from ..history import ops as _ops
+
+
+class _IdSource:
+    def __init__(self):
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def next(self) -> int:
+        with self._lock:
+            self._n += 1
+            return self._n
+
+
+def g2_gen() -> gen.Generator:
+    """Pairs of insert ops per key, ids globally unique; one txn holds
+    a_id, the other b_id (adya.clj:13-61)."""
+    ids = _IdSource()
+    return independent.concurrent_generator(
+        2,
+        itertools.count(),
+        lambda k: gen.seq(
+            [
+                lambda t, p: {
+                    "type": "invoke",
+                    "f": "insert",
+                    "value": (None, ids.next()),
+                },
+                lambda t, p: {
+                    "type": "invoke",
+                    "f": "insert",
+                    "value": (ids.next(), None),
+                },
+            ]
+        ),
+    )
 
 
 class G2Checker(Checker):
@@ -91,3 +131,9 @@ class G2Checker(Checker):
 
 def g2_checker(legacy: bool = False, device=None) -> G2Checker:
     return G2Checker(legacy=legacy, device=device)
+
+
+def workload(device=None) -> dict:
+    """Checker + generator bundle; the checker's cycle search runs on
+    `device`."""
+    return {"checker": g2_checker(device=device), "generator": g2_gen()}

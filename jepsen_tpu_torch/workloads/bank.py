@@ -1,6 +1,6 @@
-"""Bank-transfer workload checkers (the port's copy of the checking half
-of `jepsen_tpu/workloads/bank.py`; reference: jepsen/src/jepsen/tests/
-bank.clj:46-178): concurrent transfers between accounts while readers
+"""Bank-transfer workload (the port's copy of
+`jepsen_tpu/workloads/bank.py`; reference: jepsen/src/jepsen/tests/
+bank.clj:1-178): concurrent transfers between accounts while readers
 snapshot all balances; under snapshot isolation every read must show
 the same non-negative total.
 
@@ -8,16 +8,49 @@ Test map options:
     accounts       collection of account identifiers
     total_amount   total amount allocated across accounts
     max_transfer   largest single transfer
-
-The generator is not ported (the port has no `generator.py`).
 """
 
 from __future__ import annotations
 
+import random
+
+from .. import generator as gen
 from ..checker import Checker, Compose
 from ..checker.perf import load_pyplot, out_path
 from ..history import ops as _ops
 from ..util import nanos_to_secs
+
+
+def read(test, process):
+    """A generator of whole-state read ops (bank.clj:20-23)."""
+    return {"type": "invoke", "f": "read", "value": None}
+
+
+def transfer(test, process):
+    """A random transfer between two random accounts (bank.clj:25-33)."""
+    accounts = test["accounts"]
+    return {
+        "type": "invoke",
+        "f": "transfer",
+        "value": {
+            "from": random.choice(accounts),
+            "to": random.choice(accounts),
+            "amount": 1 + random.randrange(test["max_transfer"]),
+        },
+    }
+
+
+def diff_transfer():
+    """Transfers only between distinct accounts (bank.clj:35-39)."""
+    return gen.filter_gen(
+        lambda op: op["value"]["from"] != op["value"]["to"],
+        transfer,
+    )
+
+
+def generator():
+    """A mix of reads and transfers (bank.clj:41-44)."""
+    return gen.mix([diff_transfer(), read])
 
 
 def err_badness(test, err) -> float:
@@ -151,8 +184,8 @@ def plotter() -> BankPlotter:
 
 
 def test(device=None) -> dict:
-    """The partial test bundle's defaults and checkers (bank.clj:169-178),
-    without the generator.
+    """Partial test bundle: defaults + generator + checkers
+    (bank.clj:169-178).
 
     The "cycle" entry runs the transactional cycle checker beside the
     SI total check, on `device` (None = CUDA, raising when it is absent
@@ -170,4 +203,5 @@ def test(device=None) -> dict:
         "accounts": list(range(8)),
         "checker": Compose({"SI": checker(), "plot": plotter(),
                             "cycle": cycle.checker(device=device)}),
+        "generator": generator(),
     }

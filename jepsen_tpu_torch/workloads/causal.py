@@ -1,16 +1,18 @@
-"""Causal-consistency register workload checkers (the port's copy of the
-checking half of `jepsen_tpu/workloads/causal.py`; reference:
-jepsen/src/jepsen/tests/causal.clj:1-131): a causal order of reads and
-writes against per-key registers, verified by sequential replay.
+"""Causal-consistency register workload (the port's copy of
+`jepsen_tpu/workloads/causal.py`; reference: jepsen/src/jepsen/tests/
+causal.clj:1-131): a causal order of reads and writes against per-key
+registers, verified by sequential replay.
 
 Ops carry two extra fields (in Op.extra): "position", an opaque site
 position for this op, and "link", the position of the causally preceding
-op (or "init" for the first op in a causal order). The generators are
-not ported (the port has no `generator.py`).
+op (or "init" for the first op in a causal order).
 """
 
 from __future__ import annotations
 
+import itertools
+
+from .. import generator as gen
 from .. import independent
 from ..checker import Checker
 from ..history import ops as _ops
@@ -101,3 +103,52 @@ def checker(device=None) -> independent.IndependentChecker:
         "cycle": cycle.checker(version_order="value", init_values=(0,),
                                device=device),
     }))
+
+
+# Generators (causal.clj:113-116)
+def r(test, process):
+    return {"type": "invoke", "f": "read"}
+
+
+def ri(test, process):
+    return {"type": "invoke", "f": "read-init"}
+
+
+def cw1(test, process):
+    return {"type": "invoke", "f": "write", "value": 1}
+
+
+def cw2(test, process):
+    return {"type": "invoke", "f": "write", "value": 2}
+
+
+def test(opts: dict) -> dict:
+    """Partial test: one causal order (ri w1 r w2 r) per key, one worker
+    per key, partition nemesis cycling every 10 s (causal.clj:118-131).
+    The checker runs on opts["device"] (`checker`)."""
+    nemesis_cycle = itertools.cycle(
+        [
+            gen.sleep(10),
+            {"type": "info", "f": "start"},
+            gen.sleep(10),
+            {"type": "info", "f": "stop"},
+        ]
+    )
+    return {
+        "model": causal_register(),
+        "checker": checker(device=opts.get("device")),
+        "generator": gen.time_limit(
+            opts.get("time_limit", 60),
+            gen.nemesis(
+                gen.seq(nemesis_cycle),
+                gen.stagger(
+                    1,
+                    independent.concurrent_generator(
+                        1,
+                        itertools.count(),
+                        lambda k: gen.seq([ri, cw1, r, cw2, r]),
+                    ),
+                ),
+            ),
+        ),
+    }

@@ -60,9 +60,20 @@ class ListAppendGen:
             return {"type": "invoke", "f": "txn", "value": t}
 
 
+def generator(keys: int = 16, max_txn_len: int = 4,
+              read_ratio: float = 0.5, seed: int | None = None):
+    return ListAppendGen(keys, max_txn_len, read_ratio, seed)
+
+
 def checker(anomalies=DEFAULT_ANOMALIES, **kw) -> cycle.CycleChecker:
     """The cycle checker parameterized for list-append histories."""
     return cycle.checker(anomalies, **kw)
+
+
+def workload(keys: int = 16, anomalies=DEFAULT_ANOMALIES,
+             device=None) -> dict:
+    return {"checker": checker(anomalies, device=device),
+            "generator": generator(keys)}
 
 
 # ---------------------------------------------------------------------------

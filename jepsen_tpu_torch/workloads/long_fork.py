@@ -1,8 +1,8 @@
-"""Long-fork anomaly workload checker (parallel snapshot isolation; the
-port's copy of the checking half of `jepsen_tpu/workloads/long_fork.py`;
-reference: jepsen/src/jepsen/tests/long_fork.clj:1-332): single-key
-write transactions plus multi-key group reads; a long fork exists when
-two reads observe a pair of writes in conflicting orders.
+"""Long-fork anomaly workload (parallel snapshot isolation; the port's
+copy of `jepsen_tpu/workloads/long_fork.py`; reference:
+jepsen/src/jepsen/tests/long_fork.clj:1-332): single-key write
+transactions plus multi-key group reads; a long fork exists when two
+reads observe a pair of writes in conflicting orders.
 
 Transactions are sequences of [f, k, v] micro-ops (`txn`). Every key is
 written at most once, so per-key states move nil -> v and read
@@ -14,16 +14,16 @@ Checking routes through the transactional cycle checker
 anti-dependency edges, so the pairwise-domination test reduces to cycle
 detection under write-once rw-register inference. The vectorized
 all-pairs comparator (find_forks) runs behind checker(n, legacy=True).
-The generator (`LongForkGen`) is not ported (the port has no
-`generator.py`).
 """
 
 from __future__ import annotations
 
 import random
+import threading
 
 import numpy as np
 
+from .. import generator as gen
 from .. import txn as mop
 from ..checker import Checker
 from ..history import ops as _ops
@@ -61,6 +61,48 @@ def read_txn_for(n: int, k: int) -> list:
     ks = list(group_for(n, k))
     random.shuffle(ks)
     return [[mop.READ, k, None] for k in ks]
+
+
+class LongForkGen(gen.Generator):
+    """Single-key inserts, each followed (same worker) by a read of its
+    group, mixed with reads of other in-flight groups
+    (long_fork.clj:114-156)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self._next_key = 0
+        self._workers: dict = {}
+        self._lock = threading.Lock()
+
+    def op(self, test, process):
+        worker = gen.process_to_thread(test, process)
+        with self._lock:
+            k = self._workers.get(worker)
+            if k is not None:
+                # Read back the group we just wrote
+                self._workers[worker] = None
+                return {
+                    "type": "invoke",
+                    "f": "read",
+                    "value": read_txn_for(self.n, k),
+                }
+            active = [v for v in self._workers.values() if v is not None]
+            if active and random.random() < 0.5:
+                # Read another active group, just for grins
+                return {
+                    "type": "invoke",
+                    "f": "read",
+                    "value": read_txn_for(self.n, random.choice(active)),
+                }
+            k = self._next_key
+            self._next_key += 1
+            self._workers[worker] = k
+            return {"type": "invoke", "f": "write",
+                    "value": [[mop.WRITE, k, 1]]}
+
+
+def generator(n: int) -> LongForkGen:
+    return LongForkGen(n)
 
 
 def read_op_to_value_map(op) -> dict:
@@ -249,3 +291,10 @@ class LongForkChecker(Checker):
 
 def checker(n: int, legacy: bool = False, device=None) -> LongForkChecker:
     return LongForkChecker(n, legacy=legacy, device=device)
+
+
+def workload(n: int = 2, device=None) -> dict:
+    """Checker + generator bundle; n is the group size
+    (long_fork.clj:326-332); the checker's cycle search runs on
+    `device`."""
+    return {"checker": checker(n, device=device), "generator": generator(n)}

@@ -351,13 +351,17 @@ def test_sigterm_then_resume(tmp_path, cluster_root):
 
 
 def test_suite_listing():
-    """`python -m jepsen_tpu_torch.dbs` lists the port's suites: etcd."""
+    """`python -m jepsen_tpu_torch.dbs` lists the port's suites:
+    cockroachdb (with its workloads), consul, etcd and postgres-rds."""
     out = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch.dbs"],
                          cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
-    assert "1 per-DB suites" in out.stdout
-    assert "jepsen_tpu_torch.dbs.etcd" in out.stdout
+    assert "4 per-DB suites" in out.stdout
+    for mod in ("cockroach_workloads", "consul", "etcd", "postgres_rds"):
+        assert f"jepsen_tpu_torch.dbs.{mod}" in out.stdout
+    assert "workloads: bank, comments, g2, monotonic, register, " \
+        "sequential, sets" in out.stdout
 
 
 def test_readiness_poll_and_gate():

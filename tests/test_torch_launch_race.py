@@ -1,8 +1,10 @@
 """The WGL engines' kernels launched from many threads at once, as
 `independent.checker` launches them (a thread a key), with plans whose
 shared memory differs by key size: every launch goes through and every
-verdict, step count and best stack is the one a lone launch gives. Each
-library sets its kernel's shared-memory limit, one value for every
+verdict, step count and best stack is the one a lone launch gives; and
+the cluster simulator's kernel launched from many threads at specs whose
+shared memory differs, every result bit for bit its plain version's.
+Each library sets its kernel's shared-memory limit, one value for every
 thread, just before it launches, so the wrappers hold a lock across the
 two (a launch between them once failed with cudaErrorInvalidValue on
 the card). On the card only (the kernels have no CPU build); this file
@@ -12,11 +14,14 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
 import pytest
 import torch
 
 from jepsen_tpu_torch import history as thist
 from jepsen_tpu_torch import models
+from jepsen_tpu_torch.fuzz import sim
+from jepsen_tpu_torch.fuzz.schedule import SimSpec, random_schedule
 from jepsen_tpu_torch.ops import wgl_row, wgl_search, wgl_vec
 from jepsen_tpu_torch.workloads.register import register_history
 
@@ -79,3 +84,49 @@ def test_concurrent_launches_match_lone_ones(cuda, engine):
     assert len(results) == THREADS * ROUNDS
     assert all(s == lone[i] for i, s in results)
     assert mod.LAUNCHES - launches >= THREADS * ROUNDS
+
+
+# two cluster shapes whose blocks need 105,232 and 121,580 bytes of
+# shared memory, both past the 48-KiB default, so each launch must raise
+# the kernel's limit to its own size first
+SIM_SPECS = (SimSpec(nodes=16, keys=64, txns=120, mops=8, faults=16),
+             SimSpec(nodes=9, keys=40, txns=200, mops=8, faults=12))
+
+
+def test_concurrent_sim_launches_match_plain(cuda):
+    batches = []
+    for j, spec in enumerate(SIM_SPECS):
+        scheds = torch.from_numpy(np.stack(
+            [random_schedule(100 * j + i, spec) for i in range(64)]))
+        wseeds = torch.arange(64, dtype=torch.int32) * 7919 + j
+        plain = sim.sim_plain(scheds, wseeds, spec)
+        batches.append((spec, scheds.to(cuda), wseeds.to(cuda), plain))
+    launches = sim.LAUNCHES
+    start = threading.Barrier(THREADS)
+    errors, results = [], []
+
+    def worker(t: int) -> None:
+        try:
+            start.wait(timeout=60)
+            for r in range(ROUNDS):
+                i = (t + r) % len(batches)
+                spec, scheds, wseeds, _ = batches[i]
+                out = sim.sim(scheds, wseeds, spec)
+                results.append((i, {k: v.cpu() for k, v in out.items()}))
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads), "a launch hung"
+    torch.cuda.synchronize()
+    assert errors == []
+    assert len(results) == THREADS * ROUNDS
+    for i, out in results:
+        plain = batches[i][3]
+        assert all(torch.equal(out[k], plain[k]) for k in sim.OUTPUTS)
+    assert sim.LAUNCHES - launches == THREADS * ROUNDS

@@ -340,7 +340,9 @@ def test_port_imports_no_jax():
     fault layer (combined's schedule documents, fsfault, the clock
     nemesis, faketime, the fuzz documents, the etcd suite's fault
     packages and fs-break wiring), reconnect and the register workload;
-    and every module of those) load neither jax
+    the workload generators and bundles; the archive-DB layer, the
+    cockroachdb, consul and postgres-rds suites, their simulators and
+    protocol clients; and every module of those) load neither jax
     nor any module of the JAX package (jepsen_tpu_torch's own name shares
     the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -536,6 +538,32 @@ def test_port_imports_no_jax():
         assert w.conn() is not None
         assert linearizable_register.test({"nodes": ["n1"], "device": "cpu"})[
             "model"] is not None
+        from jepsen_tpu_torch.dbs import (cockroach, cockroach_workloads,
+                                          consul, consul_sim, crdb_sim,
+                                          pg_proto, postgres_rds,
+                                          redis_proto)
+        from jepsen_tpu_torch.workloads import list_append
+        assert bank.test(device="cpu")["generator"] is not None
+        assert adya.workload(device="cpu")["generator"] is not None
+        assert long_fork.workload(2, device="cpu")["generator"] is not None
+        assert causal.test({"device": "cpu"})["generator"] is not None
+        assert list_append.workload(device="cpu")["generator"] is not None
+        for name in cockroach_workloads.workloads():
+            t = cockroach_workloads.cockroach_test({
+                "workload": name, "nodes": ["n1"], "device": "cpu",
+                "nemesis": "parts", "nemesis2": "split"})
+            assert t["name"].startswith("cockroachdb")
+        assert cockroach.resolve_nemesis({"nemesis": "big-skews"})["clocks"]
+        assert consul.consul_test({"nodes": ["n1"], "device": "cpu",
+                                   "nemesis": "start-kill"})[
+            "nemesis"].n == 1
+        assert postgres_rds.rds_test({"nodes": ["x"]})["db"] is None
+        assert common.SuiteCfg("x", 1, "/x").port({}, "n1") == 1
+        assert callable(common.resp_ping_ready)
+        assert redis_proto.RespConn and pg_proto.PgConn
+        assert consul_sim.local_test_fn({}) and crdb_sim.local_test_fn({})
+        data = {}
+        crdb_sim.execute(data, "create table t (id int)")
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))

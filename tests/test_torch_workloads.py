@@ -1,5 +1,6 @@
 """The port's workload checkers (workloads/bank.py, causal.py,
-long_fork.py, adya.py) against the JAX package's on the inputs of
+long_fork.py, adya.py) and generators (those and list_append.py's)
+against the JAX package's on the inputs of
 tests/test_workloads.py and tests/test_cycle_closure.py's adya cases,
 and on seeded histories of 256 keys from chip_smoke.py's makers (the
 shapes of the JAX package's g2_gen, LongForkGen and causal generator,
@@ -154,7 +155,7 @@ def test_bank_bundle():
     jt, tt = jbank.test(), bank.test(device="cpu")
     assert {k: tt[k] for k in ("max_transfer", "total_amount", "accounts")} \
         == {k: jt[k] for k in ("max_transfer", "total_amount", "accounts")}
-    assert "generator" not in tt
+    assert isinstance(tt["generator"], type(bank.generator()))
     test = {"accounts": list(range(8)), "total_amount": 80,
             "nodes": ["n1", "n2"]}
     r = same(jt["checker"], tt["checker"], hist, test)
@@ -469,3 +470,146 @@ def test_register_checker_takes_the_device():
         t = tlr.test({"nodes": ["n1"], **opts})
         lin = t["checker"].checker.checker_map["linearizable"]
         assert (lin.device, lin.algorithm) == (want, "auto")
+
+
+# ---------------------------------------------------------------------------
+# generators: under one random.seed, each bundle's op stream equals the
+# JAX package's op for op (tests/test_workloads.py's generator cases)
+
+def draw(gen_mod, g, seed, n, threads=4, **test):
+    """The first n ops of generator g (anything with `op`, as
+    list_append's generator) drawn by `threads` worker threads in turn
+    after random.seed(seed), as JSON carries them."""
+    random.seed(seed)
+    t = {"concurrency": threads, "nodes": ["n1", "n2"], **test}
+    out = []
+    with gen_mod.with_threads(list(range(threads))):
+        for i in range(n):
+            o = g.op(t, i % threads)
+            if o is None:
+                break
+            out.append(o)
+    return normalise(out)
+
+
+def generators():
+    """(name, the JAX package's generator maker, the port's, the test
+    map's extra fields) for each bundle generator."""
+    from jepsen_tpu import generator as jgen
+    from jepsen_tpu.workloads import list_append as jla
+
+    from jepsen_tpu_torch import generator as tgen
+    from jepsen_tpu_torch.workloads import list_append
+
+    bank_t = {"accounts": list(range(8)), "max_transfer": 5}
+    return {
+        "bank_generator": (jgen, jbank.generator, tgen, bank.generator,
+                           bank_t),
+        "bank_diff_transfer": (jgen, jbank.diff_transfer, tgen,
+                               bank.diff_transfer, bank_t),
+        "adya_g2_gen": (jgen, jadya.g2_gen, tgen, adya.g2_gen, {}),
+        "long_fork_2": (jgen, lambda: jlf.generator(2), tgen,
+                        lambda: long_fork.generator(2), {}),
+        "long_fork_3": (jgen, lambda: jlf.workload(3)["generator"], tgen,
+                        lambda: long_fork.workload(3, device="cpu")[
+                            "generator"], {}),
+        "list_append": (jgen, lambda: jla.generator(8, seed=3), tgen,
+                        lambda: list_append.generator(8, seed=3), {}),
+        "causal_per_key": (
+            jgen, lambda: jind.concurrent_generator(
+                1, iter(range(10 ** 6)), lambda k: jgen.seq(
+                    [jcausal.ri, jcausal.cw1, jcausal.r, jcausal.cw2,
+                     jcausal.r])),
+            tgen, lambda: tind.concurrent_generator(
+                1, iter(range(10 ** 6)), lambda k: tgen.seq(
+                    [causal.ri, causal.cw1, causal.r, causal.cw2,
+                     causal.r])), {}),
+    }
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", sorted(generators()))
+def test_generator_streams_equal(name, seed):
+    jgen, jmake, tgen, tmake, extra = generators()[name]
+    want = draw(jgen, jmake(), seed, 120, **extra)
+    got = draw(tgen, tmake(), seed, 120, **extra)
+    assert len(got) >= 40 and got == want
+
+
+def test_bank_generator_never_self_transfers():
+    from jepsen_tpu_torch import generator as tgen
+
+    ops = draw(tgen, bank.diff_transfer(), 0, 50,
+               accounts=list(range(8)), max_transfer=5)
+    assert len(ops) == 50
+    assert all(o["value"]["from"] != o["value"]["to"] for o in ops)
+
+
+def test_adya_gen_unique_ids_and_pairing():
+    from collections import Counter
+
+    from jepsen_tpu_torch import generator as tgen
+
+    ops = draw(tgen, adya.g2_gen(), 0, 16)
+    ids = [a if a is not None else b for _, (a, b) in
+           (o["value"] for o in ops)]
+    assert len(ids) == len(set(ids))
+    assert all(c == 2 for c in Counter(o["value"][0] for o in ops).values())
+
+
+def test_long_fork_generator_write_then_group_read():
+    from jepsen_tpu_torch import generator as tgen
+
+    g = long_fork.generator(2)
+    with tgen.with_threads([0, 1]):
+        t = {"concurrency": 2}
+        o1 = tgen.op(g, t, 0)
+        k = tmop.key(o1["value"][0])
+        o2 = tgen.op(g, t, 0)
+    assert o1["f"] == "write" and o2["f"] == "read"
+    assert sorted(tmop.key(m) for m in o2["value"]) == sorted(
+        long_fork.group_for(2, k))
+
+
+def test_bundles_match_the_jax_package():
+    """The bundles' shapes: the same keys as the JAX package's, the
+    checkers of the same kinds, causal's model and time limit."""
+    from jepsen_tpu.workloads import list_append as jla
+
+    from jepsen_tpu_torch.workloads import list_append
+
+    pairs = [(jadya.workload(), adya.workload(device="cpu")),
+             (jlf.workload(2), long_fork.workload(2, device="cpu")),
+             (jla.workload(8), list_append.workload(8, device="cpu")),
+             (jcausal.test({"time_limit": 5}),
+              causal.test({"time_limit": 5, "device": "cpu"})),
+             (jbank.test(), bank.test(device="cpu"))]
+    for j, t in pairs:
+        assert sorted(j) == sorted(t)
+        assert type(t["checker"]).__name__ == type(j["checker"]).__name__
+        assert type(t["generator"]).__name__ == type(
+            j["generator"]).__name__
+    assert causal.test({})["generator"].dt == 60
+    assert type(causal.test({})["model"]).__name__ == "CausalRegister"
+
+
+def test_workloads_package_is_lazy():
+    """`jepsen_tpu_torch.workloads` names the JAX package's bundle
+    modules and loads each on first use, so a simulated node that
+    imports the package loads no checker (nor torch)."""
+    import subprocess
+    import sys
+
+    from jepsen_tpu_torch import workloads
+
+    assert workloads.bank is bank and workloads.adya is adya
+    assert sorted(workloads.__all__) == sorted(
+        ["adya", "bank", "causal", "linearizable_register", "list_append",
+         "long_fork"])
+    code = ("import sys, jepsen_tpu_torch.workloads; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jepsen_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=os.path.dirname(
+                             os.path.dirname(os.path.abspath(__file__))))
+    assert out.stdout.strip() == "[]"
