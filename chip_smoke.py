@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--only crossover|closure|fuzz|linear|store|online|serve|mesh|checkers
-                |runner|faults|suites]
+                |runner|faults|suites|dgraph]
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -64,13 +64,14 @@ corpus case through the `linear` algorithm on the host and through
 `competition` on the card (linear raced against K2's counterpart), at
 a 2-s limit a case, every K2 launch held against its plain version, the
 winners counted and the card's busy time behind an abandoned loser
-measured (`--only linear`); and the `store` phase: the register cell
-(every bar at 1) and cycle_append with a store dir and an analysis
-journal under a temporary directory (run 1 writes each key's
-results.edn, history.txt and linear.svg, or timeline-cycle.html; the
-journaled run 2 launches nothing and gives run 1's dict), and the fuzz
-loop (FuzzLoop(clusters=256), 4 rounds) on the card and on the host
-engines, whose corpus files must be byte-identical (`--only store`).
+measured (`--only linear`); and the `store` phase: 1,024 keys of the
+register cell's shape (every bar at 1) and cycle_append with a store
+dir and an analysis journal under a temporary directory (run 1 writes
+each key's results.edn, history.txt and linear.svg, or
+timeline-cycle.html; the journaled run 2 launches nothing and gives run
+1's dict), and the fuzz loop (FuzzLoop(clusters=256), 4 rounds) on
+the card and on the host engines, whose corpus files must be
+byte-identical (`--only store`).
 Then the `online` phase: the JAX package's online bench stream (34
 register keys of 150 invocations, ~10k ops) through `WGLFrontier` over
 the registry's register workload in windows of 512, with every bar at 1
@@ -109,13 +110,13 @@ each on a history from a seeded maker here (5 clients, 8 % of
 completions :info): adya's G2 checker on 8,192 keys of insert pairs
 (128 planted double inserts), long_fork's on 4,096 keys (a fork planted
 in every 64th group), causal's (the causal replay and the value-order
-cycle checker composed, a key a thread) on 512 keys (8 stale reads),
+cycle checker composed, a key a thread) on 256 keys (4 stale reads),
 each dict equal to the one on device="cpu" (and adya's counts and
 long_fork's validity to the legacy paths'), causal's first 64 keys
 again under independent.checker(processes=2) in spawned workers (equal
 to the thread path); the bank-setfull histories through the bank and
 set-full checkers on the host; `single_test_cmd(...)["analyze"]` over
-two stores (the register cell's keyed store written by
+two stores (512 keys of the register cell's shape written by
 IndependentChecker, and one 3,000-invocation register history analysed
 with --checker linearizable), exit codes and results files equal to the
 runs that wrote them; and `python -m jepsen_tpu_torch fuzz` in a
@@ -151,15 +152,27 @@ Then the `suites` phase, the suites on the archive-DB layer and the
 pgwire simulator, each on five simulated nodes over LocalRemote through
 its `test` subcommand with every bar at 1: cockroachdb's register
 workload at its own per-key shape (10 threads and 100 ops a key, 20
-workers, --nemesis none, a 10-s limit): exit 0, every key True, one K1
+workers, --nemesis none, a 5-s limit): exit 0, every key True, one K1
 (or K5) launch a key; its g2 workload on the same shape: exit 0, valid,
 the g2 dict equal to the stored history's under device="cpu" (a valid
 run closes no component: no launch); a 5-s g2 run whose client skips
 the predicate read on two keys' inserts: exit 1, exactly those keys
-illegal, the anomaly G2, its closure_word launches; and consul at its
-defaults (5 workers, stagger 0.1 s, a 10-s limit): exit 0, valid, one
-K1 (or K5) launch; every K1, K5 and K3 launch held against its plain
-version (`--only suites`).
+illegal, the anomaly G2, its closure_word launches; and consul, raftis
+and logcabin at their defaults (5 workers; stagger 0.1 s, 0.1 s and
+0.2 s; logcabin's ops each a treeops process on its node): exit 0,
+valid, one K1 (or K5) launch each; every K1, K5 and K3 launch held
+against its plain version (`--only suites`). Every limit there is 5 s.
+Then the `dgraph` phase, the dgraph suite on the same cluster shape
+into one store, its default nemesis (partitions of random halves on the
+no-op network): linearizable-register (10 threads a key, 128 ops a key,
+20 workers) with `--tracing`: exit 0, every key True, one K1 (or K5)
+launch a key, the span file's lines Jaeger-shaped with every parent a
+span of the file and a client span for each completed op or more; and
+long-fork (long_fork_n 2): exit 0, valid, its dict equal to the stored
+history's under device="cpu", its closure_word launches; then the
+store's web UI (`web.serve`) over that store: the table lists both runs
+with their validity's class, a run's directory, a file and its zip
+answer 200, a `../` path 403 (`--only dgraph`).
 Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
@@ -2643,10 +2656,10 @@ def phase_linear(args, kernels, search) -> None:
                   "cap": COMPETITION_CAP, "matches_plain": True}}})
 
 
-# the store phase's sizes: the register cell's shape at half its keys
-# (BASELINE.md:18 has 4096), the cycle_append history, the fuzz loop's
-# round (FuzzLoop's default)
-STORE_KEYS = 2048
+# the store phase's sizes: the register cell's shape at a quarter of its
+# keys (BASELINE.md:18 has 4096), the cycle_append history, the fuzz
+# loop's round (FuzzLoop's default)
+STORE_KEYS = 1024
 STORE_INVOCATIONS = 64
 STORE_CYCLE_OPS = 5000
 STORE_FUZZ_CLUSTERS = 256
@@ -3692,7 +3705,7 @@ CHECKER_INFO = 0.08
 PLANT_EVERY = 64
 ADYA_KEYS = 8192
 LONG_FORK_KEYS = 4096
-CAUSAL_KEYS = 512
+CAUSAL_KEYS = 256
 # keys of causal's history checked by spawned workers, and the workers
 CAUSAL_PROCESS_KEYS = 64
 CAUSAL_WORKERS = 2
@@ -3915,6 +3928,9 @@ def bank_setfull_histories() -> tuple:
 # median of SPIN_REPS launches, the plain version's time, the floor); the
 # others are timed once each behind the spin (`replay_closures`)
 TIMED_WORD_BUCKETS = 4
+# the analyze cell's keyed register store (half the store phase's
+# STORE_KEYS: its run and re-check write and read files a key)
+ANALYZE_KEYS = 512
 # the analyze cell's single register history (main_long's keys' size:
 # past wgl_vec's 1024 entries, so wgl_row)
 ANALYZE_SINGLE_INVOCATIONS = 3000
@@ -4190,7 +4206,7 @@ def analyze_store(kernels, td, name, hist, chk, argv, test_fn) -> dict:
 
 
 def checkers_analyze(args, kernels) -> dict:
-    """`analyze` on two stores on the card: STORE_KEYS register keys
+    """`analyze` on two stores on the card: ANALYZE_KEYS register keys
     x 64 invocations (every 8th key bad) written by the port's
     IndependentChecker with every bar at 1 (K1), analysed with the
     suite's checker (`--checker` would replace the per-key checker with
@@ -4209,7 +4225,7 @@ def checkers_analyze(args, kernels) -> dict:
     out = {}
     with card_bars(1), tempfile.TemporaryDirectory(
             prefix="chip_smoke_analyze_") as td:
-        hist = keyed_history(STORE_KEYS, STORE_INVOCATIONS, n_process=5,
+        hist = keyed_history(ANALYZE_KEYS, STORE_INVOCATIONS, n_process=5,
                              bad_every=8, seed=args.seed)
         out["register"] = analyze_store(
             kernels, os.path.join(td, "keyed"), "checkers_analyze", hist,
@@ -5048,12 +5064,27 @@ def phase_faults(args, kernels, ck, sim) -> None:
 # the cycle checker closes those keys' components on K3); and consul at
 # its defaults (concurrency = nodes, stagger 0.1 s over r/w/cas, its
 # nemesis a no-op as the recipe runs it), one unkeyed history through
-# linearizable (K1 up to 1,024 entries, else K5). Time limits are cut
-# from the suites' 60 s; both g2 runs take 5 s, which holds their gates
-# (the valid run reaches no kernel).
-SUITES_TIME_LIMIT = 10
-SUITES_G2_TIME_LIMIT = 5
+# linearizable (K1 up to 1,024 entries, else K5); raftis at its defaults
+# (concurrency = nodes, stagger 0.1 s over r/w, partitions on its 5-s
+# start/stop cycle on the no-op network) and logcabin at its defaults
+# (concurrency = nodes, stagger 0.2 s over r/w/cas, each op a treeops
+# process on its node, partitions on start_stop(10, 10)), each one
+# unkeyed history through linearizable. Time limits are cut from the
+# suites' 60 s to 5 s; a run lasts until its nemesis's current sleep
+# ends (logcabin's first is 10 s).
+SUITES_TIME_LIMIT = 5
 SUITES_G2_PLANTED = (1, 2)
+# The dgraph phase: the dgraph suite on the same cluster shape, its
+# linearizable-register workload (2n = 10 threads a key, 128 ops a key,
+# stagger 0.01 s, 20 workers) with --tracing, and its long-fork workload
+# (long_fork_n 2), each under the suite's default nemesis (partitions of
+# random halves on start_stop(10, 10), on the no-op network), so each run
+# lasts the first 10-s sleep; then the store's web UI over the phase's
+# store.
+DGRAPH_TIME_LIMIT = 5
+#: the Jaeger-shaped fields of an exported span, in trace.py's order
+SPAN_FIELDS = ["traceID", "spanID", "parentSpanID", "operationName",
+               "startTime", "duration", "logs", "tags", "process"]
 
 
 class G2Planted:
@@ -5095,29 +5126,37 @@ class G2Planted:
 
 
 def suites_run(args, kernels, td: str, name: str, suite: str, time_limit,
-               *extra, client=None, concurrency=RUNNER_CONCURRENCY) -> dict:
-    """One `test` of `suite` ("cockroachdb" or "consul") on a fresh
-    cluster of RUNNER_NODES with every bar at 1 (`client` replaces
-    cockroachdb's client; consul runs its own): exit code, wall,
+               *extra, client=None, concurrency=RUNNER_CONCURRENCY,
+               store_dir=None) -> dict:
+    """One `test` of `suite` (cockroachdb, consul, dgraph, raftis or
+    logcabin) on a fresh cluster of RUNNER_NODES with every bar at 1
+    (`client` replaces cockroachdb's client; the others run their own),
+    storing into `store_dir` (else the cell's own): exit code, wall,
     launches (`seen`), wall split, run dir, results and the history's
     counts."""
     import glob
 
     from jepsen_tpu_torch import cli
-    from jepsen_tpu_torch.dbs import consul, consul_sim, crdb_sim
+    from jepsen_tpu_torch.dbs import (consul, consul_sim, crdb_sim, dgraph,
+                                      dgraph_sim, logcabin, logcabin_sim,
+                                      raftis, redis_sim)
     from jepsen_tpu_torch.dbs import cockroach_workloads as crw
 
     root = os.path.join(td, name)
-    sd = os.path.join(root, "store")
-    if suite == "consul":
-        cluster = consul_sim.local_cluster(root, RUNNER_NODES)
-        cmd = cli.single_test_cmd(consul_sim.local_test_fn(cluster),
-                                  opt_spec=consul._opt_spec)
-    else:
+    sd = store_dir or os.path.join(root, "store")
+    if suite == "cockroachdb":
         cluster = crdb_sim.local_cluster(root, RUNNER_NODES)
         cmd = cli.single_test_cmd(crdb_sim.local_test_fn(cluster,
                                                          client=client),
                                   opt_spec=crw._opt_spec)
+    else:
+        sim, mod = {"consul": (consul_sim, consul),
+                    "dgraph": (dgraph_sim, dgraph),
+                    "raftis": (redis_sim, raftis),
+                    "logcabin": (logcabin_sim, logcabin)}[suite]
+        cluster = sim.local_cluster(root, RUNNER_NODES)
+        cmd = cli.single_test_cmd(sim.local_test_fn(cluster),
+                                  opt_spec=mod._opt_spec)
     argv = runner_argv("test", sd, time_limit, args.runner_device, *extra,
                        concurrency=concurrency)
     try:
@@ -5126,8 +5165,10 @@ def suites_run(args, kernels, td: str, name: str, suite: str, time_limit,
                                                                    argv))
     finally:
         stop_members(root)
-    (run_dir,) = [os.path.realpath(d)
-                  for d in glob.glob(os.path.join(sd, "*", "latest"))]
+    # the newest run of the store (a shared store holds earlier cells')
+    run_dir = max((os.path.realpath(d)
+                   for d in glob.glob(os.path.join(sd, "*", "latest"))),
+                  key=os.path.basename)
     with open(os.path.join(run_dir, "results.json")) as f:
         results = json.load(f)
     return {"rc": rc, "wall": wall, "seen": seen, "split": rw.split,
@@ -5211,7 +5252,7 @@ def suites_g2(args, kernels, ck, td: str, planted: bool) -> None:
 
     name = "g2_planted" if planted else "g2"
     run = suites_run(args, kernels, td, name, "cockroachdb",
-                     SUITES_G2_TIME_LIMIT, "--workload", "g2",
+                     SUITES_TIME_LIMIT, "--workload", "g2",
                      "--nemesis", "none",
                      client=G2Planted(keys=SUITES_G2_PLANTED)
                      if planted else None)
@@ -5239,18 +5280,19 @@ def suites_g2(args, kernels, ck, td: str, planted: bool) -> None:
     emit(suites_line(
         kernels, ck, f"suites_cockroach_{name}", run, workload="g2",
         concurrency=4 * len(RUNNER_NODES),
-        time_limit_s=SUITES_G2_TIME_LIMIT, keys=g2["key-count"],
+        time_limit_s=SUITES_TIME_LIMIT, keys=g2["key-count"],
         legal=g2["legal-count"],
         illegal=g2["illegal"], anomaly_types=g2.get("anomaly-types", []),
         planted_keys=list(SUITES_G2_PLANTED) if planted else [],
         cpu_dict_equal=True, cpu_check_s=cpu_s, **verdict))
 
 
-def suites_consul(args, kernels, ck, td: str) -> None:
-    """consul at its defaults: exit 0, valid, its one history's
-    linearizable launch (K1 or K5) equal to its plain version."""
-    run = suites_run(args, kernels, td, "consul", "consul",
-                     SUITES_TIME_LIMIT,
+def suites_single(args, kernels, ck, td: str, suite: str,
+                  cell: str) -> None:
+    """`suite` (consul, raftis or logcabin) at its defaults, 1n workers:
+    exit 0, valid, its one history's linearizable launch (K1 or K5) equal
+    to its plain version."""
+    run = suites_run(args, kernels, td, suite, suite, SUITES_TIME_LIMIT,
                      concurrency=str(len(RUNNER_NODES)))
     res = run["results"]
     verdict = suite_verdict(res, "linear", True)
@@ -5258,7 +5300,7 @@ def suites_consul(args, kernels, ck, td: str) -> None:
     assert run["rc"] == 0, run["rc"]
     assert seen["wgl_vec"][0] + seen["wgl_row"][0] == 1, (
         seen["wgl_vec"][0], seen["wgl_row"][0])
-    emit(suites_line(kernels, ck, "suites_consul", run,
+    emit(suites_line(kernels, ck, cell, run,
                      concurrency=len(RUNNER_NODES),
                      time_limit_s=SUITES_TIME_LIMIT, keys=1,
                      verdicts=verdict_counts([res["linear"]["valid"]]),
@@ -5266,9 +5308,10 @@ def suites_consul(args, kernels, ck, td: str) -> None:
 
 
 def phase_suites(args, kernels, ck) -> None:
-    """The cockroachdb and consul suites end to end on simulated nodes:
-    suites_cockroach_register, suites_cockroach_g2 (and its planted
-    run), suites_consul; one line a cell."""
+    """The cockroachdb, consul, raftis and logcabin suites end to end on
+    simulated nodes: suites_cockroach_register, suites_cockroach_g2 (and
+    its planted run), suites_consul, suites_raftis, suites_logcabin; one
+    line a cell."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -5276,8 +5319,169 @@ def phase_suites(args, kernels, ck) -> None:
         suites_cockroach_register(args, kernels, ck, td)
         suites_g2(args, kernels, ck, td, planted=False)
         suites_g2(args, kernels, ck, td, planted=True)
-        suites_consul(args, kernels, ck, td)
+        for suite in ("consul", "raftis", "logcabin"):
+            suites_single(args, kernels, ck, td, suite, f"suites_{suite}")
     emit({"phase": "suites", "wall_s": time.perf_counter() - t0,
+          "nvidia_smi": args.smi})
+
+
+def span_gates(path: str, completed: int) -> dict:
+    """Hold a run's span file: every line parses with the Jaeger fields
+    in trace.py's order, every parentSpanID is null or another span's
+    id, and there are at least as many dgraph.client spans as completed
+    ops (every op makes one wire call or more, each in a span)."""
+    with open(path) as f:
+        spans = [json.loads(ln) for ln in f]
+    ids = {s["spanID"] for s in spans}
+    assert all(list(s) == SPAN_FIELDS for s in spans), spans[:1]
+    assert all(s["parentSpanID"] is None or s["parentSpanID"] in ids
+               for s in spans)
+    client = sum(s["operationName"].startswith("dgraph.client/")
+                 for s in spans)
+    assert client >= completed > 0, (client, completed)
+    return {"spans": len(spans), "client_spans": client,
+            "span_ops": sorted({s["operationName"] for s in spans}),
+            "nested_spans": sum(s["parentSpanID"] is not None
+                                for s in spans)}
+
+
+def dgraph_register(args, kernels, ck, td: str, sd: str) -> dict:
+    """dgraph's linearizable-register workload with --tracing: exit 0,
+    every key True, one K1 (or K5) launch a key, each equal to its plain
+    version; the span file's gates."""
+    from jepsen_tpu_torch import trace
+
+    spans = os.path.join(td, "register_spans.jsonl")
+    run = suites_run(args, kernels, td, "dgraph_register", "dgraph",
+                     DGRAPH_TIME_LIMIT, "--workload",
+                     "linearizable-register", "--tracing", spans,
+                     store_dir=sd)
+    trace.tracing(None)
+    res = run["results"]
+    keys = {k: r["linearizable"]["valid"]
+            for k, r in res["register"]["results"].items()}
+    verdict = suite_verdict(res, "register", True)
+    seen = run["seen"]
+    assert run["rc"] == 0, run["rc"]
+    assert keys and all(v is True for v in keys.values()), keys
+    assert seen["wgl_vec"][0] + seen["wgl_row"][0] == len(keys), (
+        len(keys), seen["wgl_vec"][0], seen["wgl_row"][0])
+    span = span_gates(spans, run["counts"]["completed"])
+    emit(suites_line(kernels, ck, "suites_dgraph_register", run,
+                     workload="linearizable-register",
+                     concurrency=4 * len(RUNNER_NODES),
+                     threads_per_key=2 * len(RUNNER_NODES),
+                     per_key_limit=128, time_limit_s=DGRAPH_TIME_LIMIT,
+                     keys=len(keys), verdicts=verdict_counts(keys.values()),
+                     **span, **verdict))
+    return run
+
+
+def dgraph_long_fork(args, kernels, ck, td: str, sd: str) -> dict:
+    """dgraph's long-fork workload: exit 0, valid, the long-fork dict on
+    the card equal to the stored history's under device="cpu", every K3
+    launch equal to its plain version; a valid run's read transactions
+    link the keys they read, so its components reach closure_word."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.workloads import long_fork
+
+    run = suites_run(args, kernels, td, "dgraph_long_fork", "dgraph",
+                     DGRAPH_TIME_LIMIT, "--workload", "long-fork",
+                     store_dir=sd)
+    res = run["results"]
+    lf = res["long-fork"]
+    verdict = suite_verdict(res, "long-fork", True)
+    run_dir = run["run_dir"]
+    hist = store.load_history({
+        "name": os.path.basename(os.path.dirname(run_dir)),
+        "start_time": os.path.basename(run_dir),
+        "store_dir": os.path.dirname(os.path.dirname(run_dir))})
+    t0 = time.perf_counter()
+    cpu = long_fork.checker(2, device="cpu").check({}, hist, {})
+    cpu_s = time.perf_counter() - t0
+    assert normalise(cpu) == normalise(lf), (lf, normalise(cpu))
+    assert run["rc"] == 0, run["rc"]
+    launched = run["seen"]["closure_word"][0]
+    assert launched > 0, "no closure_word launch"
+    emit(suites_line(kernels, ck, "suites_dgraph_long_fork", run,
+                     workload="long-fork", long_fork_n=2,
+                     concurrency=4 * len(RUNNER_NODES),
+                     time_limit_s=DGRAPH_TIME_LIMIT,
+                     closure_word_launched=launched, cpu_dict_equal=True,
+                     cpu_check_s=cpu_s, **verdict))
+    return run
+
+
+def web_store(sd: str, runs: list) -> None:
+    """The store's web UI over the phase's store: `/`, one run's
+    directory, one file and one run's zip answer 200; every run is
+    listed with its validity's class; the zip holds results.json; a
+    `../` path answers 403. No card is involved."""
+    import io
+    import re
+    import urllib.error
+    import urllib.request
+    import zipfile
+    from urllib.parse import quote
+
+    from jepsen_tpu_torch import web
+
+    t0 = time.perf_counter()
+    server = web.serve(host="127.0.0.1", port=0, store_dir=sd)
+    base = f"http://127.0.0.1:{server.server_port}"
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(base + path, timeout=30) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    try:
+        status, home = get("/")
+        rows = {href: cls for cls, href in re.findall(
+            r'<tr class="(valid-\w+)"><td><a href="/files/([^"]+)/">',
+            home.decode())}
+        rels = [os.path.relpath(r["run_dir"], sd) for r in runs]
+        classes = {}
+        for rel, r in zip(rels, runs):
+            want = {True: "valid-true", False: "valid-false"}.get(
+                r["results"]["valid"], "valid-unknown")
+            classes[rel] = rows.get(quote(rel))
+            assert classes[rel] == want, (rel, rows, want)
+        rel = quote(rels[0])
+        fetched = {"/": status,
+                   f"/files/{rel}/": get(f"/files/{rel}/")[0],
+                   f"/files/{rel}/results.json":
+                       get(f"/files/{rel}/results.json")[0]}
+        zstatus, zbody = get(f"/files/{rel}.zip")
+        fetched[f"/files/{rel}.zip"] = zstatus
+        assert set(fetched.values()) == {200}, fetched
+        members = zipfile.ZipFile(io.BytesIO(zbody)).namelist()
+        assert any(m.endswith("/results.json") for m in members), members
+        forbidden = get("/files/../../etc/passwd")[0]
+        assert forbidden == 403, forbidden
+    finally:
+        server.shutdown()
+        server.server_close()
+    emit({"phase": "web_store", "wall_s": time.perf_counter() - t0,
+          "runs_listed": classes, "fetched": fetched,
+          "zip_members": len(members), "traversal": forbidden})
+
+
+def phase_dgraph(args, kernels, ck) -> None:
+    """The dgraph suite end to end on simulated nodes into one store
+    (suites_dgraph_register with its span file, suites_dgraph_long_fork),
+    then the store's web UI over it (web_store); one line a cell."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dgraph_") as td:
+        sd = os.path.join(td, "store")
+        runs = [dgraph_register(args, kernels, ck, td, sd),
+                dgraph_long_fork(args, kernels, ck, td, sd)]
+        web_store(sd, runs)
+    emit({"phase": "dgraph", "wall_s": time.perf_counter() - t0,
           "nvidia_smi": args.smi})
 
 
@@ -5440,6 +5644,12 @@ def run(args) -> int:
                           if not k.library]})
         print(smi, flush=True)
         return 0
+    if args.only == "dgraph":
+        phase_dgraph(args, kernels, ck)
+        emit({"kernels": [k.row() for k in (vec, row, *ck.values())
+                          if not k.library]})
+        print(smi, flush=True)
+        return 0
 
     phase_kernel_vs_plain(args, vec)
     phase_row_vs_plain(args, row)
@@ -5523,6 +5733,8 @@ def run(args) -> int:
 
     phase_suites(args, kernels, ck)
 
+    phase_dgraph(args, kernels, ck)
+
     mm = ck["matmul"]
     emit({"kernels": [k.row() for k in (*kernels, *meshk.values())
                       if not k.library],
@@ -5542,7 +5754,8 @@ def main() -> int:
     ap.add_argument("--only", choices=("crossover", "closure", "fuzz",
                                        "linear", "store", "online",
                                        "serve", "mesh", "checkers",
-                                       "runner", "faults", "suites"),
+                                       "runner", "faults", "suites",
+                                       "dgraph"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
@@ -5559,8 +5772,11 @@ def main() -> int:
                     "etcd suite's test, analyze and resume on simulated "
                     "members; faults: the etcd suite under a composed "
                     "fault package and under a fuzz-found schedule; "
-                    "suites: cockroachdb's register and g2 workloads and "
-                    "consul on simulated nodes) and "
+                    "suites: cockroachdb's register and g2 workloads, "
+                    "consul, raftis and logcabin on simulated nodes; "
+                    "dgraph: dgraph's register with its span file and "
+                    "long-fork on simulated nodes, then the store's web "
+                    "UI over their store) and "
                     "print their lines and the nvidia-smi "
                     "line (no smoke result)")
     return run(ap.parse_args())

@@ -1,7 +1,7 @@
 """Command-line runner of the port: `python -m jepsen_tpu_torch watch`,
-`serve --daemon`, `doctor` and `fuzz`, and `single_test_cmd`'s `test`,
-`analyze` and `resume` for a suite's own main (the port's copy of the
-parts of `jepsen_tpu.cli` these subcommands use):
+`serve`, `doctor` and `fuzz`, and `single_test_cmd`'s `test`, `analyze`
+and `resume` for a suite's own main (the port's copy of the parts of
+`jepsen_tpu.cli` these subcommands use):
 
     from jepsen_tpu_torch import cli
 
@@ -20,7 +20,8 @@ of the card included), and 143 when a SIGTERM drained a run (saved for
 any node is provisioned or any store read); `--device cpu` runs the
 kernels' plain versions. `doctor` examines a device list (every card by
 default, `--devices`, or `--mesh N` CPU entries) and exits 0 when it is
-healthy, 1 otherwise. There is no web UI.
+healthy, 1 otherwise. `serve` serves the store's web UI (`web.py`), or
+with `--daemon` the resident verdict service.
 """
 
 from __future__ import annotations
@@ -399,8 +400,9 @@ def single_test_cmd(
 
 
 def serve_cmd() -> dict:
-    """The `serve --daemon` subcommand: the resident verdict service
-    (serve/): warmed kernels behind the durable check queue."""
+    """The `serve` subcommand: the web UI over the store (cli.clj:306-321),
+    or, with ``--daemon``, the resident verdict service (serve/): warmed
+    kernels behind the durable check queue."""
 
     def opt_spec(p):
         p.add_argument("-b", "--host", default="127.0.0.1", help="Bind host")
@@ -408,33 +410,47 @@ def serve_cmd() -> dict:
                        help="Bind port")
         p.add_argument(
             "--store-dir", default=None, metavar="DIR",
-            help="Root directory for the default queue (default ./store)")
+            help="Root directory for test results (default ./store)")
         p.add_argument(
             "--daemon", action="store_true",
             help="Run the resident verdict daemon (submit/verdict/stream "
-            "API); the port has no web UI, so this is required")
+            "API) instead of the web UI")
         p.add_argument(
             "--queue-dir", default=None, metavar="DIR",
-            help="Durable queue directory (default <store-dir>/serve-queue)")
+            help="[daemon] Durable queue directory (default "
+            "<store-dir>/serve-queue)")
         p.add_argument(
             "--bundle-dir", default=None, metavar="DIR",
-            help="Engine bundle directory; 'off' disables (default "
-            "<queue-dir>/bundle)")
+            help="[daemon] Engine bundle directory; 'off' disables "
+            "(default <queue-dir>/bundle)")
         p.add_argument(
             "--max-pending", type=int, default=None, metavar="N",
-            help="Admission bound: reject submissions past N pending jobs "
-            "(HTTP 429 + Retry-After)")
+            help="[daemon] Admission bound: reject submissions past N "
+            "pending jobs (HTTP 429 + Retry-After)")
         p.add_argument(
             "--max-attempts", type=int, default=None, metavar="N",
-            help="Dead-letter bound: quarantine a job whose check has "
-            "crashed the worker N times (default 3)")
+            help="[daemon] Dead-letter bound: quarantine a job whose check "
+            "has crashed the worker N times (default 3)")
 
     def run(opts):
-        if not opts.get("daemon"):
-            raise CliError("serve needs --daemon (the port has no web UI)")
-        from .serve.daemon import run_daemon
+        from . import web
 
-        return run_daemon(opts)
+        # Preimport before the socket goes up: the first import of core
+        # loads torch, and a SIGTERM arriving during those seconds would
+        # hit the default disposition instead of the drain handler.
+        from .core import DrainSignal  # noqa: F401
+
+        if opts.get("daemon"):
+            from .serve.daemon import run_daemon
+
+            return run_daemon(opts)
+        server = web.serve(
+            host=opts["host"], port=opts["port"], store_dir=opts.get("store_dir")
+        )
+        log.info("Listening on http://%s:%s/", opts["host"], server.server_port)
+        # SIGTERM drains and exits 143 so process managers see a clean
+        # signal-shaped stop; ctrl-C still exits 0
+        return web.serve_until_signal(server)
 
     return {"serve": Subcommand(run=run, opt_spec=opt_spec,
                                 extra_opts=[_device_opt])}

@@ -1,11 +1,11 @@
 """Per-database test suites (reference: the per-DB projects, SURVEY.md
-§1 L9 / §2.1; the port's copy of `jepsen_tpu/dbs/`, four suites so far).
+§1 L9 / §2.1; the port's copy of `jepsen_tpu/dbs/`, seven suites so far).
 
 Each suite module supplies, like its reference counterpart:
   - a DB implementation (install/start/teardown through the control plane)
   - a Client with the suite's exception-determinacy taxonomy
   - op generators and a `*_test(opts)` test-map constructor
-  - a `main()` built from cli.single_test_cmd
+  - a `main()` built from cli.single_test_cmd + cli.serve_cmd
 
 A suite runs against a real cluster over SSH, or on one machine against
 its in-repo protocol simulator through the same code paths (install
@@ -16,6 +16,9 @@ archive → daemon → wire protocol), one process a node.
 SUITES = {
     "cockroachdb": "jepsen_tpu_torch.dbs.cockroach_workloads",
     "consul": "jepsen_tpu_torch.dbs.consul",
+    "dgraph": "jepsen_tpu_torch.dbs.dgraph",
     "etcd": "jepsen_tpu_torch.dbs.etcd",
+    "logcabin": "jepsen_tpu_torch.dbs.logcabin",
     "postgres-rds": "jepsen_tpu_torch.dbs.postgres_rds",
+    "raftis": "jepsen_tpu_torch.dbs.raftis",
 }

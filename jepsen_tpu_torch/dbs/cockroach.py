@@ -44,8 +44,9 @@ from contextlib import contextmanager
 from .. import db, generator as gen, nemesis, osdist, reconnect
 from .. import net as net_mod
 from ..control import util as cu
-from ..nemesis import time as nt
+from ..nemesis import time as nt  # noqa: F401 (the native clock tools)
 from . import pg_proto
+from .common import clock_tools
 
 log = logging.getLogger("jepsen_tpu_torch.dbs.cockroach")
 
@@ -64,12 +65,6 @@ NEMESIS_DURATION = 5   # s per interruption (nemesis.clj:23)
 
 def _cfg(test) -> dict:
     return test.get("cockroach") or {}
-
-
-def _clock(test):
-    """The clock tools the clock nemeses drive: the test map's
-    "clock_tools", else `nemesis/time.py`'s."""
-    return test.get("clock_tools") or nt
 
 
 def node_host(test, node) -> str:
@@ -452,8 +447,8 @@ class BumpTime(nemesis.Nemesis):
     def setup(self, test):
         remote = test["remote"]
         for node in test["nodes"]:
-            _clock(test).install(remote, node)
-            _clock(test).reset_time(remote, node)
+            clock_tools(test).install(remote, node)
+            clock_tools(test).reset_time(remote, node)
         return self
 
     def invoke(self, test, op):
@@ -462,21 +457,21 @@ class BumpTime(nemesis.Nemesis):
             bumped = {}
             for node in test["nodes"]:
                 if random.random() < 0.5:
-                    _clock(test).bump_time(remote, node, self.dt * 1000)
+                    clock_tools(test).bump_time(remote, node, self.dt * 1000)
                     bumped[node] = self.dt
                 else:
                     bumped[node] = 0
             return op.with_(value=bumped)
         if op.f == "stop":
             for node in test["nodes"]:
-                _clock(test).reset_time(remote, node)
+                clock_tools(test).reset_time(remote, node)
             return op.with_(value="clocks-reset")
         return op
 
     def teardown(self, test):
         remote = test["remote"]
         for node in test["nodes"]:
-            _clock(test).reset_time(remote, node)
+            clock_tools(test).reset_time(remote, node)
 
 
 def skew(name: str, offset: float, slow: float | None = None) -> dict:
@@ -521,15 +516,15 @@ class StrobeTime(nemesis.Nemesis):
     def setup(self, test):
         remote = test["remote"]
         for node in test["nodes"]:
-            _clock(test).install(remote, node)
-            _clock(test).reset_time(remote, node)
+            clock_tools(test).install(remote, node)
+            clock_tools(test).reset_time(remote, node)
         return self
 
     def invoke(self, test, op):
         remote = test["remote"]
         if op.f == "start":
             for node in test["nodes"]:
-                _clock(test).strobe_time(remote, node, self.delta_ms,
+                clock_tools(test).strobe_time(remote, node, self.delta_ms,
                                          self.period_ms, self.duration_s)
             return op.with_(value="strobed")
         return op.with_(value=None)
@@ -537,7 +532,7 @@ class StrobeTime(nemesis.Nemesis):
     def teardown(self, test):
         remote = test["remote"]
         for node in test["nodes"]:
-            _clock(test).reset_time(remote, node)
+            clock_tools(test).reset_time(remote, node)
 
 
 def strobe_skews() -> dict:

@@ -619,6 +619,15 @@ def fault_package_wiring(test: dict, db_, opts: dict,
     return True
 
 
+def clock_tools(test):
+    """The clock tools a suite's clock nemeses drive: the test map's
+    "clock_tools" (`simbase.RecordingClockTools` on a simulated cluster),
+    else `nemesis/time.py`'s native tools."""
+    from ..nemesis import time as nt
+
+    return test.get("clock_tools") or nt
+
+
 def resp_ping_ready(suite: SuiteCfg, test, node,
                     timeout: float = 2.0) -> bool:
     """Readiness probe for RESP-protocol suites (disque, raftis)."""

@@ -23,7 +23,8 @@ workload.
 The port's copy of `jepsen_tpu/dbs/crdb_sim.py`: it imports nothing of
 `jepsen_tpu`, and adds the recipe that runs the cockroachdb and
 postgres-rds suites on simulated nodes on this machine
-(`local_cluster`, `local_test_fn`, `RecordingClockTools`).
+(`local_cluster`, `local_test_fn`; the clock nemeses go to
+`simbase.RecordingClockTools`).
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ import sys
 import time
 
 from . import pg_proto
-from .simbase import Store, StoreTxn, build_sim_archive, free_port
+from .simbase import (RecordingClockTools, Store, StoreTxn,
+                      build_sim_archive, free_port)
 
 TXN_LOCK_TIMEOUT = 2.0
 # Must comfortably exceed basic_test's default quiesce wait (30 s) or
@@ -558,32 +560,6 @@ def local_cluster(root: str, nodes, ports: dict | None = None) -> dict:
             "sudo": None,
         },
     }
-
-
-class RecordingClockTools:
-    """Clock tools for the cockroachdb suite's clock nemeses (the test
-    map's "clock_tools"; `nemesis/time.py`'s `install`, `reset_time`,
-    `bump_time` and `strobe_time`) that append (node, call, args) to
-    `record` and set no clock: the simulated nodes share this machine's
-    clock, and the native tools would set it (`LocalRemote` runs `sudo`
-    commands as the caller)."""
-
-    def __init__(self, record: list):
-        self.record = record
-
-    def install(self, remote, node) -> None:
-        self.record.append((node, "install", ()))
-
-    def reset_time(self, remote, node) -> None:
-        self.record.append((node, "reset_time", ()))
-
-    def bump_time(self, remote, node, delta_ms) -> None:
-        self.record.append((node, "bump_time", (delta_ms,)))
-
-    def strobe_time(self, remote, node, delta_ms, period_ms,
-                    duration_s) -> None:
-        self.record.append((node, "strobe_time",
-                            (delta_ms, period_ms, duration_s)))
 
 
 def local_test_fn(cluster: dict, suite_opts: dict | None = None,

@@ -268,7 +268,11 @@ def _opt_spec(p) -> None:
 
 
 def main(argv=None) -> None:
-    cli.main(cli.single_test_cmd(rds_test, opt_spec=_opt_spec), argv)
+    cli.main(
+        {**cli.single_test_cmd(rds_test, opt_spec=_opt_spec),
+         **cli.serve_cmd()},
+        argv,
+    )
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ that packages a simulator as an installable "database binary" for the
 suites' normal install_archive path.
 
 The port's copy of `jepsen_tpu/dbs/simbase.py`: it imports nothing of
-`jepsen_tpu`.
+`jepsen_tpu`. It adds `free_port` and `RecordingClockTools`, the clock
+tools the simulated clusters' recipes give the clock nemeses.
 """
 
 from __future__ import annotations
@@ -192,3 +193,38 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+class RecordingClockTools:
+    """Clock tools for the suites' clock nemeses on simulated nodes (the
+    test map's "clock_tools"; `nemesis/time.py`'s `install`,
+    `reset_time`, `bump_time`, `strobe_time`, `try_reset` and
+    `bring_up`) that append (node, call, args) to `record` and set no
+    clock: the simulated nodes share this machine's clock, and the
+    native tools would set it (`LocalRemote` runs `sudo` commands as the
+    caller). cockroachdb's `BumpTime` and `StrobeTime` and dgraph's
+    `BumpTimeSkew` take them."""
+
+    def __init__(self, record: list):
+        self.record = record
+
+    def install(self, remote, node) -> None:
+        self.record.append((node, "install", ()))
+
+    def reset_time(self, remote, node) -> None:
+        self.record.append((node, "reset_time", ()))
+
+    def bump_time(self, remote, node, delta_ms) -> None:
+        self.record.append((node, "bump_time", (delta_ms,)))
+
+    def strobe_time(self, remote, node, delta_ms, period_ms,
+                    duration_s) -> None:
+        self.record.append((node, "strobe_time",
+                            (delta_ms, period_ms, duration_s)))
+
+    def try_reset(self, remote, node) -> None:
+        self.record.append((node, "try_reset", ()))
+
+    def bring_up(self, test) -> None:
+        for node in test["nodes"]:
+            self.record.append((node, "bring_up", ()))

@@ -352,16 +352,21 @@ def test_sigterm_then_resume(tmp_path, cluster_root):
 
 def test_suite_listing():
     """`python -m jepsen_tpu_torch.dbs` lists the port's suites:
-    cockroachdb (with its workloads), consul, etcd and postgres-rds."""
+    cockroachdb and dgraph (with their workloads), consul, etcd,
+    logcabin, postgres-rds and raftis."""
     out = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch.dbs"],
                          cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
-    assert "4 per-DB suites" in out.stdout
-    for mod in ("cockroach_workloads", "consul", "etcd", "postgres_rds"):
+    assert "7 per-DB suites" in out.stdout
+    for mod in ("cockroach_workloads", "consul", "dgraph", "etcd",
+                "logcabin", "postgres_rds", "raftis"):
         assert f"jepsen_tpu_torch.dbs.{mod}" in out.stdout
     assert "workloads: bank, comments, g2, monotonic, register, " \
         "sequential, sets" in out.stdout
+    assert "workloads: set, upsert, bank, delete, sequential, " \
+        "linearizable-register, uid-linearizable-register, long-fork, " \
+        "types" in out.stdout
 
 
 def test_readiness_poll_and_gate():

@@ -342,7 +342,9 @@ def test_port_imports_no_jax():
     packages and fs-break wiring), reconnect and the register workload;
     the workload generators and bundles; the archive-DB layer, the
     cockroachdb, consul and postgres-rds suites, their simulators and
-    protocol clients; and every module of those) load neither jax
+    protocol clients; span tracing, the store's web UI, repl and report,
+    the dgraph, raftis and logcabin suites, their simulators and recipes;
+    and every module of those) load neither jax
     nor any module of the JAX package (jepsen_tpu_torch's own name shares
     the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -564,6 +566,35 @@ def test_port_imports_no_jax():
         assert consul_sim.local_test_fn({}) and crdb_sim.local_test_fn({})
         data = {}
         crdb_sim.execute(data, "create table t (id int)")
+        from jepsen_tpu_torch import repl, report, trace
+        from jepsen_tpu_torch.dbs import (dgraph, dgraph_nemesis,
+                                          dgraph_sim, dgraph_workloads,
+                                          logcabin, logcabin_sim, raftis,
+                                          redis_sim)
+        with tempfile.TemporaryDirectory() as td:
+            trace.tracing(td + "/spans.jsonl")
+            with trace.with_trace("nojax"):
+                trace.attribute("k", "v")
+            trace.tracing(None)
+            assert trace.drain()[0]["tags"] == {"k": "v"}
+            assert b"Jepsen-TPU" in web._home_html(td)
+            assert repl.last_test(store_dir=td) is None
+            with report.to(td + "/r.txt"):
+                print("x")
+        for name in dgraph.workloads({"nodes": ["n1"]}):
+            t = dgraph.dgraph_test({"workload": name, "nodes": ["n1"],
+                                    "device": "cpu", "move_tablet": True})
+            assert t["name"] == f"dgraph {name}"
+        assert dgraph_nemesis.SKEWS["tiny"] == 100
+        assert dgraph_workloads.type_cases()
+        assert dgraph_sim.json_number(1 << 60) == 1 << 60
+        assert raftis.raftis_test({"nodes": ["n1"], "device": "cpu"})[
+            "name"] == "raftis"
+        assert logcabin.logcabin_test({"nodes": ["n1"], "device": "cpu"})[
+            "name"] == "logcabin"
+        assert dgraph_sim.local_test_fn({}) and redis_sim.local_test_fn({})
+        assert logcabin_sim.local_test_fn({})
+        simbase.RecordingClockTools([]).bring_up({"nodes": ["n1"]})
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))

@@ -670,13 +670,40 @@ def test_sacrifice_fault_exits_without_commit(tmp_path, monkeypatch, fault,
     assert DurableQueue(root).verdict(jid) is None
 
 
+def _spawn_listening(args, cwd, env, pattern):
+    """Start `args` and read its stderr until a line matches `pattern`
+    (whose group 1 is the bound port); returns the process, the port and
+    the reader thread, which drains stderr until the process exits."""
+    import re
+    import subprocess
+
+    proc = subprocess.Popen(args, cwd=cwd, env=env, stderr=subprocess.PIPE,
+                            text=True)
+    ports: list = []
+    listening = threading.Event()
+
+    def read_port():
+        for line in proc.stderr:
+            m = re.search(pattern, line)
+            if m and not ports:
+                ports.append(int(m.group(1)))
+                listening.set()
+
+    reader = threading.Thread(target=read_port, daemon=True)
+    reader.start()
+    if not listening.wait(timeout=120):
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{args} never listened")
+    return proc, ports[0], reader
+
+
 def test_serve_daemon_cli_round_trip_and_sigterm(tmp_path):
     """`python -m jepsen_tpu_torch serve --daemon --device cpu -p 0`
     warms its bundle, answers a submission over HTTP, and the first
-    SIGTERM drains it: exit 143. Without --daemon it is a CLI error."""
-    import re
+    SIGTERM drains it: exit 143. Without --daemon it serves the store's
+    web UI, and a SIGTERM exits it 143 too."""
     import signal
-    import subprocess
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -684,25 +711,24 @@ def test_serve_daemon_cli_round_trip_and_sigterm(tmp_path):
     base = [sys.executable, "-m", "jepsen_tpu_torch", "serve",
             "--device", "cpu", "-p", "0",
             "--queue-dir", str(tmp_path / "q")]
-    assert subprocess.run(base, cwd=str(tmp_path), env=env,
-                          capture_output=True, timeout=120).returncode == 254
-    proc = subprocess.Popen(base + ["--daemon"], cwd=str(tmp_path), env=env,
-                            stderr=subprocess.PIPE, text=True)
-    ports: list = []
-
-    def read_port():
-        for line in proc.stderr:  # drains stderr until the daemon exits
-            m = re.search(r"verdict daemon on http://[^:]+:(\d+)/", line)
-            if m and not ports:
-                ports.append(int(m.group(1)))
-                listening.set()
-
-    listening = threading.Event()
-    reader = threading.Thread(target=read_port, daemon=True)
-    reader.start()
+    proc, port, reader = _spawn_listening(
+        base, str(tmp_path), env, r"Listening on http://[^:]+:(\d+)/")
     try:
-        assert listening.wait(timeout=120), "the daemon never listened"
-        port = ports[0]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                    timeout=60) as r:
+            assert r.status == 200 and b"<h1>Jepsen-TPU</h1>" in r.read()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 143
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+        proc.stderr.close()
+    proc, port, reader = _spawn_listening(
+        base + ["--daemon"], str(tmp_path), env,
+        r"verdict daemon on http://[^:]+:(\d+)/")
+    try:
         url = f"http://127.0.0.1:{port}"
         _, body = _post(url + "/submit", {
             "client": "c", "workload": "register",
