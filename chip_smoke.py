@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
         [--only crossover|closure|fuzz|linear|store|online|serve|mesh|checkers
-                |runner|faults|suites|dgraph]
+                |runner|faults|suites|dgraph|registers]
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -62,7 +62,7 @@ the spin beside a bound counted from the work its outputs need, at the
 (`--only fuzz`: those phases alone). Then the `linear` phase: every
 corpus case through the `linear` algorithm on the host and through
 `competition` on the card (linear raced against K2's counterpart), at
-a 2-s limit a case, every K2 launch held against its plain version, the
+a 0.5-s limit a case, every K2 launch held against its plain version, the
 winners counted and the card's busy time behind an abandoned loser
 measured (`--only linear`); and the `store` phase: 1,024 keys of the
 register cell's shape (every bar at 1) and cycle_append with a store
@@ -126,7 +126,7 @@ and an empty kernel's launch timed as the launch floor (`--only
 checkers`). Then the `runner` phase, the test runner end to end: the
 etcd suite's `test` subcommand (`cli.single_test_cmd`) on five
 simulated members, one process a node over LocalRemote, 20 workers,
-etcd's r/w/cas workload for 10 s, its checker a key at a time on K1 or
+etcd's r/w/cas workload for 5 s, its checker a key at a time on K1 or
 K5 with every bar at 1: exit 0 and valid, the wall split into
 provision, workers, save, analyze and teardown; `analyze` over its
 store under every bar at 1 and under the committed bars, the same
@@ -173,6 +173,17 @@ history's under device="cpu", its closure_word launches; then the
 store's web UI (`web.serve`) over that store: the table lists both runs
 with their validity's class, a run's directory, a file and its zip
 answer 200, a `../` path 403 (`--only dgraph`).
+Then the `registers` phase, the zookeeper, mongodb, rethinkdb and
+elasticsearch suites on the same cluster shape, each over its own wire
+protocol (jute, OP_MSG over BSON, ReQL, the ES HTTP API) at its default
+workload and nemesis (partitions on the no-op network) with a 5-s limit:
+zookeeper (5 workers, stagger 1 s), mongodb's document-cas on rocks (5
+workers, stagger 0.05 s), rethinkdb's cas in majority read mode (20
+workers, 2 threads and 50 ops a key) and elasticsearch's register (5
+workers, stagger 0.1 s): exit 0, valid (every key True), one K1 (or K5)
+launch a history, each equal to its plain version, and the stored
+history's dict under the suite's checker on device="cpu" equal to the
+card's (`--only registers`).
 Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
@@ -2530,11 +2541,13 @@ def phase_fuzzing(args, kernels, ck, sim) -> None:
 
 # -- linear, competition, the store, the journal and the fuzz loop --------
 
-# per-case time limit of the linear and competition phase (s)
-LINEAR_LIMIT_S = 2
+# per-case time limit of the linear and competition phase (s): 2 until
+# the registers phase came, 0.5 since (the cases that do not finish pay
+# it in full; a case that moves from a verdict to unknown is counted)
+LINEAR_LIMIT_S = 0.5
 # steps past which a K2 lane launched under competition is compared with
-# the plain version under this common budget (its 2-s limit gives lanes
-# 100,000 steps, ~30 s of the plain version's lockstep each)
+# the plain version under this common budget (its 0.5-s limit gives lanes
+# ~25,000 steps, ~8 s of the plain version's lockstep each)
 COMPETITION_CAP = 2_000
 
 
@@ -4337,9 +4350,11 @@ def phase_checkers(args, kernels, ck, sim) -> None:
 # key). The README's 15 workers (--concurrency 3n) cannot run it: 10
 # threads a key must divide the workers (ConcurrentGenerator asserts a
 # multiple, in both packages). So 20 workers (4n): 2 keys in flight.
+# The limit was 120, 30, 15, then 10 s; 5 s (one of the nemesis's 5-s
+# sleeps) since the registers phase came.
 RUNNER_NODES = [f"n{i}" for i in range(1, 6)]
 RUNNER_CONCURRENCY = "4n"
-RUNNER_TIME_LIMIT = 10
+RUNNER_TIME_LIMIT = 5
 PLANTED_TIME_LIMIT = 5
 # keys of the planted run whose reads go stale once (both among the first
 # three keys the workers take, 2 at a time, so reached within the limit)
@@ -5128,8 +5143,9 @@ class G2Planted:
 def suites_run(args, kernels, td: str, name: str, suite: str, time_limit,
                *extra, client=None, concurrency=RUNNER_CONCURRENCY,
                store_dir=None) -> dict:
-    """One `test` of `suite` (cockroachdb, consul, dgraph, raftis or
-    logcabin) on a fresh cluster of RUNNER_NODES with every bar at 1
+    """One `test` of `suite` (cockroachdb, consul, dgraph, raftis,
+    logcabin, zookeeper, mongodb, rethinkdb or elasticsearch) on a fresh
+    cluster of RUNNER_NODES with every bar at 1
     (`client` replaces cockroachdb's client; the others run their own),
     storing into `store_dir` (else the cell's own): exit code, wall,
     launches (`seen`), wall split, run dir, results and the history's
@@ -5138,8 +5154,11 @@ def suites_run(args, kernels, td: str, name: str, suite: str, time_limit,
 
     from jepsen_tpu_torch import cli
     from jepsen_tpu_torch.dbs import (consul, consul_sim, crdb_sim, dgraph,
-                                      dgraph_sim, logcabin, logcabin_sim,
-                                      raftis, redis_sim)
+                                      dgraph_sim, elasticsearch, es_sim,
+                                      logcabin, logcabin_sim, mongo_sim,
+                                      mongodb, raftis, redis_sim,
+                                      rethink_sim, rethinkdb, zk_sim,
+                                      zookeeper)
     from jepsen_tpu_torch.dbs import cockroach_workloads as crw
 
     root = os.path.join(td, name)
@@ -5153,7 +5172,11 @@ def suites_run(args, kernels, td: str, name: str, suite: str, time_limit,
         sim, mod = {"consul": (consul_sim, consul),
                     "dgraph": (dgraph_sim, dgraph),
                     "raftis": (redis_sim, raftis),
-                    "logcabin": (logcabin_sim, logcabin)}[suite]
+                    "logcabin": (logcabin_sim, logcabin),
+                    "zookeeper": (zk_sim, zookeeper),
+                    "mongodb": (mongo_sim, mongodb),
+                    "rethinkdb": (rethink_sim, rethinkdb),
+                    "elasticsearch": (es_sim, elasticsearch)}[suite]
         cluster = sim.local_cluster(root, RUNNER_NODES)
         cmd = cli.single_test_cmd(sim.local_test_fn(cluster),
                                   opt_spec=mod._opt_spec)
@@ -5485,6 +5508,129 @@ def phase_dgraph(args, kernels, ck) -> None:
           "nvidia_smi": args.smi})
 
 
+# The registers phase: the zookeeper, mongodb, rethinkdb and elasticsearch
+# suites, each on its own wire protocol (jute frames, OP_MSG over BSON,
+# ReQL's JSON protocol, the ES HTTP API) against its simulator on
+# RUNNER_NODES, through its `test` subcommand with every bar at 1 and a
+# SUITES_TIME_LIMIT, each at its own default workload and nemesis on the
+# no-op network: zookeeper's zk_test (zookeeper.py:275-313: 1n workers,
+# stagger(1, mix([r, w, cas])), CASRegister(0), partitions 5 s on / 5 s
+# off: the workers last the first 5-s sleep); mongodb's document-cas on
+# the rocks flavour (mongodb.py:344-425: write concern majority, 1n
+# workers, stagger(0.05, mix([r, w, cas, cas]))); rethinkdb's cas workload
+# in majority read mode (rethinkdb.py:230-293: 2 threads and 50 ops a
+# key, stagger 0.05 s, on 4n workers: 3n's 15 is no multiple of 2); and
+# elasticsearch's register (elasticsearch.py:349-421: 1n workers,
+# stagger(0.1, mix([r, w, cas]))); the last three under start_stop(10,
+# 10), so their workers last its first 10-s sleep. (suite, cell, extra
+# arguments, workers, part of the results holding the verdict)
+REGISTERS = (
+    ("zookeeper", "suites_zookeeper", (), "1n", "linear"),
+    ("mongodb", "suites_mongodb",
+     ("--workload", "document-cas", "--flavor", "rocks"), "1n", "linear"),
+    ("rethinkdb", "suites_rethinkdb",
+     ("--workload", "cas", "--read-mode", "majority"), "4n", "indep"),
+    ("elasticsearch", "suites_elasticsearch", ("--workload", "register"),
+     "1n", "linear"),
+)
+
+
+def registers_checker(suite: str, part: str, argv) -> tuple:
+    """(test map with the suite's model, the suite's checker `part`) as
+    its `test` builds them from `argv`'s workload options, on
+    device="cpu"."""
+    from jepsen_tpu_torch.dbs import elasticsearch, mongodb, rethinkdb
+    from jepsen_tpu_torch.dbs import zookeeper
+
+    opts = {"nodes": RUNNER_NODES, "device": "cpu",
+            **{k.lstrip("-").replace("-", "_"): v
+               for k, v in zip(argv[::2], argv[1::2])}}
+    t = {"zookeeper": zookeeper.zk_test, "mongodb": mongodb.mongodb_test,
+         "rethinkdb": rethinkdb.rethinkdb_test,
+         "elasticsearch": elasticsearch.es_test}[suite](opts)
+    return {"model": t["model"]}, t["checker"].checker_map[part]
+
+
+def registers_cell(args, kernels, ck, td: str, suite: str, cell: str,
+                   extra, workers: str, part: str) -> None:
+    """`suite` at its defaults (REGISTERS): exit 0, its checker `part`
+    True (per key too), one K1 or K5 launch a history where the suite's
+    model has a kernel encoding (zookeeper's CASRegister(0) has none in
+    either package, `models/jit.py:for_model`: its history takes the host
+    search and launches nothing), each equal to its plain version; the
+    stored history re-checked with the suite's own linearizable checker
+    built on device="cpu" (its card engines' plain versions, "auto"
+    routed as on the card; rethinkdb's keys in one `check_batch`, whose
+    dict for each key is the one a launch of its own gives) giving the
+    same dict."""
+    from jepsen_tpu_torch import independent, store
+    from jepsen_tpu_torch.models import jit as mjit
+
+    n = len(RUNNER_NODES)
+    run = suites_run(args, kernels, td, suite, suite, SUITES_TIME_LIMIT,
+                     *extra, concurrency=workers)
+    res = run["results"]
+    verdict = suite_verdict(res, part, True)
+    seen = run["seen"]
+    run_dir = run["run_dir"]
+    hist = store.load_history({
+        "name": os.path.basename(os.path.dirname(run_dir)),
+        "start_time": os.path.basename(run_dir),
+        "store_dir": os.path.dirname(os.path.dirname(run_dir))})
+    test, chk = registers_checker(suite, part, extra)
+    if part == "indep":
+        chk = independent.checker(chk.checker.checker_map["linear"])
+    lin = lin_module()
+    card = lin._card_present
+    lin._card_present = lambda device: True
+    t0 = time.perf_counter()
+    try:
+        with card_bars(1):
+            cpu = normalise(chk.check(test, hist, {}))
+    finally:
+        lin._card_present = card
+    cpu_s = time.perf_counter() - t0
+    got = res[part]
+    if part == "indep":
+        keys = {k: r["linear"]["valid"] for k, r in got["results"].items()}
+        assert all(r["timeline"]["valid"] is True
+                   for r in got["results"].values()), got
+        got = {**got, "results": {k: r["linear"]
+                                  for k, r in got["results"].items()}}
+    else:
+        keys = {"history": got["valid"]}
+    assert cpu == normalise(got), (got, cpu)
+    assert run["rc"] == 0, run["rc"]
+    assert keys and all(v is True for v in keys.values()), keys
+    encodes = mjit.for_model(test["model"]) is not None
+    k1, k5 = seen["wgl_vec"][0], seen["wgl_row"][0]
+    assert k1 + k5 == (len(keys) if encodes else 0), (len(keys), k1, k5)
+    emit(suites_line(
+        kernels, ck, cell, run, protocol={
+            "zookeeper": "jute", "mongodb": "OP_MSG/BSON",
+            "rethinkdb": "ReQL JSON", "elasticsearch": "ES HTTP"}[suite],
+        extra=list(extra), concurrency=int(workers[:-1]) * n,
+        time_limit_s=SUITES_TIME_LIMIT, keys=len(keys),
+        verdicts=verdict_counts(keys.values()), k1_launches=k1,
+        k5_launches=k5, model=type(test["model"]).__name__,
+        model_encodes=encodes, cpu_dict_equal=True, cpu_check_s=cpu_s,
+        **verdict))
+
+
+def phase_registers(args, kernels, ck) -> None:
+    """The zookeeper, mongodb, rethinkdb and elasticsearch suites end to
+    end on simulated nodes (REGISTERS), one line a cell."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_registers_") as td:
+        for suite, cell, extra, workers, part in REGISTERS:
+            registers_cell(args, kernels, ck, td, suite, cell, extra,
+                           workers, part)
+    emit({"phase": "registers", "wall_s": time.perf_counter() - t0,
+          "nvidia_smi": args.smi})
+
+
 def lookup_us(mod, reps: int = 20) -> dict:
     """Host µs of one lookup of kernel module `mod`'s library through
     its `build`: "cached", as every wrapper makes it at each launch, and
@@ -5650,6 +5796,11 @@ def run(args) -> int:
                           if not k.library]})
         print(smi, flush=True)
         return 0
+    if args.only == "registers":
+        phase_registers(args, kernels, ck)
+        emit({"kernels": [k.row() for k in (vec, row)]})
+        print(smi, flush=True)
+        return 0
 
     phase_kernel_vs_plain(args, vec)
     phase_row_vs_plain(args, row)
@@ -5735,6 +5886,8 @@ def run(args) -> int:
 
     phase_dgraph(args, kernels, ck)
 
+    phase_registers(args, kernels, ck)
+
     mm = ck["matmul"]
     emit({"kernels": [k.row() for k in (*kernels, *meshk.values())
                       if not k.library],
@@ -5755,7 +5908,7 @@ def main() -> int:
                                        "linear", "store", "online",
                                        "serve", "mesh", "checkers",
                                        "runner", "faults", "suites",
-                                       "dgraph"),
+                                       "dgraph", "registers"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
@@ -5776,7 +5929,9 @@ def main() -> int:
                     "consul, raftis and logcabin on simulated nodes; "
                     "dgraph: dgraph's register with its span file and "
                     "long-fork on simulated nodes, then the store's web "
-                    "UI over their store) and "
+                    "UI over their store; registers: zookeeper, mongodb, "
+                    "rethinkdb and elasticsearch on simulated nodes over "
+                    "their wire protocols) and "
                     "print their lines and the nvidia-smi "
                     "line (no smoke result)")
     return run(ap.parse_args())

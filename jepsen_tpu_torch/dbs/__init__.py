@@ -1,5 +1,5 @@
 """Per-database test suites (reference: the per-DB projects, SURVEY.md
-§1 L9 / §2.1; the port's copy of `jepsen_tpu/dbs/`, seven suites so far).
+§1 L9 / §2.1; the port's copy of `jepsen_tpu/dbs/`, twelve suites so far).
 
 Each suite module supplies, like its reference counterpart:
   - a DB implementation (install/start/teardown through the control plane)
@@ -17,8 +17,13 @@ SUITES = {
     "cockroachdb": "jepsen_tpu_torch.dbs.cockroach_workloads",
     "consul": "jepsen_tpu_torch.dbs.consul",
     "dgraph": "jepsen_tpu_torch.dbs.dgraph",
+    "elasticsearch": "jepsen_tpu_torch.dbs.elasticsearch",
     "etcd": "jepsen_tpu_torch.dbs.etcd",
     "logcabin": "jepsen_tpu_torch.dbs.logcabin",
+    "mongodb-rocks": "jepsen_tpu_torch.dbs.mongodb",
+    "mongodb-smartos": "jepsen_tpu_torch.dbs.mongodb",
     "postgres-rds": "jepsen_tpu_torch.dbs.postgres_rds",
     "raftis": "jepsen_tpu_torch.dbs.raftis",
+    "rethinkdb": "jepsen_tpu_torch.dbs.rethinkdb",
+    "zookeeper": "jepsen_tpu_torch.dbs.zookeeper",
 }

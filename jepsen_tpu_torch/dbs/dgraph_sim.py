@@ -39,7 +39,7 @@ import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from .simbase import (RecordingClockTools, Store, build_sim_archive,
-                      free_port)
+                      sim_cluster, sim_test_fn)
 
 ABORTED = "Transaction has been aborted. Please retry."
 
@@ -467,64 +467,29 @@ def build_archive(dest: str, data_path: str, mean_latency: float = 0.0,
 
 def local_cluster(root: str, nodes, ports: dict | None = None) -> dict:
     """The test-map entries that run the dgraph suite against simulated
-    nodes on this machine, one process a node: a LocalRemote whose nodes
-    are directories under root/nodes, this simulator's archive (all
-    nodes share root/shared/state.json), and each node's HTTP port
-    (`ports` = {node: port} to reuse a cluster's; else free ports)."""
-    import os
-
-    from ..control import LocalRemote
-
-    remote = LocalRemote(root=os.path.join(root, "nodes"))
-    archive = build_archive(os.path.join(root, "dgraph-sim.tar.gz"),
-                            os.path.join(root, "shared", "state.json"))
-    ports = ports or {n: free_port() for n in nodes}
-    return {
-        "remote": remote,
-        "archive_url": f"file://{archive}",
-        "ports": ports,
-        "dgraph": {
-            "addr_fn": lambda n: "127.0.0.1",
-            "ports": ports,
-            "dir": lambda n: os.path.join(remote.node_dir(n), "opt",
-                                          "dgraph"),
-            "sudo": None,
-        },
-    }
+    nodes on this machine (`simbase.sim_cluster`, settings under
+    "dgraph")."""
+    return sim_cluster(root, nodes, ports, "dgraph", "dgraph-sim",
+                       build_archive)
 
 
 def local_test_fn(cluster: dict):
     """A test-map constructor for `cli.single_test_cmd` that runs the
-    dgraph suite (`dgraph.dgraph_test`) on a `local_cluster`: the
-    command's options, with the cluster's entries over them, go to the
-    constructor; then the OS is none (there is no real node to
-    provision). The suite's nemesis (the default partition of random
-    halves, or the failure-mode flags' composed one) runs on the no-op
-    network: partitions are recorded and healed but change no traffic;
-    the alpha and zero killers, the alpha fixer and the tablet mover act
-    on the simulated nodes; the clock skew goes to `RecordingClockTools`
-    (cluster["clock_calls"]). The fs-break modes of --nemesis raise
-    `cli.CliError` before anything runs on a node: their FUSE layer would
-    mount over the nodes' data as the caller."""
-    def test_fn(opts: dict) -> dict:
-        from .. import net
-        from ..cli import CliError
-        from . import common, dgraph
+    dgraph suite (`dgraph.dgraph_test`) on a `local_cluster`
+    (`simbase.sim_test_fn`). The suite's nemesis (the default partition
+    of random halves, or the failure-mode flags' composed one) runs on
+    the no-op network; the alpha and zero killers, the alpha fixer and
+    the tablet mover act on the simulated nodes; the clock skew goes to
+    `RecordingClockTools` (cluster["clock_calls"]); fs-break is
+    refused."""
+    def make(opts):
+        from . import dgraph
 
-        opts = {**opts, "remote": cluster["remote"],
-                "dgraph": cluster["dgraph"],
-                "archive_url": cluster["archive_url"],
-                "clock_tools": RecordingClockTools(
-                    cluster.setdefault("clock_calls", []))}
-        if opts.get("nemesis") in common.FSFAULT_NEMESIS_NAMES:
-            raise CliError(f"--nemesis {opts['nemesis']}: the simulated "
-                           "cluster cannot mount the FUSE fault layer")
-        t = dgraph.dgraph_test(opts)
-        t.update({"os": None, "net": net.noop})
-        return t
+        return dgraph.dgraph_test(opts)
 
-    return test_fn
-
+    return sim_test_fn(cluster, "dgraph", make, {
+        "clock_tools": RecordingClockTools(cluster.setdefault(
+            "clock_calls", []))})
 
 if __name__ == "__main__":
     serve()

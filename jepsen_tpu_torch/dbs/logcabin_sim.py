@@ -30,7 +30,7 @@ import sys
 import tarfile
 import tempfile
 
-from .simbase import Store, free_port
+from .simbase import Store, sim_cluster, sim_test_fn
 
 
 # ---------------------------------------------------------------------------
@@ -161,61 +161,29 @@ def build_archive(dest: str, data_path: str, python: str | None = None
 
 def local_cluster(root: str, nodes, ports: dict | None = None) -> dict:
     """The test-map entries that run the logcabin suite against
-    simulated nodes on this machine, one daemon process a node: a
-    LocalRemote whose nodes are directories under root/nodes, this
-    simulator's archive (logcabind and treeops; every node's treeops
-    shares root/shared/state.json), and each node's port (`ports` =
-    {node: port} to reuse a cluster's; else free ports)."""
-    from ..control import LocalRemote
-
-    remote = LocalRemote(root=os.path.join(root, "nodes"))
-    archive = build_archive(os.path.join(root, "logcabin-sim.tar.gz"),
-                            os.path.join(root, "shared", "state.json"))
-    ports = ports or {n: free_port() for n in nodes}
-    return {
-        "remote": remote,
-        "archive_url": f"file://{archive}",
-        "ports": ports,
-        "logcabin": {
-            "addr_fn": lambda n: "127.0.0.1",
-            "ports": ports,
-            "dir": lambda n: os.path.join(remote.node_dir(n), "opt",
-                                          "logcabin"),
-            "sudo": None,
-        },
-    }
+    simulated nodes on this machine, one daemon process a node
+    (`simbase.sim_cluster`, settings under "logcabin"): this simulator's
+    archive holds logcabind and treeops, and every node's treeops shares
+    root/shared/state.json."""
+    return sim_cluster(root, nodes, ports, "logcabin", "logcabin-sim",
+                       build_archive)
 
 
 def local_test_fn(cluster: dict):
     """A test-map constructor for `cli.single_test_cmd` that runs the
-    logcabin suite (`logcabin.logcabin_test`) on a `local_cluster`: the
-    command's options, with the cluster's entries over them, go to the
-    constructor; then the OS is none (there is no real node to
-    provision). Each op is a `treeops` process on its node over
-    `LocalRemote`. The suite's nemesis (--nemesis, partitions by default,
-    on its start/stop cycle) runs on the no-op network: partitions are
-    recorded and healed but change no traffic; start-kill acts on the
-    simulated daemons; start-stop's `killall logcabind` finds no process
-    of that name (the daemons are Python processes). The fs-break modes
-    raise `cli.CliError` before anything runs on a node: their FUSE layer
-    would mount over the nodes' data as the caller."""
-    def test_fn(opts: dict) -> dict:
-        from .. import net
-        from ..cli import CliError
-        from . import common, logcabin
+    logcabin suite (`logcabin.logcabin_test`) on a `local_cluster`
+    (`simbase.sim_test_fn`). Each op is a `treeops` process on its node
+    over `LocalRemote`. The suite's nemesis (--nemesis, partitions by
+    default, on its start/stop cycle) runs on the no-op network;
+    start-kill acts on the simulated daemons; start-stop's `killall
+    logcabind` finds no process of that name (the daemons are Python
+    processes); fs-break is refused."""
+    def make(opts):
+        from . import logcabin
 
-        opts = {**opts, "remote": cluster["remote"],
-                "logcabin": cluster["logcabin"],
-                "archive_url": cluster["archive_url"]}
-        if opts.get("nemesis") in common.FSFAULT_NEMESIS_NAMES:
-            raise CliError(f"--nemesis {opts['nemesis']}: the simulated "
-                           "cluster cannot mount the FUSE fault layer")
-        t = logcabin.logcabin_test(opts)
-        t.update({"os": None, "net": net.noop})
-        return t
+        return logcabin.logcabin_test(opts)
 
-    return test_fn
-
+    return sim_test_fn(cluster, "logcabin", make)
 
 if __name__ == "__main__":
     serve()

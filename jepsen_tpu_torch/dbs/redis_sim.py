@@ -24,7 +24,7 @@ import socketserver
 import sys
 import time
 
-from .simbase import Store, build_sim_archive, free_port
+from .simbase import Store, build_sim_archive, sim_cluster, sim_test_fn
 
 RETRY_S = 1.0  # in-flight jobs older than this are redelivered
 
@@ -274,63 +274,27 @@ def build_archive(dest: str, data_path: str, binary: str = "disque-server",
 
 def local_cluster(root: str, nodes, ports: dict | None = None) -> dict:
     """The test-map entries that run the raftis suite against simulated
-    nodes on this machine, one process a node: a LocalRemote whose nodes
-    are directories under root/nodes, this simulator's archive with a
-    `raftis` binary (all nodes share root/shared/state.json), and each
-    node's RESP port (`ports` = {node: port} to reuse a cluster's; else
-    free ports)."""
-    import os
-
-    from ..control import LocalRemote
-
-    remote = LocalRemote(root=os.path.join(root, "nodes"))
-    archive = build_archive(os.path.join(root, "raftis-sim.tar.gz"),
-                            os.path.join(root, "shared", "state.json"),
-                            binary="raftis")
-    ports = ports or {n: free_port() for n in nodes}
-    return {
-        "remote": remote,
-        "archive_url": f"file://{archive}",
-        "ports": ports,
-        "raftis": {
-            "addr_fn": lambda n: "127.0.0.1",
-            "ports": ports,
-            "dir": lambda n: os.path.join(remote.node_dir(n), "opt",
-                                          "raftis"),
-            "sudo": None,
-        },
-    }
+    nodes on this machine (`simbase.sim_cluster`, settings under
+    "raftis"): this simulator's archive with a `raftis` binary."""
+    return sim_cluster(
+        root, nodes, ports, "raftis", "raftis-sim",
+        lambda dest, data: build_archive(dest, data, binary="raftis"))
 
 
 def local_test_fn(cluster: dict):
     """A test-map constructor for `cli.single_test_cmd` that runs the
-    raftis suite (`raftis.raftis_test`) on a `local_cluster`: the
-    command's options, with the cluster's entries over them, go to the
-    constructor; then the OS is none (there is no real node to
-    provision). The suite's nemesis (--nemesis, partitions by default,
-    on the suite's 5-s start/stop cycle) runs on the no-op network:
-    partitions are recorded and healed but change no traffic; start-kill
-    acts on the simulated nodes; start-stop's `killall raftis` finds no
-    process of that name (the nodes are Python processes). The fs-break
-    modes raise `cli.CliError` before anything runs on a node: their
-    FUSE layer would mount over the nodes' data as the caller."""
-    def test_fn(opts: dict) -> dict:
-        from .. import net
-        from ..cli import CliError
-        from . import common, raftis
+    raftis suite (`raftis.raftis_test`) on a `local_cluster`
+    (`simbase.sim_test_fn`). The suite's nemesis (--nemesis, partitions
+    by default, on the suite's 5-s start/stop cycle) runs on the no-op
+    network; start-kill acts on the simulated nodes; start-stop's
+    `killall raftis` finds no process of that name (the nodes are Python
+    processes); fs-break is refused."""
+    def make(opts):
+        from . import raftis
 
-        opts = {**opts, "remote": cluster["remote"],
-                "raftis": cluster["raftis"],
-                "archive_url": cluster["archive_url"]}
-        if opts.get("nemesis") in common.FSFAULT_NEMESIS_NAMES:
-            raise CliError(f"--nemesis {opts['nemesis']}: the simulated "
-                           "cluster cannot mount the FUSE fault layer")
-        t = raftis.raftis_test(opts)
-        t.update({"os": None, "net": net.noop})
-        return t
+        return raftis.raftis_test(opts)
 
-    return test_fn
-
+    return sim_test_fn(cluster, "raftis", make)
 
 if __name__ == "__main__":
     serve()

@@ -6,7 +6,9 @@ suites' normal install_archive path.
 
 The port's copy of `jepsen_tpu/dbs/simbase.py`: it imports nothing of
 `jepsen_tpu`. It adds `free_port` and `RecordingClockTools`, the clock
-tools the simulated clusters' recipes give the clock nemeses.
+tools the simulated clusters' recipes give the clock nemeses, and
+`sim_cluster`/`sim_test_fn`, the recipe the zookeeper, mongodb,
+rethinkdb and elasticsearch simulators share.
 """
 
 from __future__ import annotations
@@ -228,3 +230,57 @@ class RecordingClockTools:
     def bring_up(self, test) -> None:
         for node in test["nodes"]:
             self.record.append((node, "bring_up", ()))
+
+
+def sim_cluster(root: str, nodes, ports, key: str, arcname: str, build,
+                ports_key: str = "ports") -> dict:
+    """The test-map entries that run a suite against simulated nodes on
+    this machine, one simulator process a node: a LocalRemote whose nodes
+    are directories under root/nodes, the simulator's archive (`build`,
+    its `build_archive`; every node shares root/shared/state.json), and
+    each node's port (`ports` = {node: port} to reuse a cluster's; else
+    free ports), under the suite's config key `key` (`ports_key` names
+    the ports there; each node installs into <node dir>/opt/<key>)."""
+    from ..control import LocalRemote
+
+    remote = LocalRemote(root=os.path.join(root, "nodes"))
+    archive = build(os.path.join(root, f"{arcname}.tar.gz"),
+                    os.path.join(root, "shared", "state.json"))
+    ports = ports or {n: free_port() for n in nodes}
+    return {
+        "remote": remote,
+        "archive_url": f"file://{archive}",
+        "ports": ports,
+        key: {
+            "addr_fn": lambda n: "127.0.0.1",
+            ports_key: ports,
+            "dir": lambda n: os.path.join(remote.node_dir(n), "opt", key),
+            "sudo": None,
+        },
+    }
+
+
+def sim_test_fn(cluster: dict, key: str, make_test, extra=None):
+    """A test-map constructor for `cli.single_test_cmd` on a
+    `sim_cluster`: the command's options, with the cluster's entries and
+    `extra` over them, go to `make_test` (the suite's `*_test`); then the
+    OS is none (there is no real node to provision) and the network the
+    no-op one, so the suite's own nemesis records and heals its
+    partitions without changing traffic. The fs-break modes of --nemesis
+    raise `cli.CliError` before anything runs on a node: their FUSE layer
+    would mount over the nodes' data as the caller."""
+    def test_fn(opts: dict) -> dict:
+        from .. import net
+        from ..cli import CliError
+        from .common import FSFAULT_NEMESIS_NAMES
+
+        opts = {**opts, "remote": cluster["remote"], key: cluster[key],
+                "archive_url": cluster["archive_url"], **(extra or {})}
+        if opts.get("nemesis") in FSFAULT_NEMESIS_NAMES:
+            raise CliError(f"--nemesis {opts['nemesis']}: the simulated "
+                           "cluster cannot mount the FUSE fault layer")
+        t = make_test(opts)
+        t.update({"os": None, "net": net.noop})
+        return t
+
+    return test_fn

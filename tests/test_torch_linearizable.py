@@ -344,7 +344,9 @@ def test_port_imports_no_jax():
     cockroachdb, consul and postgres-rds suites, their simulators and
     protocol clients; span tracing, the store's web UI, repl and report,
     the dgraph, raftis and logcabin suites, their simulators and recipes;
-    and every module of those) load neither jax
+    the zookeeper, mongodb, rethinkdb and elasticsearch suites, their
+    protocol modules (jute, BSON and OP_MSG, ReQL), simulators and
+    recipes; and every module of those) load neither jax
     nor any module of the JAX package (jepsen_tpu_torch's own name shares
     the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -595,6 +597,28 @@ def test_port_imports_no_jax():
         assert dgraph_sim.local_test_fn({}) and redis_sim.local_test_fn({})
         assert logcabin_sim.local_test_fn({})
         simbase.RecordingClockTools([]).bring_up({"nodes": ["n1"]})
+        from jepsen_tpu_torch.dbs import (bson, elasticsearch, es_sim,
+                                          mongo_proto, mongo_sim, mongodb,
+                                          rethink_proto, rethink_sim,
+                                          rethinkdb, zk_proto, zk_sim,
+                                          zookeeper)
+        assert zookeeper.zk_test({"nodes": ["n1"], "device": "cpu"})[
+            "name"] == "zookeeper"
+        assert zk_proto.Writer().int32(1).bytes_() == b"\\x00\\x00\\x00\\x01"
+        assert bson.decode(bson.encode({"a": 1 << 40}))[0] == {"a": 1 << 40}
+        for wl in ("document-cas", "transfer", "logger-perf"):
+            assert mongodb.mongodb_test({"nodes": ["n1"], "device": "cpu",
+                                         "workload": wl})["checker"]
+        assert mongo_proto.OP_MSG == 2013
+        assert rethinkdb.rethinkdb_test({"nodes": ["n1"], "device": "cpu",
+                                         "workload": "reconfigure"})[
+            "name"] == "rethinkdb document reconfigure"
+        assert rethink_proto.db("x") == [14, ["x"]]
+        for wl in elasticsearch.workloads(device="cpu"):
+            assert elasticsearch.es_test({"nodes": ["n1"], "device": "cpu",
+                                          "workload": wl})["checker"]
+        for sim in (zk_sim, mongo_sim, rethink_sim, es_sim):
+            assert sim.local_test_fn({})
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))
