@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N]
         [--only crossover|closure|fuzz|linear|store|online|serve|mesh|checkers
-                |runner|faults|suites|dgraph|registers]
+                |runner|faults|suites|dgraph|registers|locks|cells]
+    python3 chip_smoke.py --cell CELL --workdir DIR --ports P1,...,P5
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -184,6 +185,25 @@ workers, stagger 0.1 s): exit 0, valid (every key True), one K1 (or K5)
 launch a history, each equal to its plain version, and the stored
 history's dict under the suite's checker on device="cpu" equal to the
 card's (`--only registers`).
+Then the `locks` phase, the aerospike, hazelcast and rabbitmq suites on
+the same cluster shape, each over its own wire protocol (the Aerospike
+v2 message wire, Hazelcast's HTTP shim, AMQP 0-9-1) at the workload that
+reaches the WGL kernels, with a 5-s limit: aerospike's cas-register
+(CASRegister(), 5 workers, stagger 0.05 s), hazelcast's lock (Mutex(), 5
+workers looping acquire and release, its majority-ring partitions; its
+30-s first nemesis sleep holds the workers) and rabbitmq's mutex
+(linearizable(Mutex()), 5 workers an op a second each): the same gates
+as the registers cells, the line naming the engine "auto" chose (K1, K5
+or K2) and the history's entries; and suites_rabbitmq_requeued, no
+runner: a broker in a thread requeues a dead holder's delivery, a second
+acquire follows with no release, and linearizable(Mutex()) on the card
+must give valid False with its op, one K1 launch equal to its plain
+version and the device="cpu" dict (`--only locks`). The cells of both
+phases run side by side, each in a child process of its own (`--cell`:
+its own CUDA context and launch counts, its members on ports no other
+child has, its launches replayed there); a child that exits non-zero,
+prints no line or runs past CHILD_LIMIT_S fails the run; its line and
+its kernels' figures come back here.
 Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
@@ -5144,27 +5164,32 @@ def suites_run(args, kernels, td: str, name: str, suite: str, time_limit,
                *extra, client=None, concurrency=RUNNER_CONCURRENCY,
                store_dir=None) -> dict:
     """One `test` of `suite` (cockroachdb, consul, dgraph, raftis,
-    logcabin, zookeeper, mongodb, rethinkdb or elasticsearch) on a fresh
-    cluster of RUNNER_NODES with every bar at 1
-    (`client` replaces cockroachdb's client; the others run their own),
-    storing into `store_dir` (else the cell's own): exit code, wall,
-    launches (`seen`), wall split, run dir, results and the history's
-    counts."""
+    logcabin, zookeeper, mongodb, rethinkdb, elasticsearch, aerospike,
+    hazelcast or rabbitmq) on a fresh cluster of RUNNER_NODES with every
+    bar at 1 (`client` replaces cockroachdb's client; the others run
+    their own), its members on the ports the parent of a child cell
+    handed it (`args.ports`; else free ports), storing into `store_dir`
+    (else the cell's own): exit code, wall, launches (`seen`), wall
+    split, run dir, results and the history's counts."""
     import glob
 
     from jepsen_tpu_torch import cli
-    from jepsen_tpu_torch.dbs import (consul, consul_sim, crdb_sim, dgraph,
+    from jepsen_tpu_torch.dbs import (aerospike, aerospike_sim, amqp_sim,
+                                      consul, consul_sim, crdb_sim, dgraph,
                                       dgraph_sim, elasticsearch, es_sim,
-                                      logcabin, logcabin_sim, mongo_sim,
-                                      mongodb, raftis, redis_sim,
+                                      hazelcast, hz_sim, logcabin,
+                                      logcabin_sim, mongo_sim, mongodb,
+                                      rabbitmq, raftis, redis_sim,
                                       rethink_sim, rethinkdb, zk_sim,
                                       zookeeper)
     from jepsen_tpu_torch.dbs import cockroach_workloads as crw
 
     root = os.path.join(td, name)
     sd = store_dir or os.path.join(root, "store")
+    ports = (dict(zip(RUNNER_NODES, args.ports))
+             if getattr(args, "ports", None) else None)
     if suite == "cockroachdb":
-        cluster = crdb_sim.local_cluster(root, RUNNER_NODES)
+        cluster = crdb_sim.local_cluster(root, RUNNER_NODES, ports=ports)
         cmd = cli.single_test_cmd(crdb_sim.local_test_fn(cluster,
                                                          client=client),
                                   opt_spec=crw._opt_spec)
@@ -5176,8 +5201,11 @@ def suites_run(args, kernels, td: str, name: str, suite: str, time_limit,
                     "zookeeper": (zk_sim, zookeeper),
                     "mongodb": (mongo_sim, mongodb),
                     "rethinkdb": (rethink_sim, rethinkdb),
-                    "elasticsearch": (es_sim, elasticsearch)}[suite]
-        cluster = sim.local_cluster(root, RUNNER_NODES)
+                    "elasticsearch": (es_sim, elasticsearch),
+                    "aerospike": (aerospike_sim, aerospike),
+                    "hazelcast": (hz_sim, hazelcast),
+                    "rabbitmq": (amqp_sim, rabbitmq)}[suite]
+        cluster = sim.local_cluster(root, RUNNER_NODES, ports=ports)
         cmd = cli.single_test_cmd(sim.local_test_fn(cluster),
                                   opt_spec=mod._opt_spec)
     argv = runner_argv("test", sd, time_limit, args.runner_device, *extra,
@@ -5535,27 +5563,76 @@ REGISTERS = (
 )
 
 
+# The locks phase: the aerospike, hazelcast and rabbitmq suites on the
+# same cluster shape, each over its own wire protocol (the Aerospike v2
+# message wire, Hazelcast's HTTP/JSON shim, AMQP 0-9-1) at the workload
+# whose checker reaches the WGL kernels, with every bar at 1 and a
+# SUITES_TIME_LIMIT: aerospike's cas-register (aerospike.py:391-412:
+# CASRegister(), 1n workers, stagger(0.05, mix([r, w, cas, cas])),
+# start_stop(10, 10)); hazelcast's lock (hazelcast.py:466-506: Mutex(),
+# 1n workers each looping acquire/release with no stagger, its
+# majority-ring partitions on start_stop(30, 15)); and rabbitmq's mutex
+# (rabbitmq.py:238-283: linearizable(Mutex()), 1n workers each paced by
+# delay(max(1, 5 / 20)) = 1 s, start_stop(5, 15)). The workers last the
+# nemesis's first sleep: 10, 30 and 5 s. Beside them suites_rabbitmq_
+# requeued, no runner: a broker that requeues a dead holder's delivery
+# gives a second acquire with no release between, an invalid Mutex
+# history on the card. (suite, cell, extra arguments, workers, part of
+# the results holding the verdict)
+LOCKS = (
+    ("aerospike", "suites_aerospike", ("--workload", "cas-register"), "1n",
+     "linear"),
+    ("hazelcast", "suites_hazelcast_lock",
+     ("--workload", "lock", "--nemesis", "majority-ring"), "1n", "workload"),
+    ("rabbitmq", "suites_rabbitmq_mutex", ("--workload", "mutex"), "1n",
+     "linear"),
+)
+#: each suite's wire protocol, named in its cell's line
+PROTOCOLS = {"zookeeper": "jute", "mongodb": "OP_MSG/BSON",
+             "rethinkdb": "ReQL JSON", "elasticsearch": "ES HTTP",
+             "aerospike": "Aerospike v2 message", "hazelcast": "Hazelcast HTTP",
+             "rabbitmq": "AMQP 0-9-1"}
+#: the WGL kernel each card engine of "auto" launches
+ENGINE_KERNELS = {"wgl_vec": "K1", "wgl_row": "K5", "wgl_search": "K2"}
+
+
 def registers_checker(suite: str, part: str, argv) -> tuple:
-    """(test map with the suite's model, the suite's checker `part`) as
-    its `test` builds them from `argv`'s workload options, on
-    device="cpu"."""
-    from jepsen_tpu_torch.dbs import elasticsearch, mongodb, rethinkdb
-    from jepsen_tpu_torch.dbs import zookeeper
+    """(test map with the model the suite's checker `part` checks
+    against, that checker) as the suite's `test` builds them from
+    `argv`'s workload options, on device="cpu"."""
+    from jepsen_tpu_torch.dbs import (aerospike, elasticsearch, hazelcast,
+                                      mongodb, rabbitmq, rethinkdb,
+                                      zookeeper)
 
     opts = {"nodes": RUNNER_NODES, "device": "cpu",
             **{k.lstrip("-").replace("-", "_"): v
                for k, v in zip(argv[::2], argv[1::2])}}
     t = {"zookeeper": zookeeper.zk_test, "mongodb": mongodb.mongodb_test,
          "rethinkdb": rethinkdb.rethinkdb_test,
-         "elasticsearch": elasticsearch.es_test}[suite](opts)
-    return {"model": t["model"]}, t["checker"].checker_map[part]
+         "elasticsearch": elasticsearch.es_test,
+         "aerospike": aerospike.aerospike_test,
+         "hazelcast": hazelcast.hazelcast_test,
+         "rabbitmq": rabbitmq.rabbitmq_test}[suite](opts)
+    chk = t["checker"].checker_map[part]
+    # rabbitmq's mutex checker carries its model; the others take the
+    # test map's
+    return {"model": getattr(chk, "model", None) or t["model"]}, chk
+
+
+def history_entries(hist) -> int:
+    """The entries (invocations paired with completions, as
+    `Linearizable._route` counts them) of an unkeyed history."""
+    from jepsen_tpu_torch.history import entries
+
+    return len(entries(list(hist)))
 
 
 def registers_cell(args, kernels, ck, td: str, suite: str, cell: str,
                    extra, workers: str, part: str) -> None:
-    """`suite` at its defaults (REGISTERS): exit 0, its checker `part`
-    True (per key too), one K1 or K5 launch a history where the suite's
-    model has a kernel encoding (zookeeper's CASRegister(0) has none in
+    """`suite` at its defaults (REGISTERS, LOCKS): exit 0, its checker
+    `part` True (per key too), one WGL launch a history where the
+    model has a kernel encoding (K1, K5 or K2, as "auto" routes the
+    history by its entries; zookeeper's CASRegister(0) has none in
     either package, `models/jit.py:for_model`: its history takes the host
     search and launches nothing), each equal to its plain version; the
     stored history re-checked with the suite's own linearizable checker
@@ -5597,38 +5674,293 @@ def registers_cell(args, kernels, ck, td: str, suite: str, cell: str,
                    for r in got["results"].values()), got
         got = {**got, "results": {k: r["linear"]
                                   for k, r in got["results"].items()}}
+        entries = None
     else:
         keys = {"history": got["valid"]}
+        entries = history_entries(hist)
     assert cpu == normalise(got), (got, cpu)
     assert run["rc"] == 0, run["rc"]
     assert keys and all(v is True for v in keys.values()), keys
     encodes = mjit.for_model(test["model"]) is not None
-    k1, k5 = seen["wgl_vec"][0], seen["wgl_row"][0]
-    assert k1 + k5 == (len(keys) if encodes else 0), (len(keys), k1, k5)
+    launched = {k: seen[k][0] for k in ENGINE_KERNELS}
+    assert sum(launched.values()) == (len(keys) if encodes else 0), (
+        len(keys), launched)
     emit(suites_line(
-        kernels, ck, cell, run, protocol={
-            "zookeeper": "jute", "mongodb": "OP_MSG/BSON",
-            "rethinkdb": "ReQL JSON", "elasticsearch": "ES HTTP"}[suite],
+        kernels, ck, cell, run, protocol=PROTOCOLS[suite],
         extra=list(extra), concurrency=int(workers[:-1]) * n,
         time_limit_s=SUITES_TIME_LIMIT, keys=len(keys),
-        verdicts=verdict_counts(keys.values()), k1_launches=k1,
-        k5_launches=k5, model=type(test["model"]).__name__,
+        verdicts=verdict_counts(keys.values()),
+        k1_launches=launched["wgl_vec"], k5_launches=launched["wgl_row"],
+        k2_launches=launched["wgl_search"],
+        engines=sorted(ENGINE_KERNELS[k] for k, v in launched.items() if v),
+        entries=entries, model=type(test["model"]).__name__,
         model_encodes=encodes, cpu_dict_equal=True, cpu_check_s=cpu_s,
         **verdict))
 
 
-def phase_registers(args, kernels, ck) -> None:
-    """The zookeeper, mongodb, rethinkdb and elasticsearch suites end to
-    end on simulated nodes (REGISTERS), one line a cell."""
-    import tempfile
+def locks_requeued(args, kernels, ck, td: str, cell: str) -> None:
+    """The twin of the JAX package's test_mutex_partition_anomaly_caught
+    on the card: one amqp_sim broker in a thread, two MutexClients of one
+    prototype; A acquires, A's connection dies, the broker requeues A's
+    delivery, B acquires with no release between. `linearizable(Mutex())`
+    on the card (every bar at 1): valid False with its `op`, one K1
+    launch equal to its plain version, the dict equal to the one on
+    device="cpu" (routed as on the card)."""
+    import threading
+
+    from jepsen_tpu_torch import checker as checker_mod
+    from jepsen_tpu_torch.dbs import amqp_sim, rabbitmq
+    from jepsen_tpu_torch.history import Op, index
+    from jepsen_tpu_torch.models import Mutex
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_registers_") as td:
-        for suite, cell, extra, workers, part in REGISTERS:
-            registers_cell(args, kernels, ck, td, suite, cell, extra,
-                           workers, part)
-    emit({"phase": "registers", "wall_s": time.perf_counter() - t0,
-          "nvidia_smi": args.smi})
+
+    class Broker(amqp_sim.Handler):
+        store = amqp_sim.Store(os.path.join(td, cell, "amqp.json"))
+        mean_latency = 0.0
+
+    srv = amqp_sim.Server(("127.0.0.1", 0), Broker)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    hist, polls = [], 0
+    try:
+        t = {"rabbitmq": {"addr_fn": lambda n: "127.0.0.1",
+                          "ports": {"n1": srv.server_address[1]}}}
+        proto = rabbitmq.MutexClient()
+        a, b = proto.open(t, "n1"), proto.open(t, "n1")
+
+        def record(process, client, f):
+            hist.append(Op(process, "invoke", f, None))
+            hist.append(client.invoke(t, Op(process, "invoke", f, None)))
+            return hist[-1]
+
+        assert record(0, a, "acquire").type == "ok", hist
+        a.conn.close()  # the broker loses the holder's connection
+        got = None
+        while got is None and polls < 100:
+            polls += 1
+            got = b.conn.get_unacked(rabbitmq.SEMAPHORE)
+            if got is None:
+                time.sleep(0.02)
+        assert got is not None, "the broker never requeued the delivery"
+        b.conn.reject(got[0], requeue=True)
+        assert record(1, b, "acquire").type == "ok", hist
+        b.close(t)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    hist = index(hist)
+    session_s = time.perf_counter() - t0
+    with card_bars(1):
+        res, wall, seen = run_path(kernels, lambda: checker_mod.linearizable(
+            Mutex()).check({}, hist, {}))
+    lin = lin_module()
+    card = lin._card_present
+    lin._card_present = lambda device: True
+    t1 = time.perf_counter()
+    try:
+        with card_bars(1):
+            cpu = normalise(checker_mod.linearizable(
+                Mutex(), device="cpu").check({}, hist, {}))
+    finally:
+        lin._card_present = card
+    cpu_s = time.perf_counter() - t1
+    assert res["valid"] is False and res.get("op"), res
+    assert cpu == normalise(res), (res, cpu)
+    assert seen["wgl_vec"][0] == 1 and sum(
+        seen[k][0] for k in ENGINE_KERNELS) == 1, {
+        k: seen[k][0] for k in ENGINE_KERNELS}
+    line = runner_line(kernels, cell, None, wall, seen,
+                       protocol=PROTOCOLS["rabbitmq"], ops=len(hist),
+                       entries=history_entries(hist), requeue_polls=polls,
+                       session_s=session_s, valid=res["valid"],
+                       op=res["op"], model="Mutex", cpu_dict_equal=True,
+                       cpu_check_s=cpu_s)
+    del line["exit"]
+    emit(line)
+
+
+# The registers and locks cells run in child processes, side by side
+# (their walls are sleeps and host sockets; the card idles through them):
+# the seconds a child may take before the run fails, and every child
+# cell, by name: its REGISTERS or LOCKS entry, or None for the requeued
+# mutex.
+CHILD_LIMIT_S = 300
+CELLS = {**{spec[1]: spec for spec in REGISTERS + LOCKS},
+         "suites_rabbitmq_requeued": None}
+
+
+class ChildFailed(AssertionError):
+    """A child cell exited non-zero, printed no line of its cell, or ran
+    past its limit."""
+
+
+def disjoint_ports(n: int) -> list:
+    """`n` distinct free localhost ports: all bound at once, then
+    released, so no two children of a phase draw the same port (as
+    `simbase.free_port` one at a time could)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def child_argv(args, cell: str, ports, workdir: str) -> list:
+    """The command of one child cell: this script on `cell` alone."""
+    return [sys.executable, os.path.abspath(__file__), "--seed",
+            str(args.seed), "--cell", cell, "--workdir", workdir,
+            "--ports", ",".join(map(str, ports))]
+
+
+def run_children(cells, argv_fn, workdir: str, limit_s: float,
+                 n_ports: int = len(RUNNER_NODES)) -> dict:
+    """Run the child of every cell of `cells` at once (`argv_fn(cell,
+    ports, cell_dir)` its command; each gets `n_ports` ports no other
+    child of the call has, and a directory of its own under `workdir`,
+    its stdout and stderr written there), wait for all of them, and
+    return {cell: (its line, every other JSON object it printed, its
+    ports, its seconds from the start to its exit)}. Raises ChildFailed
+    when a child exits non-zero, prints no line whose "phase" is its
+    cell, or is still running `limit_s` after the start (then every
+    child still running is killed, with the simulated members under its
+    directory)."""
+    import signal
+
+    ports = disjoint_ports(n_ports * len(cells))
+    procs = {}
+    t0 = time.monotonic()
+    for i, cell in enumerate(cells):
+        d = os.path.join(workdir, cell)
+        os.makedirs(d, exist_ok=True)
+        mine = ports[i * n_ports:(i + 1) * n_ports]
+        with open(os.path.join(d, "stdout"), "w") as out, \
+                open(os.path.join(d, "stderr"), "w") as err:
+            procs[cell] = (subprocess.Popen(
+                argv_fn(cell, mine, d), stdout=out, stderr=err,
+                stdin=subprocess.DEVNULL, start_new_session=True), mine, d)
+    # each child's seconds from the start to its exit
+    ended = {}
+    while len(ended) < len(procs) and time.monotonic() - t0 < limit_s:
+        for cell, (p, _, d) in procs.items():
+            if cell not in ended and p.poll() is not None:
+                ended[cell] = time.monotonic() - t0
+        time.sleep(0.05)
+    failed = [f"{cell}: still running after {limit_s} s"
+              for cell in procs if cell not in ended]
+    for cell, (p, _, d) in procs.items():
+        if p.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        for root in [d] + [os.path.join(d, e) for e in os.listdir(d)]:
+            stop_members(root)
+    out = {}
+    for cell, (p, mine, d) in procs.items():
+        with open(os.path.join(d, "stdout")) as f:
+            objs = []
+            for ln in f:
+                with contextlib.suppress(ValueError):
+                    o = json.loads(ln)
+                    if isinstance(o, dict):
+                        objs.append(o)
+        lines = [o for o in objs if o.get("phase") == cell]
+        if p.returncode != 0:
+            with open(os.path.join(d, "stderr")) as f:
+                tail = f.read()[-4000:]
+            failed.append(f"{cell}: exit {p.returncode}: {tail}")
+        elif len(lines) != 1:
+            failed.append(f"{cell}: {len(lines)} lines of its cell")
+        else:
+            out[cell] = (lines[0], [o for o in objs if o is not lines[0]],
+                         mine, ended[cell])
+    if failed:
+        raise ChildFailed("; ".join(failed))
+    return out
+
+
+def child_report(kernels) -> dict:
+    """What a child cell hands its parent of each kernel it launched:
+    launches, comparisons, the largest error, its cells' figures and its
+    top-level figures."""
+    return {"cell_kernels": {
+        k.name: {"launches": k.launches, "compared": k.compared,
+                 "max_abs_err": k.max_abs_err, "cells": k.cells,
+                 "shape": k.shape, "ms": k.ms, "plain_ms": k.plain_ms,
+                 "bound_ms": k.bound_ms, "bound_by": k.bound_by}
+        for k in kernels if k.launches or k.compared}}
+
+
+def merge_child(kernels, report: dict) -> None:
+    """Fold a child's `child_report` into this process's kernel rows."""
+    by_name = {k.name: k for k in kernels}
+    for name, r in report["cell_kernels"].items():
+        k = by_name[name]
+        k.launches += r["launches"]
+        k.compared += r["compared"]
+        k.max_abs_err = max(k.max_abs_err, r["max_abs_err"])
+        k.cells.update(r["cells"])
+        if k.shape is None and r["shape"] is not None:
+            k.shape, k.ms, k.plain_ms = r["shape"], r["ms"], r["plain_ms"]
+            k.bound_ms, k.bound_by = r["bound_ms"], r["bound_by"]
+
+
+def run_child_cell(args) -> int:
+    """This process as a child cell (`--cell`): the cell alone on the
+    card, its members on `--ports`, under `--workdir`; its line, then its
+    child_report."""
+    kernels, ck, _, _ = make_kernels()
+    spec = CELLS[args.cell]
+    if spec is None:
+        locks_requeued(args, kernels, ck, args.workdir, args.cell)
+    else:
+        registers_cell(args, kernels, ck, args.workdir, *spec)
+    emit(child_report(kernels))
+    return 0
+
+
+def side_by_side(args, kernels, phases: dict) -> None:
+    """The cells of every phase of `phases` ({phase: its cells}) side by
+    side, one child process each (its own CUDA context and launch
+    counters; it replays its own launches against the plain versions):
+    each child's line emitted here (its own `at_s` as `child_at_s`, its
+    seconds from the start to its exit as `child_wall_s`), its kernels
+    folded into this process's rows; then each phase's line, its wall
+    the seconds from the start until the last of its children exited."""
+    import tempfile
+
+    cells = [c for cs in phases.values() for c in cs]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cells_") as td:
+        got = run_children(
+            cells, lambda cell, ports, d: child_argv(args, cell, ports, d),
+            td, CHILD_LIMIT_S)
+    wall = time.perf_counter() - t0
+    for cell in cells:
+        line, rest, ports, child_wall = got[cell]
+        (report,) = [o for o in rest if "cell_kernels" in o]
+        merge_child(kernels, report)
+        emit({**line, "child_at_s": line.get("at_s"),
+              "child_wall_s": child_wall, "ports": ports})
+    for phase, cs in phases.items():
+        emit({"phase": phase,
+              "wall_s": max(got[c][3] for c in cs),
+              "cells": list(cs), "side_by_side": cells,
+              "side_by_side_wall_s": wall, "nvidia_smi": args.smi})
+
+
+REGISTERS_CELLS = [cell for _, cell, *_ in REGISTERS]
+LOCKS_CELLS = [cell for _, cell, *_ in LOCKS] + ["suites_rabbitmq_requeued"]
+#: the phases each of `--only registers`, `locks` and `cells` runs side by
+#: side (the whole run runs "cells")
+SIDE_BY_SIDE = {"registers": {"registers": REGISTERS_CELLS},
+                "locks": {"locks": LOCKS_CELLS},
+                "cells": {"registers": REGISTERS_CELLS,
+                          "locks": LOCKS_CELLS}}
 
 
 def lookup_us(mod, reps: int = 20) -> dict:
@@ -5682,28 +6014,12 @@ def build_all(kernels) -> None:
               "lookup_us": lookup_us(mod)})
 
 
-def run(args) -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    if not os.path.isdir(os.path.join(HERE, "jepsen_tpu_torch")):
-        print("chip_smoke: run from a checkout of the repository "
-              "(jepsen_tpu_torch/ not found)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
-    from jepsen_tpu_torch.device import describe
+def make_kernels() -> tuple:
+    """(the kernels of the main paths, K3's kernels by name, K4's, the
+    mesh paths' rows by name): each kernel's row of the final table,
+    with the TPU function it replaces."""
     from jepsen_tpu_torch.fuzz import sim as sim_mod
     from jepsen_tpu_torch.ops import closure, wgl_row, wgl_search, wgl_vec
-
-    smi = nvidia_smi()
-    args.smi = smi
-    args.runner_device = "cuda"
-    kind = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "nvidia_smi": smi, "torch_device": kind,
-          "capability": describe("cuda")["capability"],
-          "torch": torch.__version__, "cuda": torch.version.cuda})
 
     vec = Kernel("wgl_vec", wgl_vec, "jepsen_tpu/ops/wgl_pallas_vec.py:163")
     row = Kernel("wgl_row", wgl_row, "jepsen_tpu/ops/wgl_pallas.py:84")
@@ -5716,12 +6032,39 @@ def run(args) -> int:
           "matmul": ClosureKernel("matmul", closure, f"{k3}:88",
                                   library=True)}
     sim = Kernel("sim", sim_mod, "jepsen_tpu/fuzz/sim.py:115")
-    kernels = [vec, row, search, *ck.values(), sim]
     meshk = {"K1 mesh": Kernel("K1 mesh", wgl_vec,
                                "jepsen_tpu/ops/wgl_pallas_vec.py:848"),
              "K2 deal": Kernel("K2 deal", wgl_search,
                                "jepsen_tpu/ops/wgl_tpu.py:639"),
              "K3 mesh": MeshClosureKernel("K3 mesh", closure, f"{k3}:157")}
+    return [vec, row, search, *ck.values(), sim], ck, sim, meshk
+
+
+def run(args) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "jepsen_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(jepsen_tpu_torch/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from jepsen_tpu_torch.device import describe
+
+    args.runner_device = "cuda"
+    if args.cell:
+        return run_child_cell(args)
+    smi = nvidia_smi()
+    args.smi = smi
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "torch_device": kind,
+          "capability": describe("cuda")["capability"],
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    kernels, ck, sim, meshk = make_kernels()
+    vec, row, search = kernels[:3]
     build_all(kernels)
     if args.only == "crossover":
         phase_crossover(args)
@@ -5796,9 +6139,9 @@ def run(args) -> int:
                           if not k.library]})
         print(smi, flush=True)
         return 0
-    if args.only == "registers":
-        phase_registers(args, kernels, ck)
-        emit({"kernels": [k.row() for k in (vec, row)]})
+    if args.only in SIDE_BY_SIDE:
+        side_by_side(args, kernels, SIDE_BY_SIDE[args.only])
+        emit({"kernels": [k.row() for k in (vec, row, search)]})
         print(smi, flush=True)
         return 0
 
@@ -5886,7 +6229,7 @@ def run(args) -> int:
 
     phase_dgraph(args, kernels, ck)
 
-    phase_registers(args, kernels, ck)
+    side_by_side(args, kernels, SIDE_BY_SIDE["cells"])
 
     mm = ck["matmul"]
     emit({"kernels": [k.row() for k in (*kernels, *meshk.values())
@@ -5908,7 +6251,8 @@ def main() -> int:
                                        "linear", "store", "online",
                                        "serve", "mesh", "checkers",
                                        "runner", "faults", "suites",
-                                       "dgraph", "registers"),
+                                       "dgraph", "registers", "locks",
+                                       "cells"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
@@ -5931,9 +6275,22 @@ def main() -> int:
                     "long-fork on simulated nodes, then the store's web "
                     "UI over their store; registers: zookeeper, mongodb, "
                     "rethinkdb and elasticsearch on simulated nodes over "
-                    "their wire protocols) and "
+                    "their wire protocols; locks: aerospike's "
+                    "cas-register, hazelcast's lock and rabbitmq's mutex "
+                    "on simulated nodes, and the requeued mutex; cells: "
+                    "the registers and locks cells side by side, as the "
+                    "whole run runs them) and "
                     "print their lines and the nvidia-smi "
                     "line (no smoke result)")
+    ap.add_argument("--cell", choices=sorted(CELLS),
+                    help="run this one cell of the registers or locks "
+                    "phase alone, as the child process the phase starts "
+                    "for it: its line and its kernels' figures, no other "
+                    "line")
+    ap.add_argument("--workdir", help="the child cell's directory")
+    ap.add_argument("--ports", type=lambda v: [int(x) for x in v.split(",")],
+                    help="the child cell's members' ports, one a node of "
+                    "RUNNER_NODES")
     return run(ap.parse_args())
 
 

@@ -8,7 +8,8 @@ The port's copy of `jepsen_tpu/dbs/simbase.py`: it imports nothing of
 `jepsen_tpu`. It adds `free_port` and `RecordingClockTools`, the clock
 tools the simulated clusters' recipes give the clock nemeses, and
 `sim_cluster`/`sim_test_fn`, the recipe the zookeeper, mongodb,
-rethinkdb and elasticsearch simulators share.
+rethinkdb, elasticsearch, aerospike, hazelcast, rabbitmq and disque
+simulators share.
 """
 
 from __future__ import annotations
@@ -260,7 +261,8 @@ def sim_cluster(root: str, nodes, ports, key: str, arcname: str, build,
     }
 
 
-def sim_test_fn(cluster: dict, key: str, make_test, extra=None):
+def sim_test_fn(cluster: dict, key: str, make_test, extra=None,
+                refused=None):
     """A test-map constructor for `cli.single_test_cmd` on a
     `sim_cluster`: the command's options, with the cluster's entries and
     `extra` over them, go to `make_test` (the suite's `*_test`); then the
@@ -268,7 +270,9 @@ def sim_test_fn(cluster: dict, key: str, make_test, extra=None):
     no-op one, so the suite's own nemesis records and heals its
     partitions without changing traffic. The fs-break modes of --nemesis
     raise `cli.CliError` before anything runs on a node: their FUSE layer
-    would mount over the nodes' data as the caller."""
+    would mount over the nodes' data as the caller. So do the --nemesis
+    names of `refused` ({name: why}), a suite's modes that would act on
+    this machine itself."""
     def test_fn(opts: dict) -> dict:
         from .. import net
         from ..cli import CliError
@@ -279,6 +283,9 @@ def sim_test_fn(cluster: dict, key: str, make_test, extra=None):
         if opts.get("nemesis") in FSFAULT_NEMESIS_NAMES:
             raise CliError(f"--nemesis {opts['nemesis']}: the simulated "
                            "cluster cannot mount the FUSE fault layer")
+        if opts.get("nemesis") in (refused or {}):
+            raise CliError(f"--nemesis {opts['nemesis']}: not on the "
+                           f"simulated cluster ({refused[opts['nemesis']]})")
         t = make_test(opts)
         t.update({"os": None, "net": net.noop})
         return t

@@ -352,16 +352,18 @@ def test_sigterm_then_resume(tmp_path, cluster_root):
 
 def test_suite_listing():
     """`python -m jepsen_tpu_torch.dbs` lists the port's suites:
-    cockroachdb, dgraph, elasticsearch, both mongodb flavours and
-    rethinkdb (with their workloads), consul, etcd, logcabin,
-    postgres-rds, raftis and zookeeper."""
+    aerospike, cockroachdb, dgraph, elasticsearch, hazelcast, both
+    mongodb flavours, rabbitmq and rethinkdb (with their workloads),
+    consul, disque, etcd, logcabin, postgres-rds, raftis and
+    zookeeper."""
     out = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch.dbs"],
                          cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
-    assert "12 per-DB suites" in out.stdout
-    for mod in ("cockroach_workloads", "consul", "dgraph", "elasticsearch",
-                "etcd", "logcabin", "mongodb", "postgres_rds", "raftis",
+    assert "16 per-DB suites" in out.stdout
+    for mod in ("aerospike", "cockroach_workloads", "consul", "dgraph",
+                "disque", "elasticsearch", "etcd", "hazelcast", "logcabin",
+                "mongodb", "postgres_rds", "rabbitmq", "raftis",
                 "rethinkdb", "zookeeper"):
         assert f"jepsen_tpu_torch.dbs.{mod}" in out.stdout
     for name in ("mongodb-rocks", "mongodb-smartos"):
@@ -369,6 +371,10 @@ def test_suite_listing():
     assert out.stdout.count("workloads: document-cas, transfer, "
                             "logger-perf") == 2
     assert "workloads: cas, reconfigure" in out.stdout
+    assert "workloads: cas-register, counter, set" in out.stdout
+    assert "workloads: atomic-long-ids, atomic-ref-ids, crdt-map, " \
+        "id-gen-ids, lock, map, queue" in out.stdout
+    assert "workloads: queue, mutex" in out.stdout
     assert "workloads: dirty-read, register, set" in out.stdout
     assert "workloads: bank, comments, g2, monotonic, register, " \
         "sequential, sets" in out.stdout

@@ -346,7 +346,10 @@ def test_port_imports_no_jax():
     the dgraph, raftis and logcabin suites, their simulators and recipes;
     the zookeeper, mongodb, rethinkdb and elasticsearch suites, their
     protocol modules (jute, BSON and OP_MSG, ReQL), simulators and
-    recipes; and every module of those) load neither jax
+    recipes; codec, the aerospike, hazelcast, rabbitmq and disque suites,
+    their protocol modules (the Aerospike wire with its RIPEMD-160 key
+    digest, AMQP 0-9-1), simulators and recipes; and every module of
+    those) load neither jax
     nor any module of the JAX package (jepsen_tpu_torch's own name shares
     the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -618,6 +621,27 @@ def test_port_imports_no_jax():
             assert elasticsearch.es_test({"nodes": ["n1"], "device": "cpu",
                                           "workload": wl})["checker"]
         for sim in (zk_sim, mongo_sim, rethink_sim, es_sim):
+            assert sim.local_test_fn({})
+        from jepsen_tpu_torch import codec
+        from jepsen_tpu_torch.dbs import (aerospike, aerospike_proto,
+                                          aerospike_sim, amqp_proto,
+                                          amqp_sim, disque, hazelcast,
+                                          hz_sim, rabbitmq)
+        assert codec.decode(codec.encode([1, None])) == [1, None]
+        assert aerospike_proto.ripemd160(b"abc").hex().startswith("8eb208")
+        assert len(aerospike_proto.key_digest("jepsen", 7)) == 20
+        for wl in ("cas-register", "counter", "set"):
+            assert aerospike.aerospike_test({"nodes": ["n1"], "device": "cpu",
+                                             "workload": wl})["checker"]
+        for wl in hazelcast.workloads(device="cpu"):
+            assert hazelcast.hazelcast_test({
+                "nodes": ["n1"], "device": "cpu", "workload": wl})["checker"]
+        for wl in ("queue", "mutex"):
+            assert rabbitmq.rabbitmq_test({"nodes": ["n1"], "device": "cpu",
+                                           "workload": wl})["checker"]
+        assert disque.disque_test({"nodes": ["n1"]})["name"] == "disque"
+        assert amqp_proto.shortstr("q") == b"\\x01q"
+        for sim in (aerospike_sim, hz_sim, amqp_sim, disque):
             assert sim.local_test_fn({})
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
