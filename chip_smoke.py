@@ -117,7 +117,7 @@ long_fork's validity to the legacy paths'), causal's first 64 keys
 again under independent.checker(processes=2) in spawned workers (equal
 to the thread path); the bank-setfull histories through the bank and
 set-full checkers on the host; `single_test_cmd(...)["analyze"]` over
-two stores (512 keys of the register cell's shape written by
+two stores (256 keys of the register cell's shape written by
 IndependentChecker, and one 3,000-invocation register history analysed
 with --checker linearizable), exit codes and results files equal to the
 runs that wrote them; and `python -m jepsen_tpu_torch fuzz` in a
@@ -181,10 +181,13 @@ workload and nemesis (partitions on the no-op network) with a 5-s limit:
 zookeeper (5 workers, stagger 1 s), mongodb's document-cas on rocks (5
 workers, stagger 0.05 s), rethinkdb's cas in majority read mode (20
 workers, 2 threads and 50 ops a key) and elasticsearch's register (5
-workers, stagger 0.1 s): exit 0, valid (every key True), one K1 (or K5)
-launch a history, each equal to its plain version, and the stored
-history's dict under the suite's checker on device="cpu" equal to the
-card's (`--only registers`).
+workers, stagger 0.1 s), and tidb's register over the MySQL wire (each
+node running pd, tikv and tidb, 15 processes; 5 workers, stagger 0.05 s,
+CASRegister()): exit 0, valid (every key True), one K1 (or K5) launch a
+history, each equal to its plain version, the stored history's dict
+under the suite's checker on device="cpu" equal to the card's, and for
+tidb all three daemons of every node up, with their pids, when the
+db cycle ended, before the first op (`--only registers`).
 Then the `locks` phase, the aerospike, hazelcast and rabbitmq suites on
 the same cluster shape, each over its own wire protocol (the Aerospike
 v2 message wire, Hazelcast's HTTP shim, AMQP 0-9-1) at the workload that
@@ -203,7 +206,9 @@ phases run side by side, each in a child process of its own (`--cell`:
 its own CUDA context and launch counts, its members on ports no other
 child has, its launches replayed there); a child that exits non-zero,
 prints no line or runs past CHILD_LIMIT_S fails the run; its line and
-its kernels' figures come back here.
+its kernels' figures come back here. `--only cuts` runs each depth cut
+of the script (KVP_DEEP_STEPS, WIDEST_KEYS, ANALYZE_KEYS) at its old and
+new size in turns, to measure what the cut saves.
 Every phase prints one JSON line; the last lines are the kernel table (per kernel and main-path
 cell: kernel ms, launches, for the WGL kernels the longest lane's steps
 and µs a step and each launch's shared bytes and lanes a block (for
@@ -220,6 +225,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -677,6 +683,12 @@ def verdict_counts(valids) -> dict:
             for v in (True, False, "unknown")}
 
 
+# the cas-register batch's step budget: its second pass replays its deep
+# lanes through the plain version at full depth, ~0.3 ms a step on the
+# H100 (it was 200,000; `--only cuts` times both)
+KVP_DEEP_STEPS = 100_000
+
+
 def phase_kernel_vs_plain(args, kernel):
     """Phase 3: kernel == plain on the card for every model family and
     both value packings and memo sizes. Each batch goes through
@@ -689,9 +701,9 @@ def phase_kernel_vs_plain(args, kernel):
     wv = kernel.mod
     s = args.seed
     batches = [
-        ("cas-register", models.CASRegister, 200_000, [register_history(
-            n_process=5, n_ops=64, corrupt=0.2, seed=s * 7919 + i)
-            for i in range(256)]),
+        ("cas-register", models.CASRegister, KVP_DEEP_STEPS,
+         [register_history(n_process=5, n_ops=64, corrupt=0.2,
+                           seed=s * 7919 + i) for i in range(256)]),
         # values outside int16: the 3-row (wide) packing
         ("cas-register-v32", models.CASRegister, 20_000, [shifted(
             register_history(n_process=5, n_ops=64, corrupt=0.2,
@@ -967,6 +979,26 @@ def replay(kernels, seen, cell: str, cap=None) -> dict:
     return out
 
 
+# main_widest's keys of ~2000 events (it was 512; the history's making
+# and the check scale with the keys; `--only cuts` times both)
+WIDEST_KEYS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def main_history(n_keys: int, n_ops: int, bad_every: int, bad_read: str,
+                 seed: int) -> tuple:
+    """The seeded keyed register history of a main-path shape, made once
+    a process: main_register and main_register_search check one, the
+    three register-late cells another, main_long and main_long_auto a
+    third, the mesh phase's K2 and K1 cells a fourth (each history 2–12
+    s of host time on the H100's host)."""
+    from jepsen_tpu_torch.workloads.register import keyed_history
+
+    return tuple(keyed_history(n_keys, n_ops, n_process=5,
+                               bad_every=bad_every, bad_read=bad_read,
+                               seed=seed))
+
+
 def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
               bad_read: str = "first", algorithm: str = "gpu_vec",
               expect=("wgl_vec",), bars=None):
@@ -978,12 +1010,12 @@ def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops import wgl_host
-    from jepsen_tpu_torch.workloads.register import keyed_history
 
     t0 = time.perf_counter()
-    hist = keyed_history(n_keys, n_ops, n_process=5, bad_every=bad_every,
-                         bad_read=bad_read, seed=args.seed)
+    made = main_history.cache_info().misses
+    hist = list(main_history(n_keys, n_ops, bad_every, bad_read, args.seed))
     gen_s = time.perf_counter() - t0
+    reused = main_history.cache_info().misses == made
     chk = independent.checker(linearizable(CASRegister(),
                                            algorithm=algorithm))
     lin = lin_module()
@@ -1035,7 +1067,8 @@ def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
           "bars": bars or "measured", "native_finish": native_finish,
           "invocations_per_key": n_ops,
           "bad_every": bad_every, "bad_read": bad_read,
-          "ops": len(hist), "history_gen_s": gen_s, "wall_s": wall,
+          "ops": len(hist), "history_gen_s": gen_s,
+          "history_reused": reused, "wall_s": wall,
           "kernel_ms": kernel_ms,
           "launches": {k: v[0] for k, v in seen.items()},
           "device_idle": 1 - kernel_ms / 1000 / wall if wall > 0 else None,
@@ -3472,12 +3505,11 @@ def phase_mesh_k2(args, kernels, mk) -> None:
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.models import CASRegister, FIFOQueue
     from jepsen_tpu_torch.workloads.queue import queue_history
-    from jepsen_tpu_torch.workloads.register import (interleave_keys,
-                                                      keyed_history)
+    from jepsen_tpu_torch.workloads.register import interleave_keys
 
     search = next(k for k in kernels if k.name == "wgl_search")
-    reg = keyed_history(MESH_KEYS, MESH_INVOCATIONS, n_process=5,
-                        bad_every=8, seed=args.seed)
+    reg = list(main_history(MESH_KEYS, MESH_INVOCATIONS, 8, "first",
+                            args.seed))
     fifo = interleave_keys(
         [queue_history(n_process=5, n_ops=1980, fifo=True,
                        seed=1000 * args.seed + s) for s in FIFO_SEEDS], 5)
@@ -3515,11 +3547,10 @@ def phase_mesh_k1(args, kernels, mk) -> None:
     from jepsen_tpu_torch.history import entries
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops import wgl_vec
-    from jepsen_tpu_torch.workloads.register import keyed_history
 
     vec = next(k for k in kernels if k.name == "wgl_vec")
-    hist = keyed_history(MESH_KEYS, MESH_INVOCATIONS, n_process=5,
-                         bad_every=8, seed=args.seed)
+    hist = list(main_history(MESH_KEYS, MESH_INVOCATIONS, 8, "first",
+                             args.seed))
     subs = independent._split(hist, list(range(MESH_KEYS)))
     ess = [entries(subs[k]) for k in range(MESH_KEYS)]
     model = CASRegister()
@@ -3961,9 +3992,10 @@ def bank_setfull_histories() -> tuple:
 # median of SPIN_REPS launches, the plain version's time, the floor); the
 # others are timed once each behind the spin (`replay_closures`)
 TIMED_WORD_BUCKETS = 4
-# the analyze cell's keyed register store (half the store phase's
-# STORE_KEYS: its run and re-check write and read files a key)
-ANALYZE_KEYS = 512
+# the analyze cell's keyed register store (a quarter of the store phase's
+# STORE_KEYS: its run and re-check write and read files a key; it was
+# 512, `--only cuts` times both)
+ANALYZE_KEYS = 256
 # the analyze cell's single register history (main_long's keys' size:
 # past wgl_vec's 1024 entries, so wgl_row)
 ANALYZE_SINGLE_INVOCATIONS = 3000
@@ -4850,7 +4882,8 @@ def phase_runner(args, kernels, resume: bool = True) -> None:
 
 # The faults phase: the fault layer (nemesis/combined.py) under the etcd
 # suite on the runner phase's cluster and workload (5 members, 20
-# workers, 10 threads and 300 ops a key, every bar at 1). Partition and
+# workers, 10 threads a key, every bar at 1), FAULTS_OPS_PER_KEY ops a
+# key. Partition and
 # packet faults are recorded and healed on the no-op network (members
 # of the simulator share one state file and no links); kill, pause and
 # corruption act on the member processes and their logs; clock faults go
@@ -4861,6 +4894,12 @@ FAULTS_STABILITY_S = 3.0
 FAULTS_FAMILIES = ("kill", "pause", "partition", "clock", "corruption")
 FAULTS_INTERVAL = 1.0
 FAULTS_OPS = 8
+# ops a key (etcd's default is 300): a key's crashed ops (kills, pauses)
+# stay open to its end, so the search of a long key can run for minutes
+# once K1's budget hands it to the native finish (one faults_fuzz_replay
+# run at 300 ops a key spent 445 s there, on the H100's 8-core host);
+# 100-op keys shorten every such search
+FAULTS_OPS_PER_KEY = 100
 # the composed cell's fault families that must have fired
 FAULTS_SEEN = {"kill", "pause", "partition", "corruption"}
 # the fuzz-to-replay cell: one fuzz-loop round of FuzzLoop's default 256
@@ -4874,14 +4913,15 @@ REPLAY_INTERVAL = 0.25
 
 def faults_cmd(cluster, pids: dict) -> dict:
     """single_test_cmd over the etcd suite on `cluster` with the faults'
-    suite options (fault_ops, the stability window), each member's pid
-    appended to pids[node] after every start of it (setup and each
-    restart)."""
+    suite options (fault_ops, the stability window, ops a key), each
+    member's pid appended to pids[node] after every start of it (setup
+    and each restart)."""
     from jepsen_tpu_torch import cli
     from jepsen_tpu_torch.dbs import etcd, etcd_sim
 
     base = etcd_sim.local_test_fn(cluster, suite_opts={
-        "fault_ops": FAULTS_OPS, "stability_period": FAULTS_STABILITY_S})
+        "fault_ops": FAULTS_OPS, "stability_period": FAULTS_STABILITY_S,
+        "ops_per_key": FAULTS_OPS_PER_KEY})
 
     def test_fn(opts):
         t = base(opts)
@@ -5165,12 +5205,13 @@ def suites_run(args, kernels, td: str, name: str, suite: str, time_limit,
                store_dir=None) -> dict:
     """One `test` of `suite` (cockroachdb, consul, dgraph, raftis,
     logcabin, zookeeper, mongodb, rethinkdb, elasticsearch, aerospike,
-    hazelcast or rabbitmq) on a fresh cluster of RUNNER_NODES with every
-    bar at 1 (`client` replaces cockroachdb's client; the others run
-    their own), its members on the ports the parent of a child cell
-    handed it (`args.ports`; else free ports), storing into `store_dir`
-    (else the cell's own): exit code, wall, launches (`seen`), wall
-    split, run dir, results and the history's counts."""
+    hazelcast, rabbitmq or tidb) on a fresh cluster of RUNNER_NODES with
+    every bar at 1 (`client` replaces cockroachdb's client; the others
+    run their own), its members on the ports the parent of a child cell
+    handed it (`args.ports`, one a node, then for a simulator with
+    ROLE_PORTS one a node for each of those; else free ports), storing
+    into `store_dir` (else the cell's own): exit code, wall, launches
+    (`seen`), wall split, run dir, results and the history's counts."""
     import glob
 
     from jepsen_tpu_torch import cli
@@ -5180,14 +5221,17 @@ def suites_run(args, kernels, td: str, name: str, suite: str, time_limit,
                                       hazelcast, hz_sim, logcabin,
                                       logcabin_sim, mongo_sim, mongodb,
                                       rabbitmq, raftis, redis_sim,
-                                      rethink_sim, rethinkdb, zk_sim,
-                                      zookeeper)
+                                      rethink_sim, rethinkdb, tidb,
+                                      tidb_sim, zk_sim, zookeeper)
     from jepsen_tpu_torch.dbs import cockroach_workloads as crw
 
     root = os.path.join(td, name)
     sd = store_dir or os.path.join(root, "store")
-    ports = (dict(zip(RUNNER_NODES, args.ports))
-             if getattr(args, "ports", None) else None)
+    n = len(RUNNER_NODES)
+    given = getattr(args, "ports", None) or []
+    chunks = [dict(zip(RUNNER_NODES, given[i:i + n]))
+              for i in range(0, len(given), n)]
+    ports = chunks[0] if chunks else None
     if suite == "cockroachdb":
         cluster = crdb_sim.local_cluster(root, RUNNER_NODES, ports=ports)
         cmd = cli.single_test_cmd(crdb_sim.local_test_fn(cluster,
@@ -5204,8 +5248,12 @@ def suites_run(args, kernels, td: str, name: str, suite: str, time_limit,
                     "elasticsearch": (es_sim, elasticsearch),
                     "aerospike": (aerospike_sim, aerospike),
                     "hazelcast": (hz_sim, hazelcast),
-                    "rabbitmq": (amqp_sim, rabbitmq)}[suite]
-        cluster = sim.local_cluster(root, RUNNER_NODES, ports=ports)
+                    "rabbitmq": (amqp_sim, rabbitmq),
+                    "tidb": (tidb_sim, tidb)}[suite]
+        roles = getattr(sim, "ROLE_PORTS", None)
+        kw = ({"role_ports": dict(zip(roles, chunks[1:])) or None}
+              if roles else {})
+        cluster = sim.local_cluster(root, RUNNER_NODES, ports=ports, **kw)
         cmd = cli.single_test_cmd(sim.local_test_fn(cluster),
                                   opt_spec=mod._opt_spec)
     argv = runner_argv("test", sd, time_limit, args.runner_device, *extra,
@@ -5549,9 +5597,13 @@ def phase_dgraph(args, kernels, ck) -> None:
 # in majority read mode (rethinkdb.py:230-293: 2 threads and 50 ops a
 # key, stagger 0.05 s, on 4n workers: 3n's 15 is no multiple of 2); and
 # elasticsearch's register (elasticsearch.py:349-421: 1n workers,
-# stagger(0.1, mix([r, w, cas]))); the last three under start_stop(10,
-# 10), so their workers last its first 10-s sleep. (suite, cell, extra
-# arguments, workers, part of the results holding the verdict)
+# stagger(0.1, mix([r, w, cas]))); and tidb's register, the one cell of
+# the MySQL-wire suites (mysql_common.py:387-436, tidb.py:160-165: the
+# pd/tikv/tidb triple on every node, 1n workers, stagger(0.05, mix([r, w,
+# cas])) over values 0-4, CASRegister(), the parts nemesis); the last
+# four under start_stop(10, 10), so their workers last its first 10-s
+# sleep. (suite, cell, extra arguments, workers, part of the results
+# holding the verdict)
 REGISTERS = (
     ("zookeeper", "suites_zookeeper", (), "1n", "linear"),
     ("mongodb", "suites_mongodb",
@@ -5560,6 +5612,8 @@ REGISTERS = (
      ("--workload", "cas", "--read-mode", "majority"), "4n", "indep"),
     ("elasticsearch", "suites_elasticsearch", ("--workload", "register"),
      "1n", "linear"),
+    ("tidb", "suites_tidb_register", ("--workload", "register"), "1n",
+     "workload"),
 )
 
 
@@ -5591,7 +5645,19 @@ LOCKS = (
 PROTOCOLS = {"zookeeper": "jute", "mongodb": "OP_MSG/BSON",
              "rethinkdb": "ReQL JSON", "elasticsearch": "ES HTTP",
              "aerospike": "Aerospike v2 message", "hazelcast": "Hazelcast HTTP",
-             "rabbitmq": "AMQP 0-9-1"}
+             "rabbitmq": "AMQP 0-9-1", "tidb": "MySQL wire"}
+#: ports a node of a cell whose nodes run more than one daemon: tidb's
+#: SQL, pd client, pd peer and tikv ports (the SQL ports first, then
+#: tidb_sim.ROLE_PORTS in order)
+PORTS_A_NODE = {"suites_tidb_register": 4}
+
+
+def cell_ports(cell: str) -> int:
+    """The ports a child cell's members take: PORTS_A_NODE's count (else
+    one) for each node of RUNNER_NODES."""
+    return PORTS_A_NODE.get(cell, 1) * len(RUNNER_NODES)
+
+
 #: the WGL kernel each card engine of "auto" launches
 ENGINE_KERNELS = {"wgl_vec": "K1", "wgl_row": "K5", "wgl_search": "K2"}
 
@@ -5601,7 +5667,7 @@ def registers_checker(suite: str, part: str, argv) -> tuple:
     against, that checker) as the suite's `test` builds them from
     `argv`'s workload options, on device="cpu"."""
     from jepsen_tpu_torch.dbs import (aerospike, elasticsearch, hazelcast,
-                                      mongodb, rabbitmq, rethinkdb,
+                                      mongodb, rabbitmq, rethinkdb, tidb,
                                       zookeeper)
 
     opts = {"nodes": RUNNER_NODES, "device": "cpu",
@@ -5612,7 +5678,8 @@ def registers_checker(suite: str, part: str, argv) -> tuple:
          "elasticsearch": elasticsearch.es_test,
          "aerospike": aerospike.aerospike_test,
          "hazelcast": hazelcast.hazelcast_test,
-         "rabbitmq": rabbitmq.rabbitmq_test}[suite](opts)
+         "rabbitmq": rabbitmq.rabbitmq_test,
+         "tidb": tidb.tidb_test}[suite](opts)
     chk = t["checker"].checker_map[part]
     # rabbitmq's mutex checker carries its model; the others take the
     # test map's
@@ -5627,6 +5694,33 @@ def history_entries(hist) -> int:
     return len(entries(list(hist)))
 
 
+@contextlib.contextmanager
+def components_at_setup(db_cls, record: dict):
+    """`db_cls.setup` (a MultiDaemonDB's ordered bring-up) wrapped so
+    that, as each node's setup returns (inside the db cycle, so before
+    the run's first op), `record[node]` gets {role: {"pid", "running"}}
+    for each daemon the node hosts."""
+    setup = db_cls.setup
+
+    def recorded(self, test, node):
+        setup(self, test, node)
+        got = {}
+        for role in self.ROLES:
+            if node in self.role_nodes(test, role):
+                _, pidfile = self._role_files(test, node, role)
+                with open(pidfile) as f:
+                    pid = int(f.read().strip())
+                got[role] = {"pid": pid, "running": bool(
+                    self.component_running(test, node, role))}
+        record[node] = got
+
+    db_cls.setup = recorded
+    try:
+        yield record
+    finally:
+        db_cls.setup = setup
+
+
 def registers_cell(args, kernels, ck, td: str, suite: str, cell: str,
                    extra, workers: str, part: str) -> None:
     """`suite` at its defaults (REGISTERS, LOCKS): exit 0, its checker
@@ -5639,13 +5733,18 @@ def registers_cell(args, kernels, ck, td: str, suite: str, cell: str,
     built on device="cpu" (its card engines' plain versions, "auto"
     routed as on the card; rethinkdb's keys in one `check_batch`, whose
     dict for each key is the one a launch of its own gives) giving the
-    same dict."""
+    same dict. tidb's cell also holds that every node's pd, tikv and
+    tidb ran, each its own process, when the db cycle ended."""
     from jepsen_tpu_torch import independent, store
+    from jepsen_tpu_torch.dbs import tidb
     from jepsen_tpu_torch.models import jit as mjit
 
     n = len(RUNNER_NODES)
-    run = suites_run(args, kernels, td, suite, suite, SUITES_TIME_LIMIT,
-                     *extra, concurrency=workers)
+    comps: dict = {}
+    with (components_at_setup(tidb.TidbDB, comps) if suite == "tidb"
+          else contextlib.nullcontext()):
+        run = suites_run(args, kernels, td, suite, suite, SUITES_TIME_LIMIT,
+                         *extra, concurrency=workers)
     res = run["results"]
     verdict = suite_verdict(res, part, True)
     seen = run["seen"]
@@ -5685,6 +5784,18 @@ def registers_cell(args, kernels, ck, td: str, suite: str, cell: str,
     launched = {k: seen[k][0] for k in ENGINE_KERNELS}
     assert sum(launched.values()) == (len(keys) if encodes else 0), (
         len(keys), launched)
+    triple = {}
+    if suite == "tidb":
+        assert sorted(comps) == sorted(RUNNER_NODES), comps
+        assert all(sorted(c) == sorted(tidb.ROLES)
+                   and all(r["running"] for r in c.values())
+                   for c in comps.values()), comps
+        pids = [r["pid"] for c in comps.values() for r in c.values()]
+        assert len(set(pids)) == len(tidb.ROLES) * n, comps
+        triple = {"components": {node: {role: r["pid"]
+                                        for role, r in c.items()}
+                                 for node, c in sorted(comps.items())},
+                  "components_up": len(pids)}
     emit(suites_line(
         kernels, ck, cell, run, protocol=PROTOCOLS[suite],
         extra=list(extra), concurrency=int(workers[:-1]) * n,
@@ -5695,7 +5806,7 @@ def registers_cell(args, kernels, ck, td: str, suite: str, cell: str,
         engines=sorted(ENGINE_KERNELS[k] for k, v in launched.items() if v),
         entries=entries, model=type(test["model"]).__name__,
         model_encodes=encodes, cpu_dict_equal=True, cpu_check_s=cpu_s,
-        **verdict))
+        **triple, **verdict))
 
 
 def locks_requeued(args, kernels, ck, td: str, cell: str) -> None:
@@ -5818,26 +5929,27 @@ def child_argv(args, cell: str, ports, workdir: str) -> list:
 
 
 def run_children(cells, argv_fn, workdir: str, limit_s: float,
-                 n_ports: int = len(RUNNER_NODES)) -> dict:
+                 n_ports=cell_ports) -> dict:
     """Run the child of every cell of `cells` at once (`argv_fn(cell,
-    ports, cell_dir)` its command; each gets `n_ports` ports no other
-    child of the call has, and a directory of its own under `workdir`,
-    its stdout and stderr written there), wait for all of them, and
-    return {cell: (its line, every other JSON object it printed, its
-    ports, its seconds from the start to its exit)}. Raises ChildFailed
-    when a child exits non-zero, prints no line whose "phase" is its
-    cell, or is still running `limit_s` after the start (then every
-    child still running is killed, with the simulated members under its
-    directory)."""
+    ports, cell_dir)` its command; each gets `n_ports(cell)` ports no
+    other child of the call has, and a directory of its own under
+    `workdir`, its stdout and stderr written there), wait for all of
+    them, and return {cell: (its line, every other JSON object it
+    printed, its ports, its seconds from the start to its exit)}. Raises
+    ChildFailed when a child exits non-zero, prints no line whose "phase"
+    is its cell, or is still running `limit_s` after the start (then
+    every child still running is killed, with the simulated members
+    under its directory)."""
     import signal
 
-    ports = disjoint_ports(n_ports * len(cells))
+    counts = [n_ports(cell) for cell in cells]
+    ports = disjoint_ports(sum(counts))
     procs = {}
     t0 = time.monotonic()
     for i, cell in enumerate(cells):
         d = os.path.join(workdir, cell)
         os.makedirs(d, exist_ok=True)
-        mine = ports[i * n_ports:(i + 1) * n_ports]
+        mine = ports[sum(counts[:i]):sum(counts[:i + 1])]
         with open(os.path.join(d, "stdout"), "w") as out, \
                 open(os.path.join(d, "stderr"), "w") as err:
             procs[cell] = (subprocess.Popen(
@@ -5961,6 +6073,43 @@ SIDE_BY_SIDE = {"registers": {"registers": REGISTERS_CELLS},
                 "locks": {"locks": LOCKS_CELLS},
                 "cells": {"registers": REGISTERS_CELLS,
                           "locks": LOCKS_CELLS}}
+
+
+def phase_cuts(args, kernels) -> None:
+    """Each depth cut of the script at its old and new size, in turns
+    (old, new, new, old) in this process: the cas-register batch of
+    `kernel_vs_plain` (KVP_DEEP_STEPS), main_widest's keys (WIDEST_KEYS)
+    and checkers_analyze's keys (ANALYZE_KEYS); every gate of each run
+    holds as in the whole run. One line a cut: the seconds of each run."""
+    import torch
+
+    vec = next(k for k in kernels if k.name == "wgl_vec")
+    g = globals()
+    runs = {
+        "KVP_DEEP_STEPS": (200_000, lambda: phase_kernel_vs_plain(args,
+                                                                  vec)),
+        "WIDEST_KEYS": (512, lambda: main_path(
+            args, kernels, f"main_widest_{WIDEST_KEYS}", WIDEST_KEYS, 1000,
+            0, host_sample=8)),
+        "ANALYZE_KEYS": (512, lambda: emit({
+            "phase": f"checkers_analyze_{ANALYZE_KEYS}",
+            **checkers_analyze(args, kernels)})),
+    }
+    for name, (old, run_once) in runs.items():
+        new = g[name]
+        seconds = []
+        try:
+            for size in (old, new, new, old):
+                g[name] = size
+                main_history.cache_clear()
+                t0 = time.perf_counter()
+                run_once()
+                torch.cuda.synchronize()
+                seconds.append((size, time.perf_counter() - t0))
+        finally:
+            g[name] = new
+        emit({"phase": "cuts", "constant": name, "old": old, "new": new,
+              "seconds": seconds, "nvidia_smi": args.smi})
 
 
 def lookup_us(mod, reps: int = 20) -> dict:
@@ -6133,6 +6282,10 @@ def run(args) -> int:
                           if not k.library]})
         print(smi, flush=True)
         return 0
+    if args.only == "cuts":
+        phase_cuts(args, kernels)
+        print(smi, flush=True)
+        return 0
     if args.only == "dgraph":
         phase_dgraph(args, kernels, ck)
         emit({"kernels": [k.row() for k in (vec, row, *ck.values())
@@ -6166,7 +6319,8 @@ def run(args) -> int:
     main_path(args, kernels, "main_register_late_card", 4096, 64, 8,
               host_sample=64, bad_read="random", algorithm="auto",
               expect=("wgl_vec",), bars=1)
-    main_path(args, kernels, "main_widest", 512, 1000, 0, host_sample=8)
+    main_path(args, kernels, "main_widest", WIDEST_KEYS, 1000, 0,
+              host_sample=8)
     # keys of ~2500 entries (a register test not split by key): past
     # wgl_vec's 1024, so wgl_row; beside it the same under "auto"
     main_path(args, kernels, "main_long", 64, 3000, 8, host_sample=8,
@@ -6252,7 +6406,7 @@ def main() -> int:
                                        "serve", "mesh", "checkers",
                                        "runner", "faults", "suites",
                                        "dgraph", "registers", "locks",
-                                       "cells"),
+                                       "cells", "cuts"),
                     help="build, run these phases alone (crossover: the "
                     "crossover bars; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
@@ -6274,12 +6428,14 @@ def main() -> int:
                     "dgraph: dgraph's register with its span file and "
                     "long-fork on simulated nodes, then the store's web "
                     "UI over their store; registers: zookeeper, mongodb, "
-                    "rethinkdb and elasticsearch on simulated nodes over "
-                    "their wire protocols; locks: aerospike's "
+                    "rethinkdb, elasticsearch and tidb's register on "
+                    "simulated nodes over their wire protocols; locks: "
+                    "aerospike's "
                     "cas-register, hazelcast's lock and rabbitmq's mutex "
                     "on simulated nodes, and the requeued mutex; cells: "
                     "the registers and locks cells side by side, as the "
-                    "whole run runs them) and "
+                    "whole run runs them; cuts: each depth cut of the "
+                    "script at its old and new size in turns) and "
                     "print their lines and the nvidia-smi "
                     "line (no smoke result)")
     ap.add_argument("--cell", choices=sorted(CELLS),
@@ -6290,7 +6446,8 @@ def main() -> int:
     ap.add_argument("--workdir", help="the child cell's directory")
     ap.add_argument("--ports", type=lambda v: [int(x) for x in v.split(",")],
                     help="the child cell's members' ports, one a node of "
-                    "RUNNER_NODES")
+                    "RUNNER_NODES (then, for tidb's cell, its pd client, pd "
+                    "peer and tikv ports, one a node each)")
     return run(ap.parse_args())
 
 

@@ -8,7 +8,8 @@ The port's copy of `jepsen_tpu/dbs/simbase.py`: it imports nothing of
 `jepsen_tpu`. It adds `free_port` and `RecordingClockTools`, the clock
 tools the simulated clusters' recipes give the clock nemeses, and
 `sim_cluster`/`sim_test_fn`, the recipe the zookeeper, mongodb,
-rethinkdb, elasticsearch, aerospike, hazelcast, rabbitmq and disque
+rethinkdb, elasticsearch, aerospike, hazelcast, rabbitmq, disque, MySQL
+(galera, percona, mysql-cluster, tidb), crate, chronos and robustirc
 simulators share.
 """
 
@@ -128,16 +129,17 @@ def build_sim_archive(dest: str, module: str, binary: str, arcname: str,
         mean_latency=mean_latency, python=python, pidfile=pidfile)
 
 
-def _already_running(module: str, pidfile: str) -> str:
+def _already_running(module: str, pidfile: str,
+                     marker: str = ".sim.pid") -> str:
     """Launcher lines that do what start-stop-daemon's --exec match does
     for a real binary, which it cannot do for a script that execs
     Python: if this node's simulator already runs (the pid the launcher
-    last recorded in the working directory, alive there and running
-    `module`), put that pid back into `pidfile` (relative to the
+    last recorded in `marker` in the working directory, alive there and
+    running `module`), put that pid back into `pidfile` (relative to the
     working directory), which start-stop-daemon has just overwritten,
     and start nothing."""
     return (
-        "old=$(cat .sim.pid 2>/dev/null)\n"
+        f"old=$(cat {marker} 2>/dev/null)\n"
         "if [ -n \"$old\" ] && "
         "[ \"$(readlink /proc/$old/cwd 2>/dev/null)\" = \"$(pwd -P)\" ] && "
         f"grep -qaF {shlex.quote(module)} /proc/$old/cmdline 2>/dev/null; "
@@ -145,22 +147,24 @@ def _already_running(module: str, pidfile: str) -> str:
         f"  echo \"$old\" > {shlex.quote(pidfile)}\n"
         "  exit 0\n"
         "fi\n"
-        "echo $$ > .sim.pid\n"
+        f"echo $$ > {marker}\n"
     )
 
 
 def build_multi_sim_archive(dest: str, arcname: str, binaries: dict,
                             data_path: str, mean_latency: float = 0.0,
                             python: str | None = None,
-                            pidfile: str | None = None) -> str:
+                            pidfile: str | dict | None = None) -> str:
     """Build a tar.gz containing SEVERAL launcher scripts — the shape
     of multi-daemon systems (tidb's pd/tikv/tidb triple, mysql
     cluster's mgmd/ndbd/mysqld roles). `binaries` maps binary name ->
     jepsen_tpu_torch.dbs module; every script shares the same state file so
     the role daemons and the SQL daemon see one cluster. With `pidfile`
     (the suite's pidfile, relative to the directory the daemon starts
-    in), starting a node whose simulator already runs there does
-    nothing, as start-stop-daemon does for a live real binary."""
+    in; or {binary: its pidfile}, for daemons that share a directory,
+    each then recording its pid in a marker of its own), starting a
+    daemon that already runs there does nothing, as start-stop-daemon
+    does for a live real binary."""
     import tarfile
 
     python = python or sys.executable
@@ -171,10 +175,15 @@ def build_multi_sim_archive(dest: str, arcname: str, binaries: dict,
         top = os.path.join(td, arcname)
         os.makedirs(top)
         for binary, module in binaries.items():
+            if isinstance(pidfile, dict):
+                guard = _already_running(module, pidfile[binary],
+                                         f".sim-{binary}.pid")
+            else:
+                guard = _already_running(module, pidfile) if pidfile else ""
             script = (
                 "#!/bin/bash\n"
                 f"export PYTHONPATH={shlex.quote(repo_root)}:$PYTHONPATH\n"
-                + (_already_running(module, pidfile) if pidfile else "")
+                + guard
                 + f"exec {shlex.quote(python)} -m {module} "
                 f"--data {shlex.quote(data_path)} "
                 f"--mean-latency {mean_latency} "
@@ -234,27 +243,37 @@ class RecordingClockTools:
 
 
 def sim_cluster(root: str, nodes, ports, key: str, arcname: str, build,
-                ports_key: str = "ports") -> dict:
+                ports_key: str = "ports", roles: tuple = (),
+                role_ports: dict | None = None) -> dict:
     """The test-map entries that run a suite against simulated nodes on
     this machine, one simulator process a node: a LocalRemote whose nodes
     are directories under root/nodes, the simulator's archive (`build`,
     its `build_archive`; every node shares root/shared/state.json), and
     each node's port (`ports` = {node: port} to reuse a cluster's; else
     free ports), under the suite's config key `key` (`ports_key` names
-    the ports there; each node installs into <node dir>/opt/<key>)."""
+    the ports there; each node installs into <node dir>/opt/<key>).
+    A suite whose nodes run several daemons names the settings of its
+    other daemons' ports in `roles` (tidb's "pd_ports", ...): each gets
+    {node: port} from `role_ports` ({setting: {node: port}}, to reuse a
+    cluster's, as "role_ports" of the result holds them), else free
+    ports."""
     from ..control import LocalRemote
 
     remote = LocalRemote(root=os.path.join(root, "nodes"))
     archive = build(os.path.join(root, f"{arcname}.tar.gz"),
                     os.path.join(root, "shared", "state.json"))
     ports = ports or {n: free_port() for n in nodes}
+    role_ports = {r: (role_ports or {}).get(r)
+                  or {n: free_port() for n in nodes} for r in roles}
     return {
         "remote": remote,
         "archive_url": f"file://{archive}",
         "ports": ports,
+        "role_ports": role_ports,
         key: {
             "addr_fn": lambda n: "127.0.0.1",
             ports_key: ports,
+            **role_ports,
             "dir": lambda n: os.path.join(remote.node_dir(n), "opt", key),
             "sudo": None,
         },

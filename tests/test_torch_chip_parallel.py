@@ -76,6 +76,25 @@ def test_ports_disjoint_and_one_line_per_cell(stub, tmp_path):
     assert len(set(seen)) == len(seen) == 4 * len(chip_smoke.RUNNER_NODES)
 
 
+def test_cells_take_their_own_port_counts(stub, tmp_path):
+    """`n_ports(cell)`: each child gets that many ports, none shared;
+    by default (`cell_ports`) tidb's cell takes four a node (its SQL, pd
+    client, pd peer and tikv ports), every other cell one."""
+    counts = {"cell_a": 20, "cell_b": 5, "cell_c": 10}
+    got = chip_smoke.run_children(list(counts), stub({}),
+                                  str(tmp_path / "w"), 60,
+                                  n_ports=counts.get)
+    seen = []
+    for cell, (line, _, ports, _) in got.items():
+        assert len(ports) == counts[cell] and line["ports"] == ports
+        seen += ports
+    assert len(set(seen)) == len(seen) == 35
+    n = len(chip_smoke.RUNNER_NODES)
+    assert chip_smoke.cell_ports("suites_tidb_register") == 4 * n
+    assert all(chip_smoke.cell_ports(c) == n for c in chip_smoke.CELLS
+               if c != "suites_tidb_register")
+
+
 def test_disjoint_ports_are_distinct():
     ports = chip_smoke.disjoint_ports(64)
     assert len(set(ports)) == 64 and all(p > 0 for p in ports)

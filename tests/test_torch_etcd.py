@@ -252,6 +252,51 @@ def test_member_loads_no_jax(cli_run):
         assert not bad, (p, sorted(bad))
 
 
+@pytest.mark.parametrize("suite", ["tidb", "chronos"])
+def test_multi_daemon_members_load_no_jax(tmp_path, monkeypatch, suite):
+    """The member check on nodes that run several daemons: a tidb node
+    (pd, tikv, tidb) and the chronos stack's nodes (zookeeper, a mesos
+    master or slave, chronos), brought up by their suites' DBs on the
+    recipes' clusters; every daemon's import profile names the port's
+    dbs package and neither the JAX package, jax, nor torch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jepsen_tpu_torch.dbs import chronos, chronos_sim, tidb, tidb_sim
+
+    monkeypatch.setenv("PYTHONPROFILEIMPORTTIME", "1")
+    if suite == "tidb":
+        nodes = ["n1"]
+        c = tidb_sim.local_cluster(str(tmp_path / "c"), nodes)
+        db = tidb.TidbDB(archive_url=c["archive_url"])
+    else:
+        nodes = ["n1", "n2", "n3", "n4"]
+        c = chronos_sim.local_cluster(str(tmp_path / "c"), nodes)
+        db = chronos.ChronosDB(archive_url=c["archive_url"])
+    test = {"remote": c["remote"], "nodes": nodes, suite: c[suite]}
+    with ThreadPoolExecutor(len(nodes)) as ex:
+        for f in [ex.submit(db.setup, test, n) for n in nodes]:
+            f.result()
+    try:
+        roles = set()
+        for n in nodes:
+            for role in db.ROLES:
+                if n not in db.role_nodes(test, role):
+                    continue
+                assert db.component_running(test, n, role), (n, role)
+                logf, _ = db._role_files(test, n, role)
+                mods = {ln.rsplit("|", 1)[1].strip() for ln in open(logf)
+                        if ln.startswith("import time:") and "|" in ln}
+                assert "jepsen_tpu_torch.dbs" in mods, logf
+                bad = {m for m in mods
+                       if m.split(".")[0] in ("jax", "jepsen_tpu", "torch")}
+                assert not bad, (logf, sorted(bad))
+                roles.add(role)
+        assert roles == set(db.ROLES)
+    finally:
+        for n in nodes:
+            db.teardown(test, n)
+
+
 def test_test_without_device_raises_before_provisioning(tmp_path,
                                                         monkeypatch):
     import torch
@@ -352,20 +397,26 @@ def test_sigterm_then_resume(tmp_path, cluster_root):
 
 def test_suite_listing():
     """`python -m jepsen_tpu_torch.dbs` lists the port's suites:
-    aerospike, cockroachdb, dgraph, elasticsearch, hazelcast, both
-    mongodb flavours, rabbitmq and rethinkdb (with their workloads),
-    consul, disque, etcd, logcabin, postgres-rds, raftis and
-    zookeeper."""
+    aerospike, cockroachdb, crate, dgraph, elasticsearch, galera,
+    hazelcast, both mongodb flavours, mysql-cluster, percona, rabbitmq,
+    rethinkdb and tidb (with their workloads), chronos, consul, disque,
+    etcd, logcabin, postgres-rds, raftis, robustirc and zookeeper."""
     out = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch.dbs"],
                          cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
-    assert "16 per-DB suites" in out.stdout
-    for mod in ("aerospike", "cockroach_workloads", "consul", "dgraph",
-                "disque", "elasticsearch", "etcd", "hazelcast", "logcabin",
-                "mongodb", "postgres_rds", "rabbitmq", "raftis",
-                "rethinkdb", "zookeeper"):
+    assert "23 per-DB suites" in out.stdout
+    for mod in ("aerospike", "chronos", "cockroach_workloads", "consul",
+                "crate", "dgraph", "disque", "elasticsearch", "etcd",
+                "galera", "hazelcast", "logcabin", "mongodb",
+                "mysql_cluster", "percona", "postgres_rds", "rabbitmq",
+                "raftis", "rethinkdb", "robustirc", "tidb", "zookeeper"):
         assert f"jepsen_tpu_torch.dbs.{mod}" in out.stdout
+    assert out.stdout.count("workloads: bank, dirty-reads, sets") == 2
+    assert "workloads: bank, sets\n" in out.stdout
+    assert "workloads: bank, register, sets" in out.stdout
+    assert "workloads: dirty-read, lost-updates, version-divergence" in \
+        out.stdout
     for name in ("mongodb-rocks", "mongodb-smartos"):
         assert f"  {name} " in out.stdout
     assert out.stdout.count("workloads: document-cas, transfer, "

@@ -348,8 +348,11 @@ def test_port_imports_no_jax():
     protocol modules (jute, BSON and OP_MSG, ReQL), simulators and
     recipes; codec, the aerospike, hazelcast, rabbitmq and disque suites,
     their protocol modules (the Aerospike wire with its RIPEMD-160 key
-    digest, AMQP 0-9-1), simulators and recipes; and every module of
-    those) load neither jax
+    digest, AMQP 0-9-1), simulators and recipes; the MySQL wire, its
+    simulator, the shared SQL layer and the role daemon, the galera,
+    percona, mysql-cluster and tidb suites (tidb's register checked on
+    the CPU), crate, chronos with mesos, robustirc, their simulators and
+    recipes; and every module of those) load neither jax
     nor any module of the JAX package (jepsen_tpu_torch's own name shares
     the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -642,6 +645,42 @@ def test_port_imports_no_jax():
         assert disque.disque_test({"nodes": ["n1"]})["name"] == "disque"
         assert amqp_proto.shortstr("q") == b"\\x01q"
         for sim in (aerospike_sim, hz_sim, amqp_sim, disque):
+            assert sim.local_test_fn({})
+        from jepsen_tpu_torch.dbs import (chronos, chronos_sim, crate,
+                                          crate_sim, galera, mesos_sim,
+                                          mysql_cluster, mysql_cluster_sim,
+                                          mysql_common, mysql_proto,
+                                          mysql_sim, percona, robustirc,
+                                          robustirc_sim, role_sim, tidb,
+                                          tidb_sim)
+        assert mysql_proto.lenenc_int(251) == b"\\xfc\\xfb\\x00"
+        assert len(mysql_proto.scramble_native("pw", b"x" * 20)) == 20
+        for mod, fn in ((galera, "galera_test"), (percona, "percona_test"),
+                        (mysql_cluster, "mysql_cluster_test"),
+                        (tidb, "tidb_test")):
+            for wl in mod.workloads({}):
+                assert getattr(mod, fn)({"nodes": ["n1"], "device": "cpu",
+                                         "workload": wl})["checker"]
+        r = tidb.tidb_test({"nodes": ["n1"], "device": "cpu",
+                            "workload": "register"})["checker"].checker_map[
+            "workload"].check({"model": CASRegister()},
+                              register_history(seed=5), {})
+        assert r["valid"] is True, r
+        assert mysql_common.DirtyReadsChecker().check({}, [], {})["valid"]
+        for wl in crate.workloads():
+            assert crate.crate_test({"nodes": ["n1"], "workload": wl})[
+                "checker"]
+        assert chronos.chronos_test({"nodes": ["n1"]})["name"] == "chronos"
+        assert chronos.ChronosChecker().check({}, [], {})[
+            "valid"] == "unknown"
+        assert robustirc.robustirc_test({"nodes": ["n1"]})[
+            "name"] == "robustirc set"
+        assert chronos_sim.parse_iso8601_interval(
+            "R2/2026-01-01T00:00:00Z/PT5S")[0] == 2
+        assert mesos_sim.parse_args(["--data", "x"]).port == 5050
+        assert role_sim.Handler and mysql_sim.Handler and crate_sim.Handler
+        for sim in (mysql_sim, tidb_sim, mysql_cluster_sim, crate_sim,
+                    chronos_sim, robustirc_sim):
             assert sim.local_test_fn({})
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
