@@ -2,9 +2,11 @@
 """Chip smoke test of jepsen_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
-        [--only crossover|closure|fuzz|linear|store|online|serve|mesh|checkers
-                |runner|faults|suites|dgraph|registers|locks|cells]
+        [--only crossover|calibration|closure|fuzz|linear|store|online|serve
+                |mesh|checkers|runner|faults|suites|dgraph|registers|locks
+                |cells|cuts]
     python3 chip_smoke.py --cell CELL --workdir DIR --ports P1,...,P5
+    python3 chip_smoke.py --calibration-step STEP --workdir DIR
 
 Run from the root of a checkout. It builds the port's kernel sources
 (jepsen_tpu_torch/ops/csrc/wgl_vec.cu, wgl_row.cu, wgl_search.cu,
@@ -28,9 +30,20 @@ measured bars and with every bar at 1 (the native engine finishes what
 K1's bounded memo gives up). A launch identical to one an earlier path
 made is compared once. The crossover phase measures the bar of each
 (card engine, model kind) against the native engine (`--only crossover`:
-that phase alone, at the depth whose bars GPU_BATCH_MIN holds); the
-corpus phase runs every case of the verdict corpus through each card
-engine that takes it and through "auto".
+that phase alone, at the depth whose bars GPU_BATCH_MIN holds). Every
+phase but the next runs with K1's bar pinned to GPU_BATCH_MIN's
+(JEPSEN_TPU_TORCH_BATCH_MIN) and the calibration record in this run's
+temporary directory, so no phase measures the bar at first use. The
+calibration phase (`--only calibration`) measures it in a child process
+without the pin (checker/calibrate.py: a record miss, the three terms,
+the bar, its K1 launches each held against the plain version), finds a
+record of another fingerprint stale and measures again, and builds an
+engine bundle; then a fresh child reads the record (a hit, the same bar,
+no launch), the bundle's warm start in another seeds the bar (no
+calibration launch), and this process checks register-late's keys
+under "auto" at the bar read from the record (3584/512/0). The corpus
+phase runs every case of the verdict corpus through each card engine
+that takes it and through "auto".
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after, and every search it launched is replayed through
 the kernel and the plain version (lanes that ran past PLAIN_STEP_LIMIT
@@ -825,18 +838,48 @@ def lin_module():
     return importlib.import_module("jepsen_tpu_torch.checker.linearizable")
 
 
+def set_env(name: str, value) -> None:
+    """os.environ[name] = value, or the variable removed for None."""
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = str(value)
+
+
 @contextlib.contextmanager
 def card_bars(bar: int):
-    """Every card engine's bar set to `bar` for the duration: with 1,
+    """Every card engine's bar set to `bar` for the duration, K1's
+    measured bar too (pinned by JEPSEN_TPU_TORCH_BATCH_MIN): with 1,
     "auto" sends every group of lanes to its card engine whole (the card
     half of the policy), as the kernel-driving cells need."""
+    from jepsen_tpu_torch.checker import calibrate
+
     lin = lin_module()
     saved = lin.GPU_BATCH_MIN
+    pin = os.environ.get(calibrate._ENV)
     lin.GPU_BATCH_MIN = {k: bar for k in saved}
+    set_env(calibrate._ENV, bar)
     try:
         yield
     finally:
         lin.GPU_BATCH_MIN = saved
+        set_env(calibrate._ENV, pin)
+
+
+def pin_bar(args) -> None:
+    """Every phase but `calibration` runs under K1's committed bar, so
+    that none measures it at first use and each keeps the routes and
+    launch counts it had: JEPSEN_TPU_TORCH_BATCH_MIN is set to
+    GPU_BATCH_MIN's entry for (gpu_vec, scalar), and the calibration
+    record (JEPSEN_TPU_TORCH_CALIB_CACHE) is a file of this run's own
+    temporary directory. Every child process inherits both."""
+    from jepsen_tpu_torch.checker import calibrate
+
+    lin = lin_module()
+    args.committed_bar = lin.GPU_BATCH_MIN[lin.CALIBRATED]
+    args.record = os.path.join(args.tmp, "calibration.json")
+    set_env(calibrate._ENV, args.committed_bar)
+    set_env(calibrate._CACHE_ENV, args.record)
 
 
 def auto_beside(kernels, cell: str, fn) -> tuple:
@@ -1001,11 +1044,12 @@ def main_history(n_keys: int, n_ops: int, bad_every: int, bad_read: str,
 
 def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
               bad_read: str = "first", algorithm: str = "gpu_vec",
-              expect=("wgl_vec",), bars=None):
+              expect=("wgl_vec",), bars=None, **fields):
     """The port's main path over one keyed history, then every search it
     launched replayed through `compare`. `expect` names the kernels the
     path must launch; the others must not launch. `bars`: every bar of
-    "auto" set to it for the path (`card_bars`), else the measured ones."""
+    "auto" set to it for the path (`card_bars`), else the measured ones.
+    `fields` join the path's line, which is returned."""
     from jepsen_tpu_torch import independent
     from jepsen_tpu_torch.checker.linearizable import linearizable
     from jepsen_tpu_torch.models import CASRegister
@@ -1063,7 +1107,7 @@ def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
     passes = replay(kernels, seen, name)
     if algorithm == "auto":
         assert "unknown" not in {r["valid"] for r in results.values()}
-    emit({"phase": name, "algorithm": algorithm, "keys": n_keys,
+    line = {"phase": name, "algorithm": algorithm, "keys": n_keys,
           "bars": bars or "measured", "native_finish": native_finish,
           "invocations_per_key": n_ops,
           "bad_every": bad_every, "bad_read": bad_read,
@@ -1078,7 +1122,9 @@ def main_path(args, kernels, name, n_keys, n_ops, bad_every, host_sample: int,
           if kernel_ms > 0 else None,
           "verdicts": verdict_counts(r["valid"] for r in results.values()),
           "host_sample": len(sample), "host_sample_s": host_s,
-          "kernel_vs_plain": passes, "matches_plain": True})
+          "kernel_vs_plain": passes, "matches_plain": True, **fields}
+    emit(line)
+    return line
 
 
 def phase_mixed(args, kernels):
@@ -2112,6 +2158,210 @@ def phase_crossover(args, reps: int = CROSSOVER_REPS,
           "GPU_BATCH_MIN": {f"{e}/{k}": b
                             for (e, k), b in lin.GPU_BATCH_MIN.items()}})
     return bars
+
+
+# the children of the calibration phase: the first use (measure, then a
+# record of another fingerprint measured again, then a bundle built), and
+# beside (e) the record read by a fresh process and the bundle's warm start
+CALIBRATION_FIRST = ["calibration_measure"]
+CALIBRATION_BESIDE = ["calibration_read", "calibration_bundle_warm"]
+# (e)'s keys: register-late's
+CALIBRATION_KEYS = 4096
+
+
+def record_of(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def calibration_measure(args, vec) -> dict:
+    """(a) the first use on a record that is not there: a miss, then the
+    measurement; (b) each of its K1 launches replayed against the plain
+    version; (d) the record's fingerprint given another device name, so
+    a process that starts afresh finds it stale, measures again and
+    rewrites it; then the engine bundle built (cold) beside the record,
+    which keeps this process's calibration without measuring."""
+    from dataclasses import asdict
+
+    from jepsen_tpu_torch.checker import calibrate
+    from jepsen_tpu_torch.serve import EngineBundle
+
+    record = calibrate.cache_path()
+    assert record and not os.path.exists(record), record
+
+    def measure(cell: str) -> tuple:
+        cal, wall, seen = run_path([vec], lambda: calibrate.calibration(
+            "cuda"))
+        launches, kernel_ms, captured = seen[vec.name]
+        assert cal is not None and launches > 0, (cal, launches)
+        widths = [int(((c[0][-1] & 0xFFFF) > 0).sum()) for c in captured]
+        passes = replay([vec], seen, cell)[vec.name]
+        rec = record_of(record)
+        assert rec["fingerprint"] == calibrate.device_fingerprint("cuda")
+        assert rec["calibration"] == asdict(cal), (rec, cal)
+        return cal, {**asdict(cal), "bar": cal.batch_min, "seconds": wall,
+                     "launches": launches, "lanes": widths,
+                     "kernel_ms": kernel_ms,
+                     "kernel_vs_plain": [
+                         {k: p.get(k) for k in (
+                             "lanes", "cap", "kernel_ms", "plain_ms",
+                             "max_lane_steps", "same_launch_as")}
+                         for p in passes]}
+
+    _, first = measure("calibration_measure")
+    assert calibrate.CAL_LANES_SMALL in first["lanes"], first["lanes"]
+    rec = record_of(record)
+    rec["fingerprint"]["device_kind"] += " (another card)"
+    with open(record, "w") as f:
+        json.dump(rec, f)
+    calibrate._reset_for_tests()  # a process that starts afresh
+    stale_cal, stale = measure("calibration_stale")
+    bundle_dir = os.path.join(os.path.dirname(args.workdir), "bundle")
+    out, wall, seen = run_path([vec], EngineBundle(bundle_dir).ensure)
+    assert out["warm"] is False
+    assert out["manifest"]["calibration"] == asdict(stale_cal)
+    assert seen[vec.name][0] == 2, seen[vec.name][0]  # its warm buckets
+    replay([vec], seen, "calibration_bundle_cold")
+    return {"record": record, "miss": True, "first_use": first,
+            "stale_field": "device_kind", "stale_measured_again": stale,
+            "bundle_cold": {"warm": False, "seconds": wall,
+                            "launches": seen[vec.name][0],
+                            "calibration": out["manifest"]["calibration"]}}
+
+
+def calibration_read(args, vec) -> dict:
+    """(c) a fresh process under the same record: a hit, the record's
+    bar, no launch, the record unchanged."""
+    from dataclasses import asdict
+
+    from jepsen_tpu_torch.checker import calibrate
+
+    record = calibrate.cache_path()
+    with open(record, "rb") as f:
+        before = f.read()
+    cal, wall, seen = run_path([vec], lambda: calibrate.calibration("cuda"))
+    with open(record, "rb") as f:
+        assert f.read() == before, "the record was rewritten"
+    assert seen[vec.name][0] == 0, seen[vec.name][0]
+    assert asdict(cal) == record_of(record)["calibration"]
+    return {"hit": True, "bar": cal.batch_min, "seconds": wall,
+            "launches": seen[vec.name][0]}
+
+
+def calibration_bundle_warm(args, vec) -> dict:
+    """(f) the bundle's warm start in a fresh process with the record
+    switched off (JEPSEN_TPU_TORCH_CALIB_CACHE=off): the manifest's
+    calibration is seeded, so the bar is the manifest's with no
+    calibration launch; the start launches only its warm buckets."""
+    from jepsen_tpu_torch.checker import calibrate
+    from jepsen_tpu_torch.serve import EngineBundle
+
+    assert calibrate.cache_path() is None
+    bundle_dir = os.path.join(os.path.dirname(args.workdir), "bundle")
+    out, wall, seen = run_path([vec], EngineBundle(bundle_dir).ensure)
+    assert out["warm"] is True
+    warm_launches = seen[vec.name][0]
+    assert warm_launches == 2, warm_launches
+    replay([vec], seen, "calibration_bundle_warm")
+    bar, bar_s, seen = run_path([vec], lambda: calibrate.batch_min("cuda"))
+    assert seen[vec.name][0] == 0, seen[vec.name][0]
+    want = calibrate.Calibration(**out["manifest"]["calibration"])
+    assert bar == want.batch_min, (bar, want)
+    return {"warm": True, "ensure_s": wall, "warm_pass_launches":
+            warm_launches, "bar": bar, "bar_s": bar_s,
+            "calibration_launches": seen[vec.name][0]}
+
+
+def run_calibration_step(args) -> int:
+    """This process as a child of the calibration phase
+    (`--calibration-step`): the step's line, then its child_report."""
+    vec = make_kernels()[0][0]
+    step = {"calibration_measure": calibration_measure,
+            "calibration_read": calibration_read,
+            "calibration_bundle_warm": calibration_bundle_warm}[
+                args.calibration_step]
+    emit({"phase": args.calibration_step, **step(args, vec)})
+    emit(child_report([vec]))
+    return 0
+
+
+def phase_calibration(args, kernels) -> None:
+    """The measured crossover of "auto" (checker/calibrate.py), its
+    children without the pin: the first use, its K1 launches against the
+    plain version and the stale record (`calibration_measure`), alone on
+    the card; then, side by side, a fresh process reading the record
+    (`calibration_read`), the bundle's warm start (`calibration_bundle_
+    warm`) and, here with the pin lifted, (e) register-late's 4,096 keys
+    under "auto" at the bar the record holds, read without a launch. The
+    line sets the measured bar beside the pooled crossover of this run's
+    crossover pass and the committed bar."""
+    from jepsen_tpu_torch.checker import calibrate
+
+    vec = kernels[0]
+    lin = lin_module()
+    t0 = time.perf_counter()
+    work = os.path.join(args.tmp, "calibration_children")
+    env = {k: v for k, v in os.environ.items() if k != calibrate._ENV}
+
+    def argv(cell, ports, d):
+        return [sys.executable, os.path.abspath(__file__), "--seed",
+                str(args.seed), "--calibration-step", cell, "--workdir", d]
+
+    def children(cells, child_env):
+        got = run_children(cells, argv, work, CHILD_LIMIT_S,
+                           n_ports=lambda cell: 0, env=child_env)
+        out = {}
+        for cell in cells:
+            line, rest, _, child_wall = got[cell]
+            (report,) = [o for o in rest if "cell_kernels" in o]
+            merge_child(kernels, report)
+            out[cell] = {**line, "child_wall_s": child_wall}
+        return out
+
+    first = children(CALIBRATION_FIRST, env)["calibration_measure"]
+    with ThreadPoolExecutor(2) as ex:
+        beside = ex.submit(children, ["calibration_read"], env)
+        warm = ex.submit(children, ["calibration_bundle_warm"],
+                         {**env, calibrate._CACHE_ENV: "off"})
+        set_env(calibrate._ENV, None)
+        try:
+            # the record's bar, read without a launch
+            cal, _, seen = run_path([vec], lambda: calibrate.calibration(
+                "cuda"))
+            assert cal is not None and seen[vec.name][0] == 0
+            f0 = lin.NATIVE_FINISH
+            late = main_path(args, kernels, "calibration_register_late",
+                             CALIBRATION_KEYS, 64, 8, host_sample=64,
+                             bad_read="random", algorithm="auto",
+                             expect=None, bar=cal.batch_min)
+            finished = lin.NATIVE_FINISH - f0
+        finally:
+            set_env(calibrate._ENV, args.committed_bar)
+        read = beside.result()["calibration_read"]
+        bundle = warm.result()["calibration_bundle_warm"]
+    stale = first["stale_measured_again"]
+    assert read["bar"] == bundle["bar"] == cal.batch_min \
+        == stale["bar"], (read["bar"], bundle["bar"], cal, stale["bar"])
+    n = CALIBRATION_KEYS
+    assert late["verdicts"] == {"True": n - n // 8, "False": n // 8,
+                                "unknown": 0}, late["verdicts"]
+    on_card = late["launches"][vec.name] > 0
+    assert on_card == (cal.batch_min <= n), (cal.batch_min, on_card)
+    crossover = (getattr(args, "crossover_bars", None) or {}).get(
+        "gpu_vec/scalar")
+    emit({"phase": "calibration", "nvidia_smi": args.smi,
+          "measured": first, "read": read, "bundle_warm": bundle,
+          "register_late": {
+              "bar": cal.batch_min,
+              "route": "the whole batch on the card (K1, then native "
+                       "finishes its unknowns)" if on_card
+              else "native triage (below the bar)",
+              "launches": late["launches"], "native_finish": finished,
+              "verdicts": late["verdicts"], "wall_s": late["wall_s"]},
+          "bars": {"measured": cal.batch_min,
+                   "pooled_crossover": crossover,
+                   "committed": args.committed_bar},
+          "wall_s": time.perf_counter() - t0})
 
 
 CORPUS = os.path.join("tests", "fixtures", "linearizability_corpus.jsonl")
@@ -3454,15 +3704,12 @@ def mesh_route(n: int, lanes_min: int | None = None):
     device.devices = lambda spec=None: listed if spec is None \
         else saved(spec)
     if lanes_min is not None:
-        os.environ[env] = str(lanes_min)
+        set_env(env, lanes_min)
     try:
         yield listed
     finally:
         device.devices = saved
-        if env_saved is None:
-            os.environ.pop(env, None)
-        else:
-            os.environ[env] = env_saved
+        set_env(env, env_saved)
 
 
 class MeshClosureKernel(ClosureKernel):
@@ -5929,9 +6176,10 @@ def child_argv(args, cell: str, ports, workdir: str) -> list:
 
 
 def run_children(cells, argv_fn, workdir: str, limit_s: float,
-                 n_ports=cell_ports) -> dict:
+                 n_ports=cell_ports, env=None) -> dict:
     """Run the child of every cell of `cells` at once (`argv_fn(cell,
-    ports, cell_dir)` its command; each gets `n_ports(cell)` ports no
+    ports, cell_dir)` its command, `env` its environment, this process's
+    by default; each gets `n_ports(cell)` ports no
     other child of the call has, and a directory of its own under
     `workdir`, its stdout and stderr written there), wait for all of
     them, and return {cell: (its line, every other JSON object it
@@ -5953,7 +6201,7 @@ def run_children(cells, argv_fn, workdir: str, limit_s: float,
         with open(os.path.join(d, "stdout"), "w") as out, \
                 open(os.path.join(d, "stderr"), "w") as err:
             procs[cell] = (subprocess.Popen(
-                argv_fn(cell, mine, d), stdout=out, stderr=err,
+                argv_fn(cell, mine, d), stdout=out, stderr=err, env=env,
                 stdin=subprocess.DEVNULL, start_new_session=True), mine, d)
     # each child's seconds from the start to its exit
     ended = {}
@@ -6203,6 +6451,9 @@ def run(args) -> int:
     from jepsen_tpu_torch.device import describe
 
     args.runner_device = "cuda"
+    if args.calibration_step:
+        return run_calibration_step(args)
+    pin_bar(args)
     if args.cell:
         return run_child_cell(args)
     smi = nvidia_smi()
@@ -6211,12 +6462,23 @@ def run(args) -> int:
     emit({"phase": "device", "nvidia_smi": smi, "torch_device": kind,
           "capability": describe("cuda")["capability"],
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    emit({"phase": "bars", "pinned": {
+        "JEPSEN_TPU_TORCH_BATCH_MIN": args.committed_bar,
+        "JEPSEN_TPU_TORCH_CALIB_CACHE": args.record},
+        "note": "every phase but calibration runs under K1's committed "
+                "bar (GPU_BATCH_MIN), so none measures it; card_bars(n) "
+                "pins it to n for its duration"})
 
     kernels, ck, sim, meshk = make_kernels()
     vec, row, search = kernels[:3]
     build_all(kernels)
     if args.only == "crossover":
         phase_crossover(args)
+        print(smi, flush=True)
+        return 0
+    if args.only == "calibration":
+        phase_calibration(args, kernels)
+        emit({"kernels": [vec.row()]})
         print(smi, flush=True)
         return 0
     if args.only == "closure":
@@ -6358,7 +6620,9 @@ def run(args) -> int:
             for cell in ("main_stress_50k", "main_single_10k",
                          "main_fifo_long")}}
 
-    phase_crossover(args, SMOKE_CROSSOVER_REPS, SMOKE_CROSSOVER_QUEUE_SEEDS)
+    args.crossover_bars = phase_crossover(args, SMOKE_CROSSOVER_REPS,
+                                          SMOKE_CROSSOVER_QUEUE_SEEDS)
+    phase_calibration(args, kernels)
     phase_corpus(args)
     phase_linear(args, kernels, search)
 
@@ -6401,14 +6665,17 @@ def run(args) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("crossover", "closure", "fuzz",
+    ap.add_argument("--only", choices=("crossover", "calibration",
+                                       "closure", "fuzz",
                                        "linear", "store", "online",
                                        "serve", "mesh", "checkers",
                                        "runner", "faults", "suites",
                                        "dgraph", "registers", "locks",
                                        "cells", "cuts"),
                     help="build, run these phases alone (crossover: the "
-                    "crossover bars; closure: closure_vs_plain and the "
+                    "crossover bars; calibration: K1's measured bar, its "
+                    "record, the bundle's seed and register-late under "
+                    "auto at that bar; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
                     "fuzz: the sim kernel at six specs and the three fuzz "
                     "cells; linear: the corpus through linear and "
@@ -6443,12 +6710,22 @@ def main() -> int:
                     "phase alone, as the child process the phase starts "
                     "for it: its line and its kernels' figures, no other "
                     "line")
+    ap.add_argument("--calibration-step", choices=(
+        CALIBRATION_FIRST + CALIBRATION_BESIDE),
+                    help="run this step of the calibration phase alone, as "
+                    "the child process the phase starts for it (with "
+                    "--workdir)")
     ap.add_argument("--workdir", help="the child cell's directory")
     ap.add_argument("--ports", type=lambda v: [int(x) for x in v.split(",")],
                     help="the child cell's members' ports, one a node of "
                     "RUNNER_NODES (then, for tidb's cell, its pd client, pd "
                     "peer and tikv ports, one a node each)")
-    return run(ap.parse_args())
+    args = ap.parse_args()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        args.tmp = td
+        return run(args)
 
 
 if __name__ == "__main__":

@@ -47,7 +47,11 @@ Algorithms:
              with the card in the TPU's place (`_auto_results` below):
              `_route` names each lane's card engine; a group of lanes
              of one engine at or past that engine's bar for the
-             model's kind (GPU_BATCH_MIN) goes to the card whole; the rest are
+             model's kind (`card_bar`: K1's bar on scalar models is
+             measured on the machine that runs the check, at first use
+             and kept on disk, by checker/calibrate.py, with
+             GPU_BATCH_MIN's entry as its fallback; the other bars are
+             GPU_BATCH_MIN's) goes to the card whole; the rest are
              triaged by the native engine at TRIAGE_MAX_STEPS, and
              their hard tail is finished by native with no step budget,
              or goes to its card engine when the tail of its group
@@ -161,7 +165,11 @@ QUEUE_KINDS = ("unordered-queue", "fifo-queue")
 #: per-lane slope is not below native's, so native always; in the
 #: median None ranks above every number). Measured on NVIDIA H100 80GB
 #: HBM3, power limit 700.00 W, with os.cpu_count() 8 on its host; the
-#: three runs' bars in the comment.
+#: three runs' bars in the comment. The CALIBRATED entry is the
+#: fallback of the bar that checker/calibrate.py measures on the
+#: machine that runs the check (`card_bar`), as the JAX package's
+#: PALLAS_BATCH_MIN is of its measured bar; the other entries have no
+#: measured counterpart and are the bars.
 GPU_BATCH_MIN = {
     ("gpu_vec", "scalar"): 4849,              # 17880, 3840, 4849
     ("gpu_vec", "unordered-queue"): None,     # None, None, None
@@ -171,6 +179,9 @@ GPU_BATCH_MIN = {
     ("gpu_search", "unordered-queue"): 1,     # 1, 1, 1
     ("gpu_search", "fifo-queue"): 1,          # 1, 1, None
 }
+
+#: the (card engine, model kind) whose bar checker/calibrate.py measures
+CALIBRATED = ("gpu_vec", "scalar")
 
 #: lanes a card engine returned "unknown" without an error that the
 #: native engine then finished under "auto", since the process started
@@ -183,6 +194,18 @@ def bar_kind(model) -> str:
     name, else "scalar"."""
     name = getattr(mjit.for_model(model), "name", None)
     return name if name in QUEUE_KINDS else "scalar"
+
+
+def card_bar(engine: str, kind: str, device=None) -> int | None:
+    """The bar of (card engine, model kind) under "auto": for CALIBRATED,
+    the pinned or measured bar (`calibrate.batch_min`, which measures at
+    its first call on a card) when there is one; else GPU_BATCH_MIN's
+    entry, read at call time."""
+    if (engine, kind) == CALIBRATED:
+        b = calibrate.batch_min(device)
+        if b is not None:
+            return b
+    return GPU_BATCH_MIN.get((engine, kind))
 
 
 def _card_present(device) -> bool:
@@ -249,7 +272,7 @@ class Linearizable(Checker):
     def _route(self, model, ess) -> list[str]:
         """The engine of each lane, decided before anything launches:
         under "auto", the card engine that takes it (or the host), by
-        which "auto" groups lanes and holds them against GPU_BATCH_MIN."""
+        which "auto" groups lanes and holds them against `card_bar`."""
         if self.algorithm != "auto":
             return [self.algorithm] * len(ess)
         jm = mjit.for_model(model)
@@ -347,8 +370,7 @@ class Linearizable(Checker):
         n = len(ess)
 
         def bar(engine):
-            b = GPU_BATCH_MIN.get((engine, kind))
-            return b if card and b is not None else None
+            return card_bar(engine, kind, self.device) if card else None
 
         def at_bar(engine, idx) -> bool:
             b = bar(engine)

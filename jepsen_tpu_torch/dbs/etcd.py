@@ -18,7 +18,7 @@ on one machine (dbs/etcd_sim.py).
 The port's copy of `jepsen_tpu/dbs/etcd.py`. Its checker reaches the
 card: each key's history is one `Linearizable.check`, which `auto`
 routes to K1 (`ops/csrc/wgl_vec.cu`) or K5 (`ops/csrc/wgl_row.cu`), or
-to the native search below the committed bars (`GPU_BATCH_MIN`). The
+to the native search below the bars (`linearizable.card_bar`). The
 test map's `device` (the CLI's `--device`; None = the card) goes to
 that checker, and core.run resolves it before the cluster is
 provisioned. The fault packages (`--nemesis` fault families,

@@ -2,9 +2,11 @@
 backpressured check queue (the port's counterpart of `jepsen_tpu.serve`).
 
 bundle.py    the engine bundle: a fingerprinted manifest (kernel source
-             digests, torch/CUDA, the device, GPU_BATCH_MIN) and a warm
-             pass that builds or loads every kernel and launches each
-             bucket once, so the first job pays no build.
+             digests, torch/CUDA, the device, GPU_BATCH_MIN, the
+             calibration's fingerprint) holding the measured crossovers,
+             and a warm pass that builds or loads every kernel and
+             launches each bucket once, so the first job pays no build
+             and no measurement.
 registry.py  the session-scoped registry: the workload table (shared
              with `watch`), the device, the bundle state and the faults
              the daemon met, with a combined health snapshot for the

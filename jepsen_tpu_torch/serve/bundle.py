@@ -1,13 +1,20 @@
 """The engine bundle: a daemon start that has every kernel built, loaded
-and launched once before the first job, and a manifest that says whether
-this start found the code, the toolchain and the card it was made for
-(the port's counterpart of `jepsen_tpu/serve/bundle.py`).
+and launched once before the first job, holds the measured crossovers
+without measuring them again, and a manifest that says whether this
+start found the code, the toolchain and the card it was made for (the
+port's counterpart of `jepsen_tpu/serve/bundle.py`).
 
 A bundle directory holds ``bundle.json``, the manifest: a
 **fingerprint** (the digests of the kernel sources in ops/csrc/ — the
 cache key of ops/_build.py —, the torch and CUDA versions, the device's
-name and compute capability, GPU_BATCH_MIN, and the bundle format) and
-the buckets its warm pass ran.
+name and compute capability, GPU_BATCH_MIN, the calibration record's
+fingerprint `calibrate.device_fingerprint`, and the bundle format), the
+buckets its warm pass ran, and the crossovers of checker/calibrate.py:
+``calibration`` (K1's measured bar's three terms, or None) and
+``mesh_min_n`` (the measured mesh crossover, or None). While a bundle is
+in use, the calibration record is ``calibration.json`` in the bundle
+directory, unless the operator has pointed JEPSEN_TPU_TORCH_CALIB_CACHE
+elsewhere.
 
 ``ensure()`` builds or loads each kernel library through ops/_build.py
 (whose own cache is keyed by source digest and capability) and runs
@@ -15,15 +22,16 @@ each bucket of each kernel family once on the registry's device: K1
 (wgl_vec) and K5 (wgl_row) at n_pad 32 and 64, K2 (wgl_search) at n_pad
 32 and 64, and K3 (closure) at pads 32 and 64 — so a daemon's first job
 pays no build, module load or shared-memory opt-in. A fresh manifest
-(every fingerprint field equal) makes the start ``warm``; a stale or
-torn one is rewritten. A kernel that fails to build or launch raises:
-the warm pass is not best-effort. With two or more cards and the
-default device (`device.mesh`), the warm pass also deals K2 over every
-card at n_pad 32 (`search_mesh`) and shards K3's rows at pad 64
-(`closure_mesh`), and the fingerprint carries the card count; with one
-card none of this changes. The JAX package's persisted calibration has
-no counterpart (the port's bars are constants, fingerprinted here; the
-mesh crossover is measured in the process).
+(every fingerprint field equal) makes the start ``warm``: its crossovers
+are seeded into checker/calibrate.py (`seed`, `seed_mesh`), so no
+measurement runs. A stale or torn one is rewritten, with the
+calibration this process holds, reads from the record or measures (none
+while JEPSEN_TPU_TORCH_BATCH_MIN pins the bar). A kernel that
+fails to build or launch, or a measurement that fails, raises: the warm
+pass is not best-effort. With two or more cards and the default device
+(`device.mesh`), the warm pass also deals K2 over every card at n_pad 32
+(`search_mesh`) and shards K3's rows at pad 64 (`closure_mesh`), and the
+fingerprint carries the card count; with one card none of this changes.
 """
 
 from __future__ import annotations
@@ -37,9 +45,10 @@ import time
 log = logging.getLogger("jepsen_tpu_torch.serve.bundle")
 
 MANIFEST_FILE = "bundle.json"
+CALIB_CACHE_FILE = "calibration.json"
 
 #: bump on any change to what warming covers or how the manifest reads
-BUNDLE_FORMAT = 1
+BUNDLE_FORMAT = 2
 
 #: each kernel family's warm buckets (the n_pads / pad sizes a bucket
 #: of its launches takes)
@@ -74,11 +83,13 @@ def code_digest() -> str:
 def fingerprint(device=None) -> dict:
     """Everything that can change what a built kernel computes, where it
     runs or how "auto" routes: the sources, torch and CUDA, the device,
-    and the measured bars."""
+    the committed bars, and the fingerprint the calibration's
+    measurements are valid for."""
     import importlib
 
     import torch
 
+    from ..checker import calibrate
     from ..device import describe, mesh
 
     lin = importlib.import_module("jepsen_tpu_torch.checker.linearizable")
@@ -87,7 +98,8 @@ def fingerprint(device=None) -> dict:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": d["name"], "capability": d["capability"],
           "gpu_batch_min": sorted(
-              [list(k), v] for k, v in lin.GPU_BATCH_MIN.items())}
+              [list(k), v] for k, v in lin.GPU_BATCH_MIN.items()),
+          "calibration": calibrate.device_fingerprint(device)}
     cards = mesh(device)
     if cards is not None:
         fp["cards"] = len(cards)
@@ -176,6 +188,10 @@ class EngineBundle:
     def manifest_path(self) -> str:
         return os.path.join(self.root, MANIFEST_FILE)
 
+    @property
+    def calib_cache_path(self) -> str:
+        return os.path.join(self.root, CALIB_CACHE_FILE)
+
     def load_manifest(self) -> dict | None:
         try:
             with open(self.manifest_path) as f:
@@ -188,6 +204,47 @@ class EngineBundle:
         """Stale on ANY fingerprint mismatch."""
         m = manifest if manifest is not None else self.load_manifest()
         return bool(m) and m.get("fingerprint") == fingerprint(self.device)
+
+    def _activate(self) -> None:
+        """Point the calibration record into the bundle, unless the
+        operator has pointed it elsewhere."""
+        from ..checker import calibrate
+
+        os.environ.setdefault(calibrate._CACHE_ENV, self.calib_cache_path)
+
+    @staticmethod
+    def _seed(manifest: dict) -> None:
+        """A fresh manifest's crossovers become this process's, so
+        nothing is measured again (its fingerprint vouched for them)."""
+        from ..checker import calibrate
+
+        try:
+            if manifest.get("mesh_min_n") is not None:
+                calibrate.seed_mesh(int(manifest["mesh_min_n"]))
+        except (TypeError, ValueError):
+            log.warning("bundle mesh crossover unreadable; will measure")
+        c = manifest.get("calibration")
+        if c is None:
+            return
+        try:
+            calibrate.seed(calibrate.Calibration(
+                float(c["t_rt"]), float(c["per_lane_card"]),
+                float(c["per_lane_native"])))
+        except (KeyError, TypeError, ValueError):
+            log.warning("bundle calibration unreadable; will measure")
+
+    def _crossovers(self) -> dict:
+        """The manifest's crossovers: the calibration this process
+        holds, reads from the record or measures (none while the bar is
+        pinned), and the measured mesh crossover."""
+        from dataclasses import asdict
+
+        from ..checker import calibrate
+
+        cal = (None if calibrate.pinned() is not None
+               else calibrate.calibration(self.device))
+        return {"calibration": None if cal is None else asdict(cal),
+                "mesh_min_n": calibrate.measured_mesh_min_n()}
 
     def _warm_engines(self) -> dict:
         """Build or load every kernel library and run each bucket once on
@@ -224,22 +281,26 @@ class EngineBundle:
         return warmed
 
     def ensure(self) -> dict:
-        """Warm every bucket and make the manifest fresh. Returns
-        ``{"manifest", "warm", "elapsed_s"}``: ``warm`` is True when the
-        manifest on disk was fresh; ``elapsed_s`` is this start's
-        seconds from the call to a warmed card."""
+        """Seed the crossovers of a fresh manifest, warm every bucket and
+        make the manifest fresh. Returns ``{"manifest", "warm",
+        "elapsed_s"}``: ``warm`` is True when the manifest on disk was
+        fresh; ``elapsed_s`` is this start's seconds from the call to a
+        warmed card."""
         from .. import store
 
         t0 = time.monotonic()
+        self._activate()
         manifest = self.load_manifest()
         warm = self.is_fresh(manifest)
+        if warm:
+            self._seed(manifest)
         warmed = self._warm_engines()
         if not warm:
             if manifest is not None:
                 log.info("engine bundle at %s is stale; rewriting",
                          self.root)
             manifest = {"fingerprint": fingerprint(self.device),
-                        "buckets": warmed,
+                        "buckets": warmed, **self._crossovers(),
                         "build_s": time.monotonic() - t0}
             store.atomic_write_json(self.manifest_path, manifest)
         return {"manifest": manifest, "warm": warm,

@@ -10,7 +10,7 @@ weighted-round-robin batches:
   across runs — MANY clients' histories flatten into ONE batched engine
   pass via ``independent.pack_check``, which P-compositionality licenses
   (each key lane's verdict is independent of the run it arrived with),
-  so pooled lanes reach the card's bars (GPU_BATCH_MIN) sooner than any
+  so pooled lanes reach the card's bars (`card_bar`) sooner than any
   one run's would;
 * other workloads check per job through ``checker.check_safe``.
 

@@ -46,13 +46,16 @@ MODELS = {
 @pytest.fixture
 def card(monkeypatch):
     """Steer "auto" to the card half of its policy on the CPU: the card
-    counts as present and every engine's bar is 1, so every group of
+    counts as present and every engine's bar is 1 (the measured bar
+    too: no measurement, so GPU_BATCH_MIN's), so every group of
     lanes goes to its card engine (`_route`) whole, with no native
     triage (the JAX package's tests steer its policy the same way:
     tests/test_calibrate.py monkeypatches the bar and `_tpu_backend`)."""
     monkeypatch.setattr(lin_mod, "_card_present", lambda device: True)
     monkeypatch.setattr(lin_mod, "GPU_BATCH_MIN",
                         {k: 1 for k in lin_mod.GPU_BATCH_MIN})
+    monkeypatch.setattr(lin_mod.calibrate, "batch_min",
+                        lambda device=None: None)
 
 
 def normalise(d):
@@ -352,7 +355,9 @@ def test_port_imports_no_jax():
     simulator, the shared SQL layer and the role daemon, the galera,
     percona, mysql-cluster and tidb suites (tidb's register checked on
     the CPU), crate, chronos with mesos, robustirc, their simulators and
-    recipes; and every module of those) load neither jax
+    recipes; the calibration's lanes, disk record, seed and bar, and a
+    bundle's manifest with its crossovers; and every module of those)
+    load neither jax
     nor any module of the JAX package (jepsen_tpu_torch's own name shares
     the jepsen_tpu prefix, so match whole package names)."""
     code = textwrap.dedent("""
@@ -682,6 +687,30 @@ def test_port_imports_no_jax():
         for sim in (mysql_sim, tidb_sim, mysql_cluster_sim, crate_sim,
                     chronos_sim, robustirc_sim):
             assert sim.local_test_fn({})
+        import os
+        from jepsen_tpu_torch.history import entries
+        lanes = [entries(x) for x in calibrate._corrupt_register_lanes(
+            2, seed=7)]
+        assert wgl_vec.batch_eligible(
+            lin_mod.mjit.for_model(CASRegister()), lanes)
+        cal = calibrate.Calibration(0.02, 50e-6, 70e-6)
+        with tempfile.TemporaryDirectory() as td:
+            os.environ["JEPSEN_TPU_TORCH_CALIB_CACHE"] = td + "/cal.json"
+            calibrate._save_disk_cache(cal, "cpu")
+            calibrate._update_disk_cache({"mesh_min_n": 512}, "cpu")
+            assert calibrate._load_disk_cache("cpu") == cal
+            assert calibrate._load_disk_mesh("cpu") == 512
+            calibrate._reset_for_tests()
+            assert calibrate.batch_min("cpu") is None
+            calibrate.seed(cal)
+            assert lin_mod.card_bar("gpu_vec", "scalar", "cpu") == 1024
+            calibrate._reset_for_tests()
+            del os.environ["JEPSEN_TPU_TORCH_CALIB_CACHE"]
+            m = bundle.EngineBundle(td + "/b2", device="cpu").ensure()[
+                "manifest"]
+            assert m["calibration"] is None and m["mesh_min_n"] is None
+            assert os.environ["JEPSEN_TPU_TORCH_CALIB_CACHE"] == \\
+                td + "/b2/calibration.json"
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "jepsen_tpu" or m.startswith("jepsen_tpu."))

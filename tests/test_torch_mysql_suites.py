@@ -907,6 +907,8 @@ def test_recipe_tidb_register_matches_the_jax_checker(tmp_path,
     monkeypatch.setattr(lin, "_card_present", lambda device: True)
     monkeypatch.setattr(lin, "GPU_BATCH_MIN",
                         {k: 1 for k in lin.GPU_BATCH_MIN})
+    monkeypatch.setattr(lin.calibrate, "batch_min",
+                        lambda device=None: None)
     monkeypatch.setattr(wgl_vec, "CAPTURE", [])
     got = checker.linearizable(CASRegister(), device="cpu").check(
         {}, hist, {})

@@ -151,6 +151,8 @@ def test_card_unknowns_finished_by_native(monkeypatch):
     monkeypatch.setattr(lin_mod, "_card_present", lambda device: True)
     monkeypatch.setattr(lin_mod, "GPU_BATCH_MIN",
                         {k: 1 for k in lin_mod.GPU_BATCH_MIN})
+    monkeypatch.setattr(lin_mod.calibrate, "batch_min",
+                        lambda device=None: None)
     monkeypatch.setattr(lin_mod.Linearizable, "_max_steps",
                         lambda self: 2000)
     hist = keyed_history(6, 60, n_process=5, bad_every=2, bad_read="random",
@@ -193,6 +195,8 @@ def test_bar_is_read_per_model_kind(monkeypatch, kind):
     monkeypatch.setattr(lin_mod, "GPU_BATCH_MIN",
                         {k: 1 if k == ("gpu_vec", kind) else None
                          for k in lin_mod.GPU_BATCH_MIN})
+    monkeypatch.setattr(lin_mod.calibrate, "batch_min",
+                        lambda device=None: None)
     assert set(lin_mod.GPU_BATCH_MIN) >= {("gpu_vec", "scalar"),
                                           ("gpu_vec", "fifo-queue")}
     cases = {"scalar": (tmodels.CASRegister(), [

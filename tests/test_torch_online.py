@@ -273,9 +273,10 @@ def test_wgl_frontier_on_k1_matches_one_shot():
     th = port_ops(jh)
     chk = WORKLOAD_FACTORIES["register"](device="cpu")["checker"]
     f = WGLFrontier(chk)
-    saved = lin._card_present, lin.GPU_BATCH_MIN
+    saved = lin._card_present, lin.GPU_BATCH_MIN, lin.calibrate.batch_min
     lin._card_present = lambda device: True
     lin.GPU_BATCH_MIN = {k: 1 for k in lin.GPU_BATCH_MIN}
+    lin.calibrate.batch_min = lambda device=None: None
     wgl_vec.CAPTURE = []
     try:
         for cut in (20, 41, len(th)):
@@ -285,7 +286,8 @@ def test_wgl_frontier_on_k1_matches_one_shot():
         assert wgl_vec.CAPTURE
     finally:
         wgl_vec.CAPTURE = None
-        lin._card_present, lin.GPU_BATCH_MIN = saved
+        lin._card_present, lin.GPU_BATCH_MIN, lin.calibrate.batch_min = \
+            saved
     assert f.verdict["failures"] == [1]
 
 

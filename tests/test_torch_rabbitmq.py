@@ -462,6 +462,8 @@ def test_requeued_semaphore_refuted(sims, monkeypatch, card):
         monkeypatch.setattr(lin, "_card_present", lambda device: True)
         monkeypatch.setattr(lin, "GPU_BATCH_MIN",
                             {k: 1 for k in lin.GPU_BATCH_MIN})
+        monkeypatch.setattr(lin.calibrate, "batch_min",
+                            lambda device=None: None)
         monkeypatch.setattr(wgl_vec, "CAPTURE", [])
     got = checker.linearizable(Mutex(), device="cpu").check({}, hist, {})
     want = jchecker.linearizable(

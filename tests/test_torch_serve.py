@@ -211,6 +211,19 @@ class TestAttemptLedger:
 
 
 class TestBundle:
+    @pytest.fixture(autouse=True)
+    def _fresh_crossovers(self, tmp_path, monkeypatch):
+        """No measurement in memory, the calibration record in a scratch
+        file, no pin."""
+        from jepsen_tpu_torch.checker import calibrate
+
+        calibrate._reset_for_tests()
+        monkeypatch.setenv(calibrate._CACHE_ENV, str(tmp_path / "cal.json"))
+        monkeypatch.delenv(calibrate._ENV, raising=False)
+        monkeypatch.delenv(calibrate._ENV_MESH_N, raising=False)
+        yield
+        calibrate._reset_for_tests()
+
     @pytest.fixture
     def quiet_bundle(self, tmp_path, monkeypatch):
         """A bundle whose warm pass is stubbed out: these cases exercise
@@ -234,16 +247,22 @@ class TestBundle:
         assert second["manifest"] == first["manifest"]
         assert second["elapsed_s"] >= 0
 
-    @pytest.mark.parametrize("change", ["code", "bars"])
+    @pytest.mark.parametrize("change", ["code", "bars", "calibration"])
     def test_any_fingerprint_change_rebuilds(self, quiet_bundle,
                                              monkeypatch, change):
         import importlib
+
+        from jepsen_tpu_torch.checker import calibrate
 
         b, _ = quiet_bundle
         b.ensure()
         assert b.is_fresh()
         if change == "code":
             monkeypatch.setattr(bundle_mod, "code_digest", lambda: "beef")
+        elif change == "calibration":
+            fp = calibrate.device_fingerprint("cpu")
+            monkeypatch.setattr(calibrate, "device_fingerprint",
+                                lambda device=None: {**fp, "cuda": "99.9"})
         else:
             lin = importlib.import_module(
                 "jepsen_tpu_torch.checker.linearizable")
@@ -252,6 +271,93 @@ class TestBundle:
         assert not b.is_fresh()
         assert b.ensure()["warm"] is False
         assert b.is_fresh()
+
+    def test_manifest_carries_the_crossovers(self, quiet_bundle):
+        """A built bundle keeps the calibration and the mesh crossover
+        this process holds (None for each it has none of)."""
+        from dataclasses import asdict
+
+        from jepsen_tpu_torch.checker import calibrate
+
+        b, _ = quiet_bundle
+        m = b.ensure()["manifest"]
+        assert m["calibration"] is None and m["mesh_min_n"] is None
+        cal = calibrate.Calibration(0.004, 20e-6, 300e-6)
+        calibrate.seed(cal)
+        calibrate.seed_mesh(512)
+        with open(b.manifest_path, "w") as f:
+            f.write("{}")
+        m = b.ensure()["manifest"]
+        assert m["calibration"] == asdict(cal) and m["mesh_min_n"] == 512
+        assert b.load_manifest() == m
+
+    def test_warm_start_seeds_without_measuring(self, quiet_bundle,
+                                                monkeypatch):
+        """A fresh manifest's crossovers become a new process's own: no
+        measurement, no read of the record."""
+        from jepsen_tpu_torch.checker import calibrate
+
+        b, _ = quiet_bundle
+        cal = calibrate.Calibration(0.004, 20e-6, 300e-6)
+        calibrate.seed(cal)
+        calibrate.seed_mesh(512)
+        b.ensure()
+        calibrate._reset_for_tests()
+
+        def boom(*a, **kw):
+            raise AssertionError("a warm start measured")
+
+        for name in ("_measure", "_measure_mesh_min_n", "_load_record"):
+            monkeypatch.setattr(calibrate, name, boom)
+        assert b.ensure()["warm"] is True
+        assert calibrate.calibration("cpu") == cal
+        assert calibrate.batch_min("cpu") == cal.batch_min == 1024
+        assert calibrate.measured_mesh_min_n() == 512
+        assert calibrate.mesh_min_n() == 512
+
+    def test_cold_build_measures_unless_pinned(self, quiet_bundle,
+                                               monkeypatch):
+        """On a card, a stale bundle's build measures the calibration
+        (steered here: `_card` gives the CPU, the walls are stubbed) and
+        keeps it; under JEPSEN_TPU_TORCH_BATCH_MIN it measures nothing."""
+        import torch
+
+        from jepsen_tpu_torch.checker import calibrate
+        from jepsen_tpu_torch.ops import wgl_native
+
+        b, _ = quiet_bundle
+        walls = []
+        monkeypatch.setattr(calibrate, "_card",
+                            lambda device: torch.device("cpu"))
+        monkeypatch.setattr(wgl_native, "build", lambda: None)
+        monkeypatch.setattr(calibrate, "_card_wall", lambda m, ess, dev: (
+            walls.append(len(ess)) or 0.004 + 20e-6 * len(ess)))
+        monkeypatch.setattr(calibrate, "_native_wall",
+                            lambda m, ess: 300e-6 * len(ess))
+        monkeypatch.setenv(calibrate._ENV, "4849")
+        assert b.ensure()["manifest"]["calibration"] is None
+        assert walls == []
+        monkeypatch.delenv(calibrate._ENV)
+        with open(b.manifest_path, "w") as f:
+            f.write("{}")
+        m = b.ensure()["manifest"]
+        assert walls == [128, 128, 128, 1024]
+        assert m["calibration"] == {"t_rt": pytest.approx(0.004),
+                                    "per_lane_card": pytest.approx(20e-6),
+                                    "per_lane_native": pytest.approx(300e-6)}
+
+    def test_record_points_into_the_bundle(self, quiet_bundle, monkeypatch):
+        """While a bundle is in use the calibration record is its
+        calibration.json, unless the operator has pointed it elsewhere."""
+        from jepsen_tpu_torch.checker import calibrate
+
+        b, _ = quiet_bundle
+        b.ensure()
+        assert calibrate.cache_path() != b.calib_cache_path
+        monkeypatch.delenv(calibrate._CACHE_ENV)
+        b.ensure()
+        assert calibrate.cache_path() == b.calib_cache_path == \
+            os.path.join(b.root, "calibration.json")
 
     def test_torn_manifest_is_stale(self, quiet_bundle):
         b, _ = quiet_bundle
@@ -355,6 +461,8 @@ class TestPackCheck:
         monkeypatch.setattr(lin, "_card_present", lambda device: True)
         monkeypatch.setattr(lin, "GPU_BATCH_MIN",
                             {k: 1 for k in lin.GPU_BATCH_MIN})
+        monkeypatch.setattr(lin.calibrate, "batch_min",
+                            lambda device=None: None)
         chk = independent.checker(linearizable(CASRegister(), device="cpu"))
         jobs = self._jobs()
         wgl_vec.CAPTURE = []
