@@ -2,9 +2,9 @@
 """Chip smoke test of jepsen_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
-        [--only crossover|calibration|closure|fuzz|linear|store|online|serve
-                |mesh|checkers|runner|faults|suites|dgraph|registers|locks
-                |cells|cuts]
+        [--only crossover|calibration|closure|closure_word|fuzz|linear|store
+                |online|serve|mesh|checkers|runner|faults|suites|dgraph
+                |registers|locks|cells|cuts]
     python3 chip_smoke.py --cell CELL --workdir DIR --ports P1,...,P5
     python3 chip_smoke.py --calibration-step STEP --workdir DIR
 
@@ -63,8 +63,18 @@ bucket, the product and the threshold pass that refreshes the operand
 one a round), every bucket fixpoint it ran replayed round by round
 through the kernels and their plain versions, each launch timed alone
 behind a GPU spin beside its bound, and closure_word's launch on one
-matrix for one round beside its bucket's (`--only closure`: those
-phases alone). Then the sim kernel against its plain version at six
+matrix for one round beside its bucket's; between them, 16 callers
+released together by a barrier, each closing its own one-word bucket
+(`word_burst`): fewer closure_word launches than callers, since
+buckets that arrive while a launch is in flight share the next one
+(`--only closure`: those phases alone). `--only closure_word` measures
+the one-word bucket alone: the host µs of packing, the upload, the
+wrapper's call, the download with its sync and unpacking, per caller
+(each with a launch of its own, as before launches were shared) and
+through the shared launch's steps, at the batch sizes the main paths
+launch (3 to 6,093 matrices), the kernel behind the spin beside an
+empty kernel's launch, and how many one-word buckets causal's key
+threads hold in flight at once, then the burst. Then the sim kernel against its plain version at six
 specs (1024 clusters each), and the fuzz path: 1024 seeded clusters
 simulated in one sim launch and scored through the closure kernels
 (scores equal to the host DFS engine's), with the fuzz loop's round of
@@ -125,7 +135,9 @@ completions :info): adya's G2 checker on 8,192 keys of insert pairs
 (128 planted double inserts), long_fork's on 4,096 keys (a fork planted
 in every 64th group), causal's (the causal replay and the value-order
 cycle checker composed, a key a thread) on 256 keys (4 stale reads),
-each dict equal to the one on device="cpu" (and adya's counts and
+each dict equal to the one on device="cpu", closure_word's launches
+and the matrices each carried printed (`closure_word_batches`: causal's
+keys share launches) (and adya's counts and
 long_fork's validity to the legacy paths'), causal's first 64 keys
 again under independent.checker(processes=2) in spawned workers (equal
 to the thread path); the bank-setfull histories through the bank and
@@ -3368,8 +3380,11 @@ def phase_online_cycle_abort(args, kernels, ck) -> None:
           "anomaly-types": s.abort_info["anomaly-types"],
           "launches": {k: v[0] for k, v in seen.items() if v[0]},
           "kernel_ms": ms, "device_idle": 1 - sum(ms.values()) / 1000 / wall,
-          "buckets": len(buckets), "batch_equal": True,
-          "batch_check_s": batch_s, "matches_plain": True})
+          "buckets": len(buckets),
+          "closure_word_batches": word_batches(
+              [(bk["p"], bk["b"]) for bk in buckets]),
+          "batch_equal": True, "batch_check_s": batch_s,
+          "matches_plain": True})
 
 
 def serve_histories(seed: int) -> list:
@@ -4327,18 +4342,298 @@ def checkers_cell(ck, cell, seen, closures, wall) -> dict:
                 f["bound_by"]
             k.plain_ms = None if k.library else f["plain_ms"]
             k.shape = f"{cell}: {launched} launches"
-    words = [b for p, b in closures["buckets"] if p == 32]
     device_ms = sum(f["ms"] for f in per.values())
     return {"launches": {k: v[0] for k, v in seen.items() if v[0]},
             "closure_buckets": len(closures["buckets"]),
-            "closure_word_batches": {
-                "launches": len(words), "matrices": sum(words),
-                "min": min(words, default=0), "max": max(words, default=0)},
+            "closure_word_batches": word_batches(closures["buckets"]),
             "wider_buckets": [(p, b) for p, b in closures["buckets"]
                               if p != 32],
             "k3": per, "device_ms": device_ms,
             "device_idle": 1 - device_ms / 1000 / wall,
             "matches_plain": True}
+
+
+def word_batches(buckets) -> dict:
+    """closure_word's launches among a run's buckets ((p, matrices)
+    pairs) and the matrices each carried: several callers' one-word
+    buckets share a launch, so these are the merged batch sizes."""
+    from collections import Counter
+
+    sizes = [b for p, b in buckets if p == 32]
+    return {"launches": len(sizes), "matrices": sum(sizes),
+            "min": min(sizes, default=0), "max": max(sizes, default=0),
+            "by_size": {str(b): n for b, n in sorted(Counter(sizes).items())}}
+
+
+# one-word buckets at the batch sizes the main paths launch them (PERF.md
+# §6, the kernel table): a causal key's 3 matrices, adya's 128, dgraph's
+# long-fork's 288, the fuzz command's 768 and long_fork's 6,093
+CLOSURE_WORD_BATCHES = (3, 128, 288, 768, 6093)
+# runs of each route at each batch size, in turns (per caller, shared,
+# shared, per caller, ...); the medians are kept
+CLOSURE_WORD_REPS = 20
+# callers released together by a barrier, each with its own bucket
+WORD_BURST = 16
+
+
+def word_mats(b: int, seed: int) -> list:
+    """b seeded matrices of the one-word bucket: 2-32 nodes, sparse as
+    the checkers' components are, an edge into column 31 (the sign bit
+    of a word) in every 32-node one."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(b):
+        n = int(rng.integers(2, 33))
+        a = rng.random((n, n)) < 2.0 / n
+        np.fill_diagonal(a, False)
+        if n == 32:
+            a[rng.integers(32), 31] = True
+        out.append(a)
+    return out
+
+
+def word_route_per_caller(cl, mats, dev, rounds) -> tuple:
+    """One one-word bucket as `_reach` ran it while every caller had a
+    launch of its own, before launches were shared: a np.packbits a
+    matrix, a pageable upload, the wrapper (its library lookup, two
+    allocations, the launch), the download with its sync, a
+    np.unpackbits a matrix. Returns (host µs of each step, the
+    closures)."""
+    import numpy as np
+    import torch
+
+    ns = [a.shape[0] for a in mats]
+    t = [time.perf_counter()]
+    words = np.zeros((len(mats), 32, 4), dtype=np.uint8)
+    for j, a in enumerate(mats):
+        bits = np.packbits(a, axis=1, bitorder="little")
+        words[j, :a.shape[0], :bits.shape[1]] = bits
+    words = words.view("<i4")
+    t.append(time.perf_counter())
+    w = torch.from_numpy(words).to(dev)
+    t.append(time.perf_counter())
+    out, _ = cl.closure_word(w.view(-1, 32), rounds)
+    t.append(time.perf_counter())
+    closed = out.view(words.shape).cpu().numpy()
+    t.append(time.perf_counter())
+    res = [np.unpackbits(np.ascontiguousarray(closed[j][:n]).view(np.uint8),
+                         axis=1, count=n, bitorder="little").astype(bool)
+           for j, n in enumerate(ns)]
+    t.append(time.perf_counter())
+    return [1e6 * (b - a) for a, b in zip(t, t[1:])], res
+
+
+def word_route_shared(cl, mats, dev, rounds) -> tuple:
+    """One one-word bucket through the shared launch's steps, one at a
+    time on the device's queue's own staging pair (`_WordQueue._staged`,
+    a lone caller): `_pack` (one np.packbits), the words into the pinned
+    buffer and one upload, the wrapper into the staged buffers (lookup
+    and launch), one download with its sync, `_unpack_bucket` (one
+    np.unpackbits). Returns (host µs of each step, the closures)."""
+    import numpy as np
+    import torch
+
+    ns = [a.shape[0] for a in mats]
+    b = len(mats)
+    q = cl._word_queue(dev)
+    t = [time.perf_counter()]
+    words = cl._pack(mats, 32)[..., 0]
+    t.append(time.perf_counter())
+    host, card, h = q.host, q.card, q.host.numpy()
+    np.concatenate([words], out=h[:32 * b].reshape(b, 32))
+    card[:32 * b].copy_(host[:32 * b], non_blocking=True)
+    t.append(time.perf_counter())
+    cl.closure_word(card[:32 * b].view(b, 32), rounds,
+                    out=card[32 * b:64 * b].view(b, 32),
+                    taken=card[64 * b:65 * b])
+    t.append(time.perf_counter())
+    host[32 * b:65 * b].copy_(card[32 * b:65 * b], non_blocking=True)
+    torch.cuda.current_stream(dev).synchronize()
+    closed = h[32 * b:64 * b].reshape(b, 32).copy()
+    t.append(time.perf_counter())
+    res = cl._unpack_bucket(closed[..., None], ns)
+    t.append(time.perf_counter())
+    return [1e6 * (b - a) for a, b in zip(t, t[1:])], res
+
+
+def word_route_reach(cl, mats, dev, rounds) -> tuple:
+    """One one-word bucket through closure.reach_batch whole, a lone
+    caller (the shared launch's code as `_reach` runs it): ([host µs],
+    the closures)."""
+    t0 = time.perf_counter()
+    res = cl.reach_batch(mats, device=dev)
+    return [1e6 * (time.perf_counter() - t0)], res
+
+
+WORD_STEPS = ("pack", "upload", "launch_call", "download_sync", "unpack")
+
+
+def causal_in_flight(cl, h) -> dict:
+    """causal's checker on the card over `h` (a key a thread), with
+    closure.reach_batch wrapped to record when each call holding a
+    one-word bucket starts and ends, and closure.closure_word each
+    launch's batch: the buckets, the launches and their batch sizes,
+    and how many buckets were in flight (between their caller's
+    reach_batch call and its return) when each one started and at
+    most."""
+    from collections import Counter
+
+    from jepsen_tpu_torch.workloads import causal
+
+    spans, sizes = [], []
+    real_reach, real_word = cl.reach_batch, cl.closure_word
+
+    def reach(adjs, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_reach(adjs, *a, **kw)
+        finally:
+            if any(0 < len(m) <= 32 for m in adjs):
+                spans.append((t0, time.perf_counter()))
+
+    def word(words, rounds, **kw):
+        sizes.append(int(words.shape[0]))
+        return real_word(words, rounds, **kw)
+
+    cl.reach_batch, cl.closure_word = reach, word
+    try:
+        t0 = time.perf_counter()
+        res = causal.checker().check({}, h, {})
+        wall = time.perf_counter() - t0
+    finally:
+        cl.reach_batch, cl.closure_word = real_reach, real_word
+    at_start = [sum(1 for a, b in spans if a <= s < b) for s, _ in spans]
+    events = sorted([(a, 1) for a, _ in spans] + [(b, -1) for _, b in spans])
+    most = now = 0
+    for _, d in events:
+        now += d
+        most = max(most, now)
+    return {"keys": CAUSAL_KEYS, "wall_s": wall,
+            "failures": len(res["failures"]), "word_buckets": len(spans),
+            "launches": len(sizes), "matrices": sum(sizes),
+            "by_size": {str(b): n for b, n in sorted(Counter(sizes).items())},
+            "in_flight_at_start": {
+                "mean": sum(at_start) / max(1, len(at_start)),
+                "by_count": {str(k): v for k, v in
+                             sorted(Counter(at_start).items())}},
+            "in_flight_max": most}
+
+
+def phase_closure_word(args, ck) -> None:
+    """closure_word's launch path measured (`--only closure_word`). At
+    each batch of CLOSURE_WORD_BATCHES (seeded one-word matrices): the
+    host µs of each step of a bucket's closure, as a caller ran it alone
+    before launches were shared (`word_route_per_caller`) and through
+    the shared launch's steps (`word_route_shared`, and reach_batch
+    whole: `word_route_reach`), CLOSURE_WORD_REPS runs each in turns,
+    medians kept, every route's closures equal to the host DFS's; the
+    kernel's ms behind the
+    spin against its plain version (bit for bit, words and rounds) and
+    its bound; the empty kernel's launch floor. Then causal's checker on
+    causal_history(CAUSAL_KEYS): the one-word buckets in flight at once
+    across its key threads, and its launches (`causal_in_flight`). On a
+    tree whose closure.py has no shared launch (no `close_words`) only
+    the per-caller route is measured."""
+    import numpy as np
+    import torch
+
+    from jepsen_tpu_torch.ops import closure_host
+
+    cl = ck["unpack"].mod
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shared = hasattr(cl, "close_words")
+    rounds = cl.rounds_for(32)
+    floor = empty_launch_ms()
+    k = ck["closure_word"]
+    k.extra["empty_kernel_ms"] = floor
+    rows = []
+    for b in CLOSURE_WORD_BATCHES:
+        mats = word_mats(b, args.seed * 7919 + b)
+        want = [closure_host.reach(a) for a in mats]
+        routes = {"per_caller": word_route_per_caller}
+        if shared:
+            cl.close_words(np.zeros((b, 32), dtype=np.int32), dev)
+            routes["shared"] = word_route_shared
+            routes["reach_batch"] = word_route_reach
+        us = {name: [] for name in routes}
+        order = list(routes)
+        for r in range(CLOSURE_WORD_REPS):
+            for name in (order if r % 2 == 0 else order[::-1]):
+                steps, res = routes[name](cl, mats, dev, rounds)
+                us[name].append(steps)
+                if r == 0:
+                    assert all(np.array_equal(g, w)
+                               for g, w in zip(res, want)), (name, b)
+        med = {name: [float(np.median(col)) for col in zip(*v)]
+               for name, v in us.items()}
+        figs = {name: (dict(zip(WORD_STEPS, m), total=sum(m))
+                       if name != "reach_batch" else {"total": m[0]})
+                for name, m in med.items()}
+        w = torch.from_numpy(cl._pack(mats, 32)[..., 0].copy()).to(dev)
+        k_ms, got = spin_ms(cl, lambda: cl.closure_word(w, rounds),
+                            "closure_word")
+        p_ms, plain = cuda_ms(lambda: cl.closure_word_plain(w, rounds))
+        held(k, f"batch {b}", got, plain)
+        t_b = (8 * w.numel() + 4 * b) / HBM_BYTES_PER_S
+        t_o = int(got[1].sum()) * 32 * 32 * 2 / INT32_OPS_PER_S
+        b_ms, b_by = bound_ms(t_b, t_o)
+        rows.append({"b": b, "host_us": figs, "kernel_ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "empty_kernel_ms": floor,
+                     "rounds_max": int(got[1].max())})
+        emit({"phase": "closure_word_steps", "nvidia_smi": args.smi,
+              "shared_launch": shared, **rows[-1]})
+    k.extra["by_batch"] = rows
+    h = causal_history(CAUSAL_KEYS, args.seed)
+    emit({"phase": "closure_word_causal", "nvidia_smi": args.smi,
+          "shared_launch": shared, **causal_in_flight(cl, h)})
+
+
+def phase_word_burst(args, ck, gate: bool = True) -> None:
+    """WORD_BURST threads released together by a barrier, each closing
+    its own seeded one-word bucket (1-4 matrices) through
+    closure.reach_batch on the card, as a main path (counts reset
+    before, read after): with `gate`, fewer closure_word launches than
+    callers (buckets that arrive while a launch is in flight share the
+    next one); every closure the host DFS's; every launch held against
+    closure_word_plain bit for bit, words and rounds (`replay_closure`),
+    its batch sizes printed."""
+    import threading
+
+    import numpy as np
+
+    from jepsen_tpu_torch.ops import closure_host
+
+    cl = ck["unpack"].mod
+    rng = np.random.default_rng(args.seed + 22)
+    buckets = [word_mats(int(rng.integers(1, 5)), args.seed * 1000 + i)
+               for i in range(WORD_BURST)]
+    gate_ = threading.Barrier(WORD_BURST)
+
+    def one(i):
+        gate_.wait()
+        return cl.reach_batch(buckets[i], device="cuda")
+
+    def burst():
+        with ThreadPoolExecutor(WORD_BURST) as ex:
+            return list(ex.map(one, range(WORD_BURST)))
+
+    got, wall, seen = run_path(list(ck.values()), burst)
+    launched = seen["closure_word"][0]
+    assert launched > 0 and (launched < WORD_BURST or not gate), launched
+    for mats, out in zip(buckets, got):
+        assert all(np.array_equal(r, closure_host.reach(a))
+                   for r, a in zip(out, mats))
+    captured = seen["unpack"][2]
+    closure_cell(ck, "word_burst", seen, replay_closure(ck, captured))
+    emit({"phase": "word_burst", "nvidia_smi": args.smi,
+          "callers": WORD_BURST,
+          "matrices": sum(len(m) for m in buckets), "wall_s": wall,
+          "launches": launched, "closure_word_batches": word_batches(
+              [(p, int(w.shape[0])) for w, p, _ in captured]),
+          "matches_plain": True, "matches_host": True})
 
 
 def checkers_adya(args, kernels, ck) -> dict:
@@ -6481,8 +6776,16 @@ def run(args) -> int:
         emit({"kernels": [vec.row()]})
         print(smi, flush=True)
         return 0
+    if args.only == "closure_word":
+        phase_closure_word(args, ck)
+        phase_word_burst(args, ck, gate=hasattr(ck["unpack"].mod,
+                                                "close_words"))
+        emit({"kernels": [ck["closure_word"].row()]})
+        print(smi, flush=True)
+        return 0
     if args.only == "closure":
         phase_closure_vs_plain(args, ck)
+        phase_word_burst(args, ck)
         phase_cycles(args, kernels, ck)
         emit({"kernels": [k.row() for k in ck.values() if not k.library]})
         print(smi, flush=True)
@@ -6627,6 +6930,7 @@ def run(args) -> int:
     phase_linear(args, kernels, search)
 
     phase_closure_vs_plain(args, ck)
+    phase_word_burst(args, ck)
     phase_cycles(args, kernels, ck)
 
     phase_fuzzing(args, kernels, ck, sim)
@@ -6666,7 +6970,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("crossover", "calibration",
-                                       "closure", "fuzz",
+                                       "closure", "closure_word", "fuzz",
                                        "linear", "store", "online",
                                        "serve", "mesh", "checkers",
                                        "runner", "faults", "suites",
@@ -6677,6 +6981,11 @@ def main() -> int:
                     "record, the bundle's seed and register-late under "
                     "auto at that bar; closure: closure_vs_plain and the "
                     "three cycle cells, every closure launch replayed; "
+                    "closure_word: the one-word bucket's host steps and "
+                    "kernel at the main paths' batch sizes, a per-caller "
+                    "launch against the shared one, the buckets causal's "
+                    "key threads hold in flight at once, and the "
+                    "16-caller burst; "
                     "fuzz: the sim kernel at six specs and the three fuzz "
                     "cells; linear: the corpus through linear and "
                     "competition; store: the register cell, cycle_append "

@@ -40,6 +40,14 @@ syncs a bucket), resetting it on the device first. Every launch, the
 product included, goes on `torch.cuda.current_stream(dev)`: a kernel
 on another stream would race the product.
 
+The one-word bucket of `reach_batch` on one device goes through
+`close_words`: concurrent callers on that device (a thread a key under
+`independent.checker`, each with its ~3 matrices) share one closure_word
+launch in group-commit style, through one pinned staging copy each way
+(`_WordQueue`). Every matrix's fixpoint is its own, so the results are
+those of a launch a caller. The host packs and unpacks a bucket in one
+numpy call each (`_pack`, `_unpack_bucket`).
+
 Closures are irreflexive-path closures, as in the host engine:
 out[i, j] iff a path i -> ... -> j of >= 1 edge exists, so the diagonal
 marks nodes on cycles.
@@ -112,22 +120,51 @@ def rounds_for(p: int) -> int:
 
 def _pack(mats, p: int) -> np.ndarray:
     """[b, p, p//32] int32 words of the bool matrices `mats` (each at most
-    p x p), padded with zeros: np.packbits' little bit order puts column
-    8*j + k at bit k of byte j, and four bytes read as a little-endian
-    word give bit 8*q + k of word w for column 32*w + 8*q + k."""
-    out = np.zeros((len(mats), p, p // 8), dtype=np.uint8)
-    for j, a in enumerate(mats):
-        n = a.shape[0]
-        if n:
-            bits = np.packbits(a, axis=1, bitorder="little")
-            out[j, :n, :bits.shape[1]] = bits
+    p x p), padded with zeros, in one pass: the bucket stacked into one
+    zero-padded [b, n, c] bool array (n its widest matrix, c = n rounded
+    up to whole bytes) and packed flat by one np.packbits, which packs
+    each row of whole bytes as a call along the rows would, and faster (a
+    lone matrix is packed as it is, along its rows). Its little bit order
+    puts column 8*j + k at bit k of byte j, and four bytes read as a
+    little-endian word give bit 8*q + k of word w for column
+    32*w + 8*q + k."""
+    b = len(mats)
+    out = np.zeros((b, p, p // 8), dtype=np.uint8)
+    n = max((a.shape[0] for a in mats), default=0)
+    if b == 1:
+        bits = np.packbits(np.asarray(mats[0], dtype=bool), axis=1,
+                           bitorder="little")[None]
+    else:
+        c = -(-n // 8) * 8
+        stack = np.zeros((b, n, c), dtype=bool)
+        for j, a in enumerate(mats):
+            stack[j, :a.shape[0], :a.shape[0]] = a
+        bits = np.packbits(stack, axis=None, bitorder="little") \
+            .reshape(b, n, c // 8)
+    out[:, :n, :bits.shape[2]] = bits
     return out.view("<i4")
+
+
+def _unpack_bucket(words: np.ndarray, ns) -> list:
+    """The top-left n x n bool matrix of each packed [p, p//32] matrix of
+    a bucket's words [b, p, p//32], for the n of `ns` in order: the
+    bucket's rows up to its widest matrix unpacked flat by one
+    np.unpackbits (a lone matrix along its rows, only its n columns),
+    each matrix a view of that one array."""
+    n = max(ns, default=0)
+    by = np.ascontiguousarray(words[:, :n]).view(np.uint8)
+    if len(ns) == 1:
+        bits = np.unpackbits(by, axis=2, count=n, bitorder="little")
+    else:
+        bits = np.unpackbits(by, axis=None, bitorder="little") \
+            .reshape(len(ns), n, -1)
+    bits = bits.view(bool)
+    return [bits[j, :k, :k] for j, k in enumerate(ns)]
 
 
 def _unpack(words: np.ndarray, n: int) -> np.ndarray:
     """The top-left n x n bool matrix of one packed [p, p//32] matrix."""
-    by = np.ascontiguousarray(words[:n]).view(np.uint8)
-    return np.unpackbits(by, axis=1, count=n, bitorder="little").astype(bool)
+    return _unpack_bucket(words[None], [n])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -349,22 +386,146 @@ def _cuda(t: torch.Tensor) -> bool:
     return True
 
 
-def closure_word(words: torch.Tensor, rounds: int):
+def closure_word(words: torch.Tensor, rounds: int,
+                 out: torch.Tensor | None = None,
+                 taken: torch.Tensor | None = None):
     """The one-word bucket's fixpoint (see closure_word_plain) in one
-    launch on a CUDA tensor; the plain version on a CPU tensor."""
+    launch on a CUDA tensor; the plain version on a CPU tensor. Returns
+    (words, rounds each matrix ran), into `out` ([b, 32] int32) and
+    `taken` ([b] int32) when given."""
     _check_word(words)
-    if not _cuda(words):
-        return closure_word_plain(words, rounds)
     dev = words.device
+    out = _out(out, words.shape, torch.int32, dev)
+    taken = _out(taken, words.shape[:1], torch.int32, dev)
+    if not _cuda(words):
+        w, t = closure_word_plain(words, rounds)
+        return out.copy_(w), taken.copy_(t)
     with torch.cuda.device(dev):
         lib = build(dev)
-        out = torch.empty_like(words)
-        taken = torch.empty(words.shape[0], dtype=torch.int32, device=dev)
         with _launch("closure_word", dev) as stream:
             _raise_on(lib.closure_word_launch(
                 words.data_ptr(), out.data_ptr(), taken.data_ptr(),
                 words.shape[0], rounds, stream), "closure_word")
     return out, taken
+
+
+class _WordQueue:
+    """The one-word buckets of concurrent callers on one device, closed
+    in shared launches (group commit). A caller that finds no launch in
+    flight leads: it takes every pending bucket, its own among them,
+    and closes them all in one closure_word launch (`_close`); callers
+    that arrive while a launch is in flight queue up for the next
+    leader. A lone caller leads at once: nothing waits on a timer. Each
+    matrix's fixpoint and rounds depend on its own words alone, so every
+    caller gets what a launch of its own bucket gives. A fault of a
+    launch (its build, its launch, its copies) raises in every caller
+    whose bucket it carried; none is retried alone.
+
+    On the card the batch goes up and comes back through one staging
+    pair the queue keeps, only growing, and only its leader touches:
+    a pinned host buffer and a device buffer, each laid out [words in
+    (32 b) | words out (32 b) | rounds (b)] int32, so each way is one
+    copy, and the launch allocates nothing. On the CPU the leader runs
+    the plain version over the merged batch."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.cond = threading.Condition()
+        self.pending: list = []
+        self.busy = False
+        self.host = self.card = None
+
+    def close(self, words: np.ndarray) -> tuple:
+        """(closed words [b, 32], rounds [b]) of one bucket's [b, 32]
+        int32 words, through the next shared launch."""
+        mine = [words, None]  # [words, result or exception]
+        with self.cond:
+            self.pending.append(mine)
+            while self.busy and mine[1] is None:
+                self.cond.wait()
+            lead = mine[1] is None
+            if lead:
+                batch, self.pending, self.busy = self.pending, [], True
+        if lead:
+            try:
+                results = self._close([w for w, _ in batch])
+            except BaseException as e:  # every caller of the launch raises
+                results = [e] * len(batch)
+            with self.cond:
+                for sub, r in zip(batch, results):
+                    sub[1] = r
+                self.busy = False
+                self.cond.notify_all()
+        if isinstance(mine[1], BaseException):
+            raise mine[1]
+        return mine[1]
+
+    def _close(self, parts: list) -> list:
+        """One launch over the buckets `parts`; each one's results."""
+        b = sum(len(w) for w in parts)
+        rounds = rounds_for(MIN_PAD)
+        if self.dev.type != "cuda":
+            words = torch.from_numpy(np.concatenate(parts))
+            if CAPTURE is not None:
+                CAPTURE.append((words.view(b, 32, 1).clone(), MIN_PAD,
+                                rounds))
+            closed, taken = (t.numpy() for t in closure_word(words, rounds))
+        else:
+            closed, taken = self._staged(parts, b, rounds)
+        out, o = [], 0
+        for w in parts:
+            out.append((closed[o:o + len(w)], taken[o:o + len(w)]))
+            o += len(w)
+        return out
+
+    def _staged(self, parts: list, b: int, rounds: int) -> tuple:
+        """The merged batch through the staging pair: one upload, the
+        launch, one download and a sync; copies of the results."""
+        if self.host is None or self.host.numel() < 65 * b:
+            n = 65 * max(b, 2 * (0 if self.host is None
+                                 else self.host.numel() // 65), 64)
+            self.host = torch.empty(n, dtype=torch.int32, pin_memory=True)
+            self.card = torch.empty(n, dtype=torch.int32, device=self.dev)
+        host, card, h = self.host, self.card, self.host.numpy()
+        np.concatenate(parts, out=h[:32 * b].reshape(b, 32))
+        with torch.cuda.device(self.dev):
+            words = card[:32 * b].view(b, 32)
+            words.copy_(host[:32 * b].view(b, 32), non_blocking=True)
+            if CAPTURE is not None:
+                CAPTURE.append((words.view(b, 32, 1).clone(), MIN_PAD,
+                                rounds))
+            closure_word(words, rounds, out=card[32 * b:64 * b].view(b, 32),
+                         taken=card[64 * b:65 * b])
+            host[32 * b:65 * b].copy_(card[32 * b:65 * b], non_blocking=True)
+            torch.cuda.current_stream(self.dev).synchronize()
+        return h[32 * b:64 * b].reshape(b, 32).copy(), h[64 * b:65 * b].copy()
+
+
+_QUEUES: dict = {}
+_QUEUES_LOCK = threading.Lock()
+
+
+def _word_queue(dev: torch.device) -> _WordQueue:
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _QUEUES_LOCK:
+        q = _QUEUES.get(dev)
+        if q is None:
+            q = _QUEUES[dev] = _WordQueue(dev)
+        return q
+
+
+def close_words(words: np.ndarray, device=None) -> tuple:
+    """The one-word bucket's fixpoint of host words [b, 32] int32 (row i
+    of a matrix one word) on `device` (None = CUDA, raising when it is
+    absent; "cpu": the plain version), sharing its launch with the
+    buckets of every other caller on that device that arrive while a
+    launch is in flight (`_WordQueue`). Returns (closed words [b, 32],
+    rounds each matrix ran [b]), as closure_word_plain gives them."""
+    words = np.ascontiguousarray(words, dtype=np.int32)
+    if words.ndim != 2 or words.shape[1] != 32:
+        raise ValueError("close_words takes [b, 32] int32 words")
+    return _word_queue(resolve(device)).close(words)
 
 
 def unpack(words: torch.Tensor, p: int,
@@ -577,7 +738,10 @@ def _closure_block_mesh_plain(words0: torch.Tensor, p: int, devices):
     return _mesh_gather(shards, p, devs[0]), ran
 
 
-def _reach(adjs, dev, block, budget, on_closed=None) -> list:
+def _reach(adjs, dev, block, budget, on_closed=None, merge=False) -> list:
+    """The closures of `adjs` on `dev`, a pad bucket at a time through
+    `block`; with `merge`, the one-word bucket through `close_words`
+    (one launch shared with concurrent callers) instead."""
     adjs = [np.asarray(a, dtype=bool) for a in adjs]
     for a in adjs:
         if a.ndim != 2 or a.shape[0] != a.shape[1]:
@@ -593,12 +757,16 @@ def _reach(adjs, dev, block, budget, on_closed=None) -> list:
         if budget is not None and time.monotonic() >= budget:
             raise DeadlineExpired(
                 f"deadline passed before the pad-{p} bucket's closure")
-        words0 = torch.from_numpy(_pack([adjs[i] for i in idxs], p)).to(dev)
-        closed = block(words0, p).cpu().numpy()
-        for j, i in enumerate(idxs):
-            out[i] = _unpack(closed[j], adjs[i].shape[0])
+        words0 = _pack([adjs[i] for i in idxs], p)
+        if merge and p == MIN_PAD:
+            closed = close_words(words0[..., 0], dev)[0][..., None]
+        else:
+            closed = block(torch.from_numpy(words0).to(dev), p).cpu().numpy()
+        mats = _unpack_bucket(closed, [adjs[i].shape[0] for i in idxs])
+        for i, m in zip(idxs, mats):
+            out[i] = m
             if on_closed is not None:
-                on_closed(i, out[i])
+                on_closed(i, m)
     return out
 
 
@@ -619,10 +787,11 @@ def reach_batch(adjs, device=None, budget: float | None = None,
         raise ValueError("give device or devices, not both")
     if devices is None:
         return _reach(adjs, resolve(device), closure_block, budget,
-                      on_closed)
+                      on_closed, merge=True)
     devs = device_mod.devices(devices)
     if len(devs) < 2:
-        return _reach(adjs, devs[0], closure_block, budget, on_closed)
+        return _reach(adjs, devs[0], closure_block, budget, on_closed,
+                      merge=True)
     # the packed words stay on the host until they are sharded
     return _reach(adjs, torch.device("cpu"),
                   lambda w, p: _closure_block_mesh(w, p, devs), budget,

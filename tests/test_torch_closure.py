@@ -313,6 +313,196 @@ def test_shortest_cycle_path_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# One-word buckets of concurrent callers: one shared launch (close_words)
+
+def word_bucket(seed: int) -> list:
+    """1-4 seeded matrices of 1-32 nodes, and a 32-node one with edges
+    into column 31 (the sign bit of a word)."""
+    rng = np.random.default_rng(seed)
+    mats = [digraph(int(rng.integers(1, 33)), float(rng.random()) * 0.3,
+                    seed * 10 + j) for j in range(int(rng.integers(1, 5)))]
+    a = digraph(32, 0.08, seed * 10 + 9)
+    a[rng.integers(32, size=3), 31] = True
+    return mats + [a]
+
+
+def old_pack(mats, p: int) -> np.ndarray:
+    """The host packing as it was: one np.packbits a matrix."""
+    out = np.zeros((len(mats), p, p // 8), dtype=np.uint8)
+    for j, a in enumerate(mats):
+        if a.shape[0]:
+            bits = np.packbits(a, axis=1, bitorder="little")
+            out[j, :a.shape[0], :bits.shape[1]] = bits
+    return out.view("<i4")
+
+
+def old_unpack(words: np.ndarray, n: int) -> np.ndarray:
+    by = np.ascontiguousarray(words[:n]).view(np.uint8)
+    return np.unpackbits(by, axis=1, count=n, bitorder="little").astype(bool)
+
+
+class Launches:
+    """closure.closure_word wrapped: counts the calls (each one launch,
+    on the card) and their batch sizes; the first call waits until
+    `hold` more buckets are pending on the CPU's queue (so they arrive
+    while it is in flight); `fail` maps a call number to the exception
+    that call raises."""
+
+    def __init__(self, monkeypatch, hold: int = 0, fail=None):
+        self.real, self.sizes, self.hold = closure.closure_word, [], hold
+        self.fail = fail or {}
+        self.queue = closure._word_queue(torch.device("cpu"))
+        monkeypatch.setattr(closure, "closure_word", self)
+
+    def __call__(self, words, rounds, **kw):
+        self.sizes.append(words.shape[0])
+        if len(self.sizes) == 1:
+            t_end = time.monotonic() + 30
+            while len(self.queue.pending) < self.hold:
+                assert time.monotonic() < t_end, "callers never queued"
+                time.sleep(0.001)
+        if len(self.sizes) in self.fail:
+            raise self.fail[len(self.sizes)]
+        return self.real(words, rounds, **kw)
+
+
+def burst(n: int, fn) -> list:
+    """fn(i) in n threads released together by a barrier: each one's
+    result or exception."""
+    import threading
+
+    gate, out = threading.Barrier(n), [None] * n
+
+    def run(i):
+        gate.wait()
+        try:
+            out[i] = fn(i)
+        except BaseException as e:  # noqa: BLE001
+            out[i] = e
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in ts)
+    return out
+
+
+@pytest.mark.parametrize("entry", ["close_words", "reach_batch"])
+def test_concurrent_word_buckets_share_a_launch(monkeypatch, entry):
+    """Eight callers released together: the first leads alone, the seven
+    that arrive while its launch is in flight share the next one (two
+    launches). Each caller gets the closed words and per-matrix rounds
+    of closure_word_plain on its own bucket, and the closures of the JAX
+    package's reach_batch on its matrices."""
+    n = 8
+    buckets = [word_bucket(200 + i) for i in range(n)]
+    words = [closure._pack(m, 32)[..., 0] for m in buckets]
+    calls = Launches(monkeypatch, hold=n - 1)
+    if entry == "close_words":
+        got = burst(n, lambda i: closure.close_words(words[i], "cpu"))
+    else:
+        got = burst(n, lambda i: closure.reach_batch(buckets[i], "cpu"))
+    assert len(calls.sizes) == 2
+    assert calls.sizes[0] in {len(m) for m in buckets}
+    assert sum(calls.sizes) == sum(len(m) for m in buckets)
+    for i in range(n):
+        assert not isinstance(got[i], BaseException), got[i]
+        if entry == "close_words":
+            w, t = closure.closure_word_plain(torch.from_numpy(words[i]), 6)
+            assert np.array_equal(got[i][0], w.numpy())
+            assert np.array_equal(got[i][1], t.numpy())
+        else:
+            for g, j, a in zip(got[i], closure_tpu.reach_batch(buckets[i]),
+                               buckets[i]):
+                assert np.array_equal(g, j) and np.array_equal(g, warshall(a))
+    assert not calls.queue.pending and not calls.queue.busy
+
+
+@pytest.mark.parametrize("fault", ["kernel", "cuda_runtime"])
+def test_fault_of_a_merged_launch_reaches_every_caller(monkeypatch, fault):
+    """The second launch carries seven callers' buckets and fails: each
+    of the seven raises that fault (a card fault by checker.is_fault),
+    none is retried alone (two launches in all), and the first caller,
+    whose launch ran, has its closures."""
+    from jepsen_tpu_torch.checker import is_fault
+    from jepsen_tpu_torch.device import KernelError
+
+    err = (KernelError("closure_word kernel launch failed: cudaError 700")
+           if fault == "kernel" else
+           RuntimeError("CUDA error: an illegal memory access was "
+                         "encountered"))
+    n = 8
+    buckets = [word_bucket(300 + i) for i in range(n)]
+    calls = Launches(monkeypatch, hold=n - 1, fail={2: err})
+    got = burst(n, lambda i: closure.reach_batch(buckets[i], "cpu"))
+    assert len(calls.sizes) == 2
+    ok = [i for i in range(n) if not isinstance(got[i], BaseException)]
+    assert len(ok) == 1 and calls.sizes[0] == len(buckets[ok[0]])
+    assert all(np.array_equal(g, warshall(a))
+               for g, a in zip(got[ok[0]], buckets[ok[0]]))
+    for i in set(range(n)) - set(ok):
+        assert got[i] is err and is_fault(got[i])
+    assert not calls.queue.pending and not calls.queue.busy
+
+
+def test_lone_caller_launches_once_and_never_waits(monkeypatch):
+    """A caller alone leads at once: one launch, no wait on the queue."""
+    import threading
+
+    calls = Launches(monkeypatch)
+    waits = []
+
+    class Cond(type(threading.Condition())):
+        def wait(self, timeout=None):
+            waits.append(timeout)
+            return super().wait(timeout)
+
+    monkeypatch.setattr(calls.queue, "cond", Cond())
+    mats = word_bucket(400)
+    out = closure.reach_batch(mats, device="cpu")
+    assert calls.sizes == [len(mats)] and waits == []
+    assert all(np.array_equal(o, warshall(a)) for o, a in zip(out, mats))
+
+
+def test_deadline_raises_before_anything_is_submitted(monkeypatch):
+    monkeypatch.setattr(closure, "close_words", lambda *a: pytest.fail(
+        "a bucket was submitted past the deadline"))
+    with pytest.raises(closure.DeadlineExpired):
+        closure.reach_batch(word_bucket(500), device="cpu",
+                            budget=time.monotonic() - 1)
+
+
+@pytest.mark.parametrize("p", [32, 64, 128, 512, 1024])
+def test_one_pass_pack_matches_old_and_jax(p):
+    """_pack (one np.packbits a bucket) is byte-identical to the packing
+    one matrix at a time and to the JAX package's `_pack`, at every pad
+    size this file tests, over buckets of mixed sizes (a lone matrix,
+    an empty one among them); _unpack_bucket (one np.unpackbits a
+    bucket) gives each matrix as the old unpacking did."""
+    rng = np.random.default_rng(p)
+    lo = p // 2 + 1 if p > 32 else 1
+    mats = [digraph(int(rng.integers(lo, p + 1)), 0.1, p + j)
+            for j in range(3)]
+    mats[0][:, -1] = True  # the last column: bit 31 of a word at p 32
+    for bucket in (mats, mats[:1], [np.zeros((0, 0), dtype=bool)] + mats):
+        words = closure._pack(bucket, p)
+        old = old_pack(bucket, p)
+        assert words.dtype == old.dtype and words.tobytes() == old.tobytes()
+        batch = np.zeros((len(bucket), p, p), dtype=np.float32)
+        for j, a in enumerate(bucket):
+            batch[j, :a.shape[0], :a.shape[0]] = a
+        jw = np.array(closure_tpu._pack(batch)).view(np.int32)
+        assert words.tobytes() == jw.tobytes()
+        ns = [a.shape[0] for a in bucket]
+        for got, w, a in zip(closure._unpack_bucket(words, ns), words,
+                             bucket):
+            assert np.array_equal(got, old_unpack(w, a.shape[0]))
+            assert np.array_equal(got, a)
+
+
+# ---------------------------------------------------------------------------
 # On the card (skipped without CUDA: the kernels have no CPU build)
 
 @pytest.fixture
@@ -354,6 +544,22 @@ def test_cuda_kernels_match_plain(cuda):
     assert torch.equal(k, p) and int(flags[0]) == int(flags[1]) == 1
     assert torch.equal(ops[0], ops[1])
     assert torch.equal(ops[0], closure.unpack_plain(k, 512))
+
+
+def test_cuda_shared_launches_match_plain(cuda):
+    """Callers released together on the card share closure_word
+    launches (fewer than callers, through the pinned staging pair), and
+    each gets closure_word_plain's words and rounds on its own bucket."""
+    n = 16
+    words = [closure._pack(word_bucket(600 + i), 32)[..., 0]
+             for i in range(n)]
+    before = closure.LAUNCHES["closure_word"]
+    got = burst(n, lambda i: closure.close_words(words[i], cuda))
+    assert 0 < closure.LAUNCHES["closure_word"] - before < n
+    for w, g in zip(words, got):
+        pw, pt = closure.closure_word_plain(torch.from_numpy(w), 6)
+        assert np.array_equal(g[0], pw.numpy())
+        assert np.array_equal(g[1], pt.numpy())
 
 
 def test_launch_count_under_threads():

@@ -170,7 +170,8 @@ def test_threshold_pass_refuses_no_operand(emu, monkeypatch):
 
 def test_closure_word(emu):
     """The one-word bucket: 40 matrices of 2-32 nodes, column 31 set in
-    some, and a 32-node path (six rounds), words and rounds as plain."""
+    some, and a 32-node path (six rounds), words and rounds as plain;
+    then a merged batch of three callers' buckets over several blocks."""
     rng = np.random.default_rng(60)
     mats = []
     for i in range(40):
@@ -190,6 +191,28 @@ def test_closure_word(emu):
     want, want_t = closure.closure_word_plain(words, rounds)
     assert torch.equal(out, want) and torch.equal(taken, want_t)
     assert taken.tolist()[-1] == 6 and bool((out < 0).any())
+    # a merged batch, as close_words launches it: these words and two
+    # more callers' buckets in one launch of 97 matrices (13 blocks of 8
+    # warps); each caller's rows and rounds are those of closure_word_plain
+    # on its own bucket
+    parts = [words] + [
+        torch.from_numpy(closure._pack(
+            [rng.random((n, n)) < 0.1
+             for n in rng.integers(2, 33, size=size)], 32)[..., 0].copy())
+        for size in (31, 25)]
+    merged = torch.cat(parts)
+    out = torch.full_like(merged, 7)
+    taken = torch.full((merged.shape[0],), -1, dtype=torch.int32)
+    assert merged.shape[0] == 97
+    assert emu.closure_word_launch(merged.data_ptr(), out.data_ptr(),
+                                   taken.data_ptr(), merged.shape[0], rounds,
+                                   None) == 0
+    o = 0
+    for part in parts:
+        want, want_t = closure.closure_word_plain(part, rounds)
+        assert torch.equal(out[o:o + len(part)], want)
+        assert torch.equal(taken[o:o + len(part)], want_t)
+        o += len(part)
 
 
 @pytest.mark.parametrize("p", [64, 128])

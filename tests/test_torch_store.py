@@ -274,7 +274,16 @@ def test_cycle_journal_and_timeline_match_jax(tmp_path, monkeypatch):
         calls.append(p)
         return real(words0, p)
 
+    # the one-word bucket goes through close_words, the others through
+    # closure_block: both counted
+    real_words = closure.close_words
+
+    def counted_words(words, device=None):
+        calls.append(32)
+        return real_words(words, device)
+
     monkeypatch.setattr(closure, "closure_block", counted)
+    monkeypatch.setattr(closure, "close_words", counted_words)
     monkeypatch.chdir(tmp_path)
     os.makedirs("t")
     os.makedirs("j")
@@ -328,7 +337,17 @@ def test_classify_journals_closures_before_a_deadline(monkeypatch):
         monkeypatch.setattr(closure, "time", Late)
         return real(words0, p)
 
+    # the one-word bucket is closed through close_words (a launch shared
+    # with concurrent callers), the others through closure_block
+    real_words = closure.close_words
+
+    def words_once_then_late(words, device=None):
+        seen.append(32)
+        monkeypatch.setattr(closure, "time", Late)
+        return real_words(words, device)
+
     monkeypatch.setattr(closure, "closure_block", once_then_late)
+    monkeypatch.setattr(closure, "close_words", words_once_then_late)
     with pytest.raises(closure.DeadlineExpired):
         anomalies.classify(g, device="cpu", journal=j, budget=1e17)
     monkeypatch.undo()

@@ -13,6 +13,7 @@ given."""
 import json
 import os
 import random
+import time
 
 import pytest
 import torch
@@ -355,6 +356,33 @@ def test_seeded_causal(seed):
     r = same(jcausal.test({})["checker"], causal.checker(device="cpu"), h)
     assert sorted(r["failures"]) == list(range(0, SEEDED_KEYS,
                                                chip_smoke.PLANT_EVERY))
+
+
+def test_causal_keys_share_word_launches(monkeypatch):
+    """causal's checker checks a key a thread: with each closure_word
+    launch held 10 ms, the keys that submit their one-word buckets
+    meanwhile share the next launch (fewer launches than buckets, every
+    matrix in one), and the dict is still the JAX package's."""
+    from jepsen_tpu_torch.ops import closure
+
+    real, real_close, sizes, subs = (closure.closure_word,
+                                     closure.close_words, [], [])
+
+    def slow(words, rounds, **kw):
+        sizes.append(words.shape[0])
+        time.sleep(0.01)
+        return real(words, rounds, **kw)
+
+    def counted(words, device=None):
+        subs.append(len(words))
+        return real_close(words, device)
+
+    monkeypatch.setattr(closure, "closure_word", slow)
+    monkeypatch.setattr(closure, "close_words", counted)
+    h = chip_smoke.causal_history(32, 2)
+    r = same(jcausal.test({})["checker"], causal.checker(device="cpu"), h)
+    assert sorted(r["failures"]) == [0]
+    assert sum(sizes) == sum(subs) and 0 < len(sizes) < len(subs)
 
 
 # ---------------------------------------------------------------------------
